@@ -7,28 +7,39 @@ Run from the root of a checkout, with no arguments:
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
-1. The card (``nvidia-smi`` name and power limit) and the build of every CUDA
-   source of the main path (csrc/*.cu, one nvcc each, all at once) into
-   build/pine_tpu_torch/.
-2. Kernel against its plain PyTorch version on the card: the dense traversal
-   for each of the nine prim types, closest-hit and any-hit, groups of 1, 16
-   and 424 prims, plus the benchmark Cornell box's own three groups; 65,536
-   rays with dead lanes, far-away lanes and a prepared running best.
-3. Render parity: the reduced Cornell box (36 cones) at 64x64, 4 spp, depth 4,
-   rendered by the port on the card (kernel) and on the CPU (plain version).
-4. The main path at full width: the benchmark Cornell box (420 cones) at
-   640x640, BlueSampler(16), depth 4, through ``Scene.compile`` and
-   ``render_wavefront`` on the card.  The launch counts are zeroed just before
-   one render and read just after; every kernel of the path must have run.
-   The kernel line times each kernel form on the inputs that render gives it.
+1. The card (``nvidia-smi`` name and power limit) and the build of every
+   source: the CUDA kernels (csrc/*.cu, one nvcc each, all at once) and the
+   host SAH builder (csrc/bvh_builder.cpp, g++) into build/pine_tpu_torch/.
+2. Kernel against its plain PyTorch version on the card, 65,536 rays with dead
+   lanes, far-away lanes and a prepared running best:
+   a. the dense traversal for each of the nine prim types, closest-hit and
+      any-hit, groups of 1, 16 and 424 prims, plus the benchmark Cornell
+      box's own three groups;
+   b. the grid traversal on triangle soups of 300 (no coarse level), 3,000
+      and 20,000 triangles and on the 99,458-triangle terrain's own group.
+      Lanes may differ where a cull decides at a box face; at most
+      GRID_MISMATCH_SHARE of them, and the counts are printed.
+3. Render parity, card (kernels) against CPU (plain versions): the reduced
+   Cornell box (36 cones) and the reduced terrain (grid 40, 3,042 triangles,
+   the card also with the coherence sort forced on), 64x64, 4 spp, depth 4.
+4. The main paths at full width, 640x640, BlueSampler(16), depth 4, through
+   ``Scene.compile`` and ``render_wavefront`` on the card: the benchmark
+   Cornell box (420 cones), then the mesh benchmark's terrain (99,458
+   triangles, one rect light).  For each, the launch counts are zeroed just
+   before one render and read just after, and every kernel of that path must
+   have run; then a profile of a 2-spp render.  The kernel line times each
+   kernel form on every launch the main path gives it in a 1-spp render; on
+   the terrain also with the coherence sort's permutation undone, beside
+   the device time of the sort itself.
 
-Per-case records and the full-width image go to build/chip_smoke/.  The
+Per-case records and the full-width images go to build/chip_smoke/.  The
 last line is ``{"ok": true, "device": {...}}``.  Without a GPU, or
 without the rest of the repository beside this file, it exits with code 2
 and prints no result.
 """
 from __future__ import annotations
 
+import importlib
 import json
 import os
 import subprocess
@@ -36,15 +47,15 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")  # per-case records, the image
+OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")  # per-case records, the images
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA data sheet).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
-# FP32 operations of one prim test as csrc/dense_traverse.cu writes it (add,
+# FP32 operations of one prim test as csrc/prim_tests.cuh writes it (add,
 # sub, mul, div, sqrt, min, max; compares and selects not counted), and of
-# the per-ray group-box cull.
+# the dense kernel's per-ray group-box cull.
 TEST_OPS = {0: 23, 1: 35, 2: 29, 3: 14, 4: 30, 5: 106, 6: 52, 7: 56, 8: 68}
 CULL_OPS = 30
 TYPE_NAMES = {0: "sphere", 1: "rect", 2: "disk", 3: "plane", 4: "aabb", 5: "obb",
@@ -52,7 +63,18 @@ TYPE_NAMES = {0: "sphere", 1: "rect", 2: "disk", 3: "plane", 4: "aabb", 5: "obb"
 
 T_RTOL, T_ATOL = 1e-5, 1e-6  # as tests/test_torch_dense_kernel.py
 N_RAYS = 65536
-MAIN_SIZE, MAIN_SPP, MAIN_DEPTH = 640, 16, 4  # bench.py's configuration
+MAIN_SIZE, MAIN_SPP, MAIN_DEPTH = 640, 16, 4  # bench.py's and bench_mesh.py's configuration
+GRID_MISMATCH_SHARE = 1e-4  # lanes where the grid kernel may differ from grid_plain
+
+# kind -> (module under pine_tpu_torch.accel, kernel wrapper, plain version,
+# the group's table for it, kernel source, the TPU kernel it replaces)
+KERNELS = {
+    "dense": ("dense_traverse", "dense_cuda", "dense_plain", "gbox",
+              "pine_tpu_torch/csrc/dense_traverse.cu", "pine_tpu/accel/pallas_traverse.py:389"),
+    "grid": ("grid_traverse", "grid_cuda", "grid_plain", "grid",
+             "pine_tpu_torch/csrc/grid_traverse.cu", "pine_tpu/accel/pallas_traverse.py:791"),
+}
+ALLOWED_SHARE = {"dense": 0.0, "grid": GRID_MISMATCH_SHARE}  # lanes that may differ
 
 
 def emit(obj):
@@ -77,6 +99,48 @@ def cuda_ms(fn, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def module(kind):
+    return importlib.import_module("pine_tpu_torch.accel." + KERNELS[kind][0])
+
+
+def launch(kind, g, args, any_hit, plain=False, **kw):
+    """One group's query through the kernel (or its plain version)."""
+    _, wrapper, plain_fn, table = KERNELS[kind][:4]
+    fn = getattr(module(kind), plain_fn if plain else wrapper)
+    return fn(g["tid"], g["rows"], g[table], *args, any_hit, **kw)
+
+
+def group_sig(g):
+    """(kernel kind, prim type, prims) of one compiled group."""
+    if "grid" in g:
+        return ("grid", g["tid"], g["grid"]["n_prims"])
+    return ("dense", g["tid"], int(g["rows"].shape[0]))
+
+
+def check_outputs(kind, out_k, out_p):
+    """Kernel vs plain outputs -> (max |t error|, t mismatches, id mismatches,
+    lanes that differ, lanes allowed to differ)."""
+    import torch
+
+    (t_k, e_k), (t_p, e_p) = out_k, out_p
+    close = torch.isclose(t_k, t_p, rtol=T_RTOL, atol=T_ATOL) | (t_k == t_p)
+    return (float((t_k - t_p).abs().max()), int((~close).sum()), int((e_k != e_p).sum()),
+            int((~close | (e_k != e_p)).sum()), ALLOWED_SHARE[kind] * t_k.shape[0])
+
+
+def timed_plain(kind, g, args, any_hit, counts=None):
+    """The plain version once, under CUDA events -> (outputs, ms)."""
+    import torch
+
+    kw = {"counts": counts} if counts is not None else {}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = launch(kind, g, args, any_hit, plain=True, **kw)
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 # ---------------------------------------------------------------- phase 2 ----
@@ -137,35 +201,37 @@ def random_rays(rng, dev, n_prims):
     return dict(ro=t(ro), rd=t(rd), tmin=t(tmin), tmax=t(tmax), bt=t(bt), be=t(be), occ=t(occ))
 
 
-def compare(DT, g, args, any_hit, time_it):
-    """Kernel vs plain on one group and one set of inputs -> record."""
-    import torch
+def ray_args(r, any_hit):
+    state = (r["tmax"], r["occ"]) if any_hit else (r["bt"], r["be"])
+    return (r["ro"], r["rd"], r["tmin"], r["tmax"], *state)
 
-    run_k = lambda: DT.dense_cuda(g["tid"], g["rows"], g["gbox"], *args, any_hit)  # noqa: E731
-    run_p = lambda: DT.dense_plain(g["tid"], g["rows"], g["gbox"], *args, any_hit)  # noqa: E731
-    t_k, e_k = run_k()
-    t_p, e_p = run_p()
-    torch.cuda.synchronize()
-    close = torch.isclose(t_k, t_p, rtol=T_RTOL, atol=T_ATOL) | (t_k == t_p)
+
+def compare(kind, g, args, any_hit, time_it, what):
+    """Kernel vs plain on one group and one set of inputs -> record."""
+    out_k = launch(kind, g, args, any_hit)
+    out_p, plain_ms = timed_plain(kind, g, args, any_hit)
+    err, t_bad, e_bad, differ, allowed = check_outputs(kind, out_k, out_p)
+    t_k, e_k = out_k
     rec = dict(
-        type=TYPE_NAMES[g["tid"]], rows=int(g["rows"].shape[0]),
+        group=what, type=TYPE_NAMES[g["tid"]], rows=int(g["rows"].shape[0]),
         form="any_hit" if any_hit else "closest", rays=int(t_k.shape[0]),
-        max_abs_err=float((t_k - t_p).abs().max()),
-        t_mismatch=int((~close).sum()), id_mismatch=int((e_k != e_p).sum()),
+        max_abs_err=err, t_mismatch=t_bad, id_mismatch=e_bad, lanes_differ=differ,
+        hits=int((e_k > 0).sum()) if any_hit else int((t_k < 1e30).sum()),
     )
+    if kind == "grid":
+        rec["coarse"] = bool(g["grid"]["use_coarse"])
     if time_it:
-        rec["ms"] = cuda_ms(run_k, 20)
-        rec["plain_ms"] = cuda_ms(run_p, 2)
-    if rec["t_mismatch"] or rec["id_mismatch"]:
-        fail(f"kernel disagrees with its plain version: {rec}")
+        rec["ms"] = cuda_ms(lambda: launch(kind, g, args, any_hit), 20)
+        rec["plain_ms"] = plain_ms
+    if differ > allowed:
+        fail(f"{kind} kernel disagrees with its plain version beyond {allowed:g} lanes: {rec}")
     return rec
 
 
-def phase_kernel_vs_plain(dev):
+def phase_dense_vs_plain(dev):
     import numpy as np
 
     from pine_tpu_torch import scenes
-    from pine_tpu_torch.accel import dense_traverse as DT
     from pine_tpu_torch.accel.packet import build_packet_accel
     from pine_tpu_torch.convert import scene_arrays, upload_group
     from pine_tpu_torch.core import vecmath as V
@@ -183,9 +249,8 @@ def phase_kernel_vs_plain(dev):
             g = upload_group(g, dev)
             r = random_rays(rng, dev, n)
             for any_hit in (False, True):
-                state = (r["tmax"], r["occ"]) if any_hit else (r["bt"], r["be"])
-                args = (r["ro"], r["rd"], r["tmin"], r["tmax"], *state)
-                recs.append(compare(DT, g, args, any_hit, time_it=(n == 424)))
+                recs.append(compare("dense", g, ray_args(r, any_hit), any_hit,
+                                    time_it=(n == 424), what=f"{TYPE_NAMES[tid]}[{n}]"))
     # the benchmark box's own groups, fed rays from inside the box
     a = scene_arrays(scenes.cbox())
     rng = np.random.default_rng(7)
@@ -195,33 +260,79 @@ def phase_kernel_vs_plain(dev):
         keys = ("tid", "kind", "base", "rows", "prim_aabbs", "lattice")
         g = upload_group({k: a[f"group.{i}.{k}"] for k in keys}, dev)
         for any_hit in (False, True):
-            state = (r["tmax"], r["occ"]) if any_hit else (r["bt"], r["be"])
-            args = (r["ro"], r["rd"], r["tmin"], r["tmax"], *state)
-            rec = compare(DT, g, args, any_hit, time_it=True)
-            rec["group"] = f"cbox.{i}"
-            recs.append(rec)
+            recs.append(compare("dense", g, ray_args(r, any_hit), any_hit, time_it=True,
+                                what=f"cbox.{i}"))
+    return recs
+
+
+def triangle_soup(n_tri, seed):
+    """A random triangle soup in the unit cube, as one Mesh: smaller
+    triangles for larger soups, so a ray meets a few dozen either way."""
+    import numpy as np
+
+    from pine_tpu_torch.scene import shapes as S
+
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(-1, 1, (n_tri, 3)).astype(np.float32)
+    half = 2.0 / n_tri ** (1 / 3)
+    tris = c[:, None, :] + rng.uniform(-half, half, (n_tri, 3, 3)).astype(np.float32)
+    return S.Mesh(tris.reshape(-1, 3), np.arange(3 * n_tri).reshape(-1, 3))
+
+
+def phase_grid_vs_plain(dev):
+    import numpy as np
+
+    from pine_tpu_torch import scenes
+    from pine_tpu_torch.accel import grid_traverse as GT
+    from pine_tpu_torch.accel.packet import build_packet_accel
+    from pine_tpu_torch.convert import upload_group
+
+    cases = []
+    for n_tri in (300, 3000, 20000):
+        (g,) = build_packet_accel([], [(triangle_soup(n_tri, n_tri), 0)])["groups"]
+        g = upload_group(g, dev)
+        # a soup of 300 takes the dense kernel in a scene; test the grid anyway
+        g["grid"] = GT.upload_layout(GT.grid_layout(g["prim_aabbs"]), dev)
+        cases.append((f"soup{n_tri}", g, np.random.default_rng(n_tri + 1), None))
+    cs = scenes.terrain().compile(dev)
+    (g,) = [g for g in cs.unified["groups"] if "grid" in g]
+    # rays around the terrain's box: x in [-4, 4], y about [-2, 2], z in [0, 8]
+    cases.append(("terrain", g, np.random.default_rng(5), ((1.3, 0.6, 1.3), (0.0, 0.5, 4.0))))
+    recs = []
+    for what, g, rng, remap in cases:
+        r = random_rays(rng, dev, g["grid"]["n_prims"])
+        if remap:
+            r["ro"] = (r["ro"] * r["ro"].new_tensor(remap[0]) + r["ro"].new_tensor(remap[1]))
+            r["ro"] = r["ro"].contiguous()
+        for any_hit in (False, True):
+            recs.append(compare("grid", g, ray_args(r, any_hit), any_hit,
+                                time_it=what in ("soup20000", "terrain"), what=what))
     return recs
 
 
 # ---------------------------------------------------------------- phase 3 ----
 
-def phase_render_parity():
+def render_parity(what, make_scene, force_sort=False):
+    """Render ``make_scene()`` at 64x64x4spp depth 4 on the card and on the
+    CPU and hold them to the port's render criteria."""
     import numpy as np
 
-    from pine_tpu_torch import scenes
     from pine_tpu_torch.core.samplers import BlueSampler
     from pine_tpu_torch.integrators.path import render_wavefront
 
     out = {}
     for dev in ("cuda", "cpu"):
-        sc = scenes.cbox((64, 64), (-0.3, 0.1, 0.3), (0.5, 0.1, 1.0))
+        sc = make_scene()
         cs = sc.compile(dev)
+        if dev == "cuda" and force_sort:
+            cs.heavy_traversal = True  # the coherence sort, as on the full terrain
         img, st = render_wavefront(cs, sc.camera, 64, 64, BlueSampler(4), 4, 4, return_stats=True)
         out[dev] = (img.cpu().numpy(), st["traced_rays"])
     (g, rg), (c, rc) = out["cuda"], out["cpu"]
     d = np.abs(g - c)
     agree = ((d <= 1e-3 * np.abs(c)) | (d <= 1e-4)).all(-1).mean()
-    rec = dict(phase="render_parity", size="64x64x4spp depth 4", pixels_agree=float(agree),
+    rec = dict(phase="render_parity", scene=what, sort_forced=force_sort,
+               size="64x64x4spp depth 4", pixels_agree=float(agree),
                mean_cuda=float(g.mean()), mean_cpu=float(c.mean()),
                rays_cuda=int(rg), rays_cpu=int(rc), finite=bool(np.isfinite(g).all()))
     emit(rec)
@@ -230,45 +341,23 @@ def phase_render_parity():
         fail(f"card render disagrees with the CPU render: {rec}")
 
 
+def phase_render_parity():
+    from pine_tpu_torch import scenes
+
+    render_parity("reduced cbox, 36 cones",
+                  lambda: scenes.cbox((64, 64), (-0.3, 0.1, 0.3), (0.5, 0.1, 1.0)))
+    for force_sort in (False, True):
+        render_parity("reduced terrain, grid 40", lambda: scenes.terrain((64, 64), 40),
+                      force_sort)
+
+
 # ---------------------------------------------------------------- phase 4 ----
 
-def kernel_line_entry(DT, name, calls, launches):
-    """Time one kernel form on the recorded main-path calls (one per group)."""
+def dense_work(g, args, any_hit):
+    """(FP32 operations, bytes, counts) of one dense call on these inputs."""
     import torch
 
-    ms = plain_ms = bound = err = 0.0
-    ops = nbytes = 0
-    live_rays = []
-    for g, args, any_hit in calls:
-        ms += cuda_ms(lambda: DT.dense_cuda(g["tid"], g["rows"], g["gbox"], *args, any_hit), 20)
-        plain_ms += cuda_ms(lambda: DT.dense_plain(g["tid"], g["rows"], g["gbox"], *args, any_hit), 2)
-        t_k, e_k = DT.dense_cuda(g["tid"], g["rows"], g["gbox"], *args, any_hit)
-        t_p, e_p = DT.dense_plain(g["tid"], g["rows"], g["gbox"], *args, any_hit)
-        if not torch.equal(e_k, e_p):
-            fail(f"{name}: ids disagree with the plain version on main-path inputs")
-        err = max(err, float((t_k - t_p).abs().max()))
-        c_ops, c_bytes, c_live = work(DT, g, args, any_hit)
-        live_rays.append(c_live)
-        ops += c_ops
-        nbytes += c_bytes
-        bound += max(c_bytes / HBM_BYTES_PER_S, c_ops / FP32_OPS_PER_S) * 1e3
-    return dict(
-        name=name, route="cuda", source="pine_tpu_torch/csrc/dense_traverse.cu",
-        replaces="pine_tpu/accel/pallas_traverse.py:389",
-        launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-        bound_by="operations" if ops / FP32_OPS_PER_S > nbytes / HBM_BYTES_PER_S else "bytes",
-        library_ms=None,
-        inputs=" + ".join(f"{TYPE_NAMES[g['tid']]}[{g['rows'].shape[0]}]" for g, _, _ in calls)
-        + f" x {calls[0][1][0].shape[0]} rays",
-        live_rays=live_rays,
-    )
-
-
-def work(DT, g, args, any_hit):
-    """(FP32 operations, bytes, rays that reach the group box) of one call
-    on these inputs."""
-    import torch
-
+    DT = module("dense")
     ro, rd, tmin, tmax, bt, be = args
     n = ro.shape[0]
     o = (ro[:, 0], ro[:, 1], ro[:, 2])
@@ -287,14 +376,87 @@ def work(DT, g, args, any_hit):
         n_tests = int(tests.sum())
         words_in = 10  # ro, rd, tmin, tmax, bt, be
     else:
-        n_tests = int(live.sum()) * n_rows
+        n_tests = int(live.sum()) * n_rows  # a dense sweep tests every row
         words_in = 9  # ro, rd, tmin, bt, be
     ops = n * CULL_OPS + n_tests * TEST_OPS[g["tid"]]
     nbytes = n * (words_in + 2) * 4 + rows.numel() * 4 + 24
-    return ops, nbytes, int(live.sum())
+    return ops, nbytes, dict(live_rays=int(live.sum()), prim_tests=n_tests)
 
 
-def profile_render(render):
+def grid_work(g, args, any_hit, out_p, counts):
+    """(FP32 operations, bytes, counts) of one grid call on these inputs.
+    ``counts`` are grid_plain's, in row order.  Closest-hit: the bound takes
+    the order-free minimum instead, the culls rerun with each lane's final t
+    as the window, which no visit order can undercut.  Any-hit: the tests up
+    to each lane's first hit in row order."""
+    GT = module("grid")
+    grid = g["grid"]
+    n = args[0].shape[0]
+    need = counts
+    if not any_hit:
+        need = {}
+        GT.grid_plain(g["tid"], g["rows"], grid, *args[:4], *out_p, False, counts=need)
+    ops = n * 3 + need["slabs"] * GT.SLAB_OPS + need["tests"] * TEST_OPS[g["tid"]]
+    table_bytes = g["rows"].numel() * 4 + sum(grid[k].numel() * 4 for k in (
+        "coarse_boxes", "sc_boxes", "cell_boxes", "c_order8", "s_order8"))
+    nbytes = n * ((10 if any_hit else 9) + 2) * 4 + table_bytes
+    return ops, nbytes, dict(slab_tests=counts["slabs"], prim_tests=counts["tests"],
+                             min_slab_tests=need["slabs"], min_prim_tests=need["tests"])
+
+
+def kernel_line_entry(kind, form, calls, launches):
+    """Time one kernel form on the recorded main-path launches (every launch
+    of one 1-spp render).  ms, plain_ms and bound_ms are means per launch;
+    the work counts are sums over the launches.  Launches that ran under the
+    coherence sort are timed again with the permutation undone."""
+    any_hit = form == "any_hit"
+    ms_each, unsorted_each = [], []
+    plain_ms = bound = err = 0.0
+    ops = nbytes = differ = 0
+    sums = {}
+    for g, args, inv in calls:
+        ms_each.append(cuda_ms(lambda: launch(kind, g, args, any_hit), 10))
+        if inv is not None:
+            unsorted = tuple(x[inv] for x in args)
+            unsorted_each.append(cuda_ms(lambda: launch(kind, g, unsorted, any_hit), 10))
+        else:
+            unsorted_each.append(ms_each[-1])
+        counts = {} if kind == "grid" else None
+        out_p, p_ms = timed_plain(kind, g, args, any_hit, counts)
+        plain_ms += p_ms
+        c_err, _, _, c_differ, allowed = check_outputs(kind, launch(kind, g, args, any_hit), out_p)
+        if c_differ > allowed:
+            fail(f"{kind}.{form}: {c_differ} lanes disagree with the plain version "
+                 "on main-path inputs")
+        err, differ = max(err, c_err), differ + c_differ
+        if kind == "grid":
+            c_ops, c_bytes, c = grid_work(g, args, any_hit, out_p, counts)
+        else:
+            c_ops, c_bytes, c = dense_work(g, args, any_hit)
+        for key, v in c.items():
+            sums[key] = sums.get(key, 0) + v
+        ops += c_ops
+        nbytes += c_bytes
+        bound += max(c_bytes / HBM_BYTES_PER_S, c_ops / FP32_OPS_PER_S) * 1e3
+    k = len(calls)
+    groups = sorted({group_sig(g)[1:] for g, _, _ in calls})
+    entry = dict(
+        name=f"{KERNELS[kind][0]}.{form}", route="cuda", source=KERNELS[kind][4],
+        replaces=KERNELS[kind][5], launches=launches, max_abs_err=err,
+        ms=sum(ms_each) / k, plain_ms=plain_ms / k, bound_ms=bound / k,
+        bound_by="operations" if ops / FP32_OPS_PER_S > nbytes / HBM_BYTES_PER_S else "bytes",
+        library_ms=None,
+        inputs=" + ".join(f"{TYPE_NAMES[t]}[{r}]" for t, r in groups)
+        + f" x {calls[0][1][0].shape[0]} rays; means per launch over the {k} launches "
+          "of one 1-spp render, work counts summed over them",
+        ms_each=ms_each, lanes_differ=differ, **{f"{key}_sum": v for key, v in sums.items()},
+    )
+    if any(inv is not None for _, _, inv in calls):
+        entry.update(ms_unsorted=sum(unsorted_each) / k, ms_unsorted_each=unsorted_each)
+    return entry
+
+
+def profile_render(what, render):
     """Where a render's device time goes: torch.profiler over one render,
     kernel time by name, and the device's busy share of the host wall."""
     import torch
@@ -312,59 +474,86 @@ def profile_render(render):
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
     emit(dict(
-        phase="profile", what="one 2-spp render of the main path under torch.profiler",
+        phase="profile", scene=what,
+        what="one 2-spp render of the main path under torch.profiler",
         wall_ms=wall * 1e3, device_busy_ms=busy_ms,
         device_busy_share=busy_ms / (wall * 1e3) if busy_ms else "not measured",
         launches=sum(e.count for e in kernels),
-        dense_kernel_ms=sum(e.self_device_time_total for e in kernels
-                            if "dense_kernel" in e.key) / 1e3,
+        **{f"{k}_ms": sum(e.self_device_time_total for e in kernels if k in e.key) / 1e3
+           for k in ("dense_kernel", "grid_kernel")},
         top=[dict(name=e.key[:90], ms=e.self_device_time_total / 1e3, count=e.count)
              for e in top],
     ))
 
 
-def phase_main_path(dev_name):
+def record_launches(cs, kinds, render):
+    """Run ``render()`` with the wrappers of ``kinds`` recording every launch
+    -> ({(kind, any_hit): [(group, inputs, inv)]}, [sort_perm inputs]);
+    ``inv`` is the inverse of the coherence-sort permutation the launch ran
+    under (None when unsorted), so inputs[inv] are the rays unsorted."""
+    groups = cs.unified["groups"]
+    recorded = {(kind, any_hit): [] for kind in kinds for any_hit in (False, True)}
+    sorts = []
+    current = {"inv": None}
+    real_sort = cs.sort_perm
+
+    def sort_recorder(ro, rd, dead):
+        perm = real_sort(ro, rd, dead)
+        if perm is not None:
+            sorts.append((ro.clone(), rd.clone(), dead.clone()))
+        current["inv"] = None if perm is None else perm[1]
+        return perm
+
+    reals = {kind: getattr(module(kind), KERNELS[kind][1]) for kind in kinds}
+
+    def recorder(kind):
+        def rec(tid, rows, table, ro, rd, tmin, tmax, best_t, best_e, any_hit):
+            g = next(g for g in groups if g["rows"] is rows)
+            recorded[(kind, any_hit)].append(
+                (g, tuple(x.clone() for x in (ro, rd, tmin, tmax, best_t, best_e)),
+                 current["inv"]))
+            return reals[kind](tid, rows, table, ro, rd, tmin, tmax, best_t, best_e, any_hit)
+        return rec
+
+    cs.sort_perm = sort_recorder
+    for kind in kinds:
+        setattr(module(kind), KERNELS[kind][1], recorder(kind))
+    try:
+        render()
+    finally:
+        for kind in kinds:
+            setattr(module(kind), KERNELS[kind][1], reals[kind])
+        del cs.sort_perm
+    return recorded, sorts
+
+
+def phase_main_path(dev_name, tag, what, scene, groups_want, heavy_want, kinds):
+    """One main path at full width: compile on the card, record the kernels'
+    inputs, warm up, three timed renders (launch counts zeroed just before the
+    first, read just after), the image checked and saved, a profile, and the
+    kernel line's entries for ``kinds``."""
     import numpy as np
     import torch
 
-    from pine_tpu_torch import scenes
     from pine_tpu_torch.accel import dense_traverse as DT
     from pine_tpu_torch.core.samplers import BlueSampler
     from pine_tpu_torch.integrators.path import render_wavefront
 
     W = H = MAIN_SIZE
     spp, depth = MAIN_SPP, MAIN_DEPTH
-    scene = scenes.cbox((W, H))
     t0 = time.perf_counter()
-    cs = scene.compile()  # the card, by default
+    cs = scene.compile()  # the card, by default; the C++ SAH builder
     compile_s = time.perf_counter() - t0
-    groups = cs.unified["groups"]
-    if [g["tid"] for g in groups] != [1, 5, 7] or groups[2]["rows"].shape[0] != 424:
-        fail(f"unexpected cbox groups: {[(g['tid'], tuple(g['rows'].shape)) for g in groups]}")
+    groups = [group_sig(g) for g in cs.unified["groups"]]
+    if groups != groups_want or cs.heavy_traversal != heavy_want:
+        fail(f"unexpected {tag} groups {groups} (heavy: {cs.heavy_traversal})")
     sampler = BlueSampler(spp)
+    render = lambda s: render_wavefront(cs, scene.camera, W, H, sampler, s, depth)  # noqa: E731
 
-    # the inputs the main path gives the kernel: record the first call of each
-    # form on each group during a 1-spp render
-    recorded = {}
-    real = DT.dense_cuda
-
-    def recorder(tid, rows, gbox, ro, rd, tmin, tmax, best_t, best_e, any_hit):
-        key = (tid, any_hit)
-        if key not in recorded:
-            g = next(g for g in groups if g["tid"] == tid)
-            recorded[key] = (g, tuple(x.clone() for x in (ro, rd, tmin, tmax, best_t, best_e)),
-                             any_hit)
-        return real(tid, rows, gbox, ro, rd, tmin, tmax, best_t, best_e, any_hit)
-
-    DT.dense_cuda = recorder
-    try:
-        render_wavefront(cs, scene.camera, W, H, sampler, 1, depth)
-    finally:
-        DT.dense_cuda = real
+    recorded, sorts = record_launches(cs, kinds, lambda: render(1))
     torch.cuda.synchronize()
 
-    # warm-up, then the counted main-path run, then two more timed runs
-    render_wavefront(cs, scene.camera, W, H, sampler, spp, depth)
+    render(spp)  # warm-up
     torch.cuda.synchronize()
     walls = []
     for k in range(3):
@@ -377,30 +566,39 @@ def phase_main_path(dev_name):
         walls.append(time.perf_counter() - t0)
         if k == 0:
             launches = dict(DT.LAUNCHES)
-    for form, count in launches.items():
-        if count <= 0:
-            fail(f"the main path never launched the dense kernel ({form}): {launches}")
+    want = {f"{kind}.{form}" for kind, _, _ in groups_want for form in ("closest", "any_hit")}
+    for form in sorted(want):
+        if launches[form] <= 0:
+            fail(f"the {tag} main path never launched {form}: {launches}")
     img = img.cpu().numpy()
     finite = bool(np.isfinite(img).all())
     rays = int(stats["traced_rays"])
-    rec = dict(phase="main_path", scene="bench cbox, 420 cones", size=f"{W}x{H}",
-               spp=spp, depth=depth, device=dev_name, compile_s=compile_s,
-               wall_s=min(walls), walls_s=walls, traced_rays=rays,
-               mrays_per_s=rays / min(walls) / 1e6, finite=finite,
+    rec = dict(phase="main_path", scene=what, size=f"{W}x{H}", spp=spp, depth=depth,
+               device=dev_name, compile_s=compile_s, wall_s=min(walls), walls_s=walls,
+               traced_rays=rays, mrays_per_s=rays / min(walls) / 1e6, finite=finite,
                mean=float(img.mean()), launches=launches)
     emit(rec)
     if not finite or img.shape != (H, W, 3) or not img.mean() > 0:
-        fail(f"full-width render is not a finite, lit image: {rec}")
+        fail(f"full-width {tag} render is not a finite, lit image: {rec}")
     os.makedirs(OUT_DIR, exist_ok=True)
     scene.camera.film.set_rgb(torch.from_numpy(img))
-    scene.camera.film.save(os.path.join(OUT_DIR, "chip_smoke_cbox.png"))
+    scene.camera.film.save(os.path.join(OUT_DIR, f"chip_smoke_{tag}.png"))
 
-    profile_render(lambda: render_wavefront(cs, scene.camera, W, H, sampler, 2, depth))
+    profile_render(tag, lambda: render(2))
 
-    entries = []
-    for form, any_hit in (("closest", False), ("any_hit", True)):
-        calls = [recorded[(g["tid"], any_hit)] for g in groups]
-        entries.append(kernel_line_entry(DT, f"dense_traverse.{form}", calls, launches[form]))
+    entries = [kernel_line_entry(kind, form, recorded[(kind, any_hit)],
+                                 launches[f"{kind}.{form}"])
+               for kind in kinds for form, any_hit in (("closest", False), ("any_hit", True))]
+    if sorts:
+        # device time of the sort itself (key, stable argsort, inverse) per
+        # 1-spp render, against what it saves the kernels
+        sort_ms = sum(cuda_ms(lambda: cs.sort_perm(*s), 10) for s in sorts)
+        sorted_ms = sum(sum(e["ms_each"]) for e in entries)
+        unsorted_ms = sum(sum(e["ms_unsorted_each"]) for e in entries)
+        emit(dict(phase="coherence_sort", scene=tag, per="one 1-spp render",
+                  sorts=len(sorts), sort_ms=sort_ms, kernel_ms_sorted=sorted_ms,
+                  kernel_ms_unsorted=unsorted_ms,
+                  net_saving_ms=unsorted_ms - sorted_ms - sort_ms))
     return entries
 
 
@@ -426,27 +624,40 @@ def main():
     print(smi, flush=True)
     emit(dict(python=sys.version.split()[0], torch=torch.__version__, cuda=torch.version.cuda))
 
-    from pine_tpu_torch import cuda_build
+    from pine_tpu_torch import cuda_build, scenes
+    from pine_tpu_torch.accel import native_build
 
     sources = sorted(f[:-3] for f in os.listdir(cuda_build.CSRC) if f.endswith(".cu"))
     t0 = time.perf_counter()
+    native_build.load()
+    native_s = time.perf_counter() - t0
     logs = cuda_build.build(sources)
-    emit(dict(phase="build", sources=sources, seconds=time.perf_counter() - t0,
+    emit(dict(phase="build", sources=sources + ["bvh_builder.cpp"], bvh_builder_s=native_s,
+              seconds=time.perf_counter() - t0,
               ptxas={k: [ln for ln in v.splitlines() if "registers" in ln or "spill" in ln]
                      for k, v in logs.items()}))
 
     dev = torch.device("cuda")
-    recs = phase_kernel_vs_plain(dev)
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "chip_smoke_kernels.json"), "w") as f:
-        json.dump(recs, f, indent=1)
-    emit(dict(phase="kernel_vs_plain", cases=len(recs),
-              max_abs_err=max(r["max_abs_err"] for r in recs),
-              timed=[{k: r[k] for k in ("type", "rows", "form", "ms", "plain_ms", "group")
-                      if k in r} for r in recs if "ms" in r]))
+    for kind, phase in (("dense", phase_dense_vs_plain), ("grid", phase_grid_vs_plain)):
+        recs = phase(dev)
+        with open(os.path.join(OUT_DIR, f"chip_smoke_{kind}.json"), "w") as f:
+            json.dump(recs, f, indent=1)
+        emit(dict(phase="kernel_vs_plain", kernel=kind, cases=len(recs),
+                  max_abs_err=max(r["max_abs_err"] for r in recs),
+                  lanes_differ=sum(r["lanes_differ"] for r in recs),
+                  timed=[{k: r[k] for k in ("group", "form", "ms", "plain_ms")}
+                         for r in recs if "ms" in r]))
 
     phase_render_parity()
-    kernels = phase_main_path(torch.cuda.get_device_name(0))
+    name = torch.cuda.get_device_name(0)
+    W = H = MAIN_SIZE
+    kernels = phase_main_path(
+        name, "cbox", "bench cbox, 420 cones", scenes.cbox((W, H)),
+        [("dense", 1, 6), ("dense", 5, 2), ("dense", 7, 424)], False, ["dense"])
+    kernels += phase_main_path(
+        name, "terrain", "bench_mesh terrain, 99,458 triangles + 1 rect", scenes.terrain((W, H)),
+        [("dense", 1, 1), ("grid", 6, 99458)], True, ["grid"])
     emit(dict(phase="done", seconds=time.perf_counter() - t_start))
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,16 +1,19 @@
-"""Host-side binned-SAH BVH builder (numpy).
+"""Host-side binned-SAH BVH builders.
 
-Counterpart of pine_tpu/accel/bvh.py (``_build_sah``) and the numpy branch
-of pine_tpu/accel/unified.py (``sah_arrays``).  The port's kernels do not
-walk the tree yet; groups over DENSE_MAX prims still take its leaf order, so
-their row layout is already the one the tree and grid kernels will read.
-The native C++ builder comes with the grid-kernel slice.
+Counterpart of pine_tpu/accel/bvh.py (``_build_sah``, the numpy builder) and
+pine_tpu/accel/unified.py (``sah_arrays``).  ``sah_arrays`` runs the C++
+builder (csrc/bvh_builder.cpp through accel/native_build.py), as pine_tpu
+does when its native library is built; groups over DENSE_MAX prims take its
+leaf order.  ``_build_sah`` is kept as the reference the C++ builder's
+algorithm follows (its leaf order differs in ties and bucket edges).
 """
 from __future__ import annotations
 
 import sys
 
 import numpy as np
+
+from pine_tpu_torch.accel.native_build import build_sah_native
 
 LEAF_MAX = 4
 N_BUCKETS = 16
@@ -99,23 +102,6 @@ def _build_sah(lo, hi, centroid):
     return order, nodes
 
 
-def sah_arrays(lo, hi, centroid):
+def sah_arrays(lo, hi):
     """SAH build -> (order, c_lower, c_upper, c_node, c_start, c_count)."""
-    order, nodes = _build_sah(lo, hi, centroid)
-    order = np.asarray(order, np.int64)
-    m = len(nodes)
-    c_lower = np.zeros((m, 2, 3), np.float32)
-    c_upper = np.zeros((m, 2, 3), np.float32)
-    c_node = np.full((m, 2), -1, np.int32)
-    c_start = np.zeros((m, 2), np.int32)
-    c_count = np.zeros((m, 2), np.int32)
-    for i, nd in enumerate(nodes):
-        for k in (0, 1):
-            c_lower[i, k] = nd["lower"][k]
-            c_upper[i, k] = nd["upper"][k]
-            if nd["is_leaf"][k]:
-                c_start[i, k] = nd["start"][k]
-                c_count[i, k] = nd["count"][k]
-            else:
-                c_node[i, k] = nd["child"][k]
-    return order, c_lower, c_upper, c_node, c_start, c_count
+    return build_sah_native(lo, hi)

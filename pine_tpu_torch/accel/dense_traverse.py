@@ -14,11 +14,14 @@ Counterpart of the dense path of pine_tpu/accel/pallas_traverse.py:
   ``(tmin, best_t)``; any-hit: ``(tmin, tmax)``, empty once occluded) passes
   both through bit for bit.
 
-On CUDA tensors ``group_query`` launches the hand-written kernel
-(csrc/dense_traverse.cu) or raises; on CPU tensors it runs ``dense_plain``,
-the same arithmetic as a sweep over the rows in order with ``torch.where``.
-Only the dense variant exists so far: a group that needs another kernel
-(lattice, grid, bvh; ROADMAP.md, TPU kernels) raises on CUDA.
+``group_query`` runs the kernel a group needs (``group_variant``): groups of
+512 or fewer rows take the dense sweep, other non-lattice groups the grid
+traversal (accel/grid_traverse.py).  On CUDA tensors it launches the
+hand-written kernel (csrc/dense_traverse.cu, csrc/grid_traverse.cu) or
+raises; on CPU tensors it runs the plain version (``dense_plain``, the same
+arithmetic as a sweep over the rows in order with ``torch.where``, or
+``grid_traverse.grid_plain``).  A group that needs a kernel not ported yet
+(lattice, bvh; ROADMAP.md, TPU kernels) raises on CUDA.
 """
 from __future__ import annotations
 
@@ -32,8 +35,8 @@ BIG = 1e30
 DENSE_DEFAULT_MAX = 512  # groups of up to this many rows take the dense kernel
 GRID_MAX_PRIMS_HBM = 2_000_000
 
-# kernel launches, counted where the wrapper launches the CUDA kernel
-LAUNCHES = {"closest": 0, "any_hit": 0}
+# kernel launches, counted where a wrapper launches its CUDA kernel
+LAUNCHES = {"dense.closest": 0, "dense.any_hit": 0, "grid.closest": 0, "grid.any_hit": 0}
 
 
 def reset_launches():
@@ -311,7 +314,7 @@ def dense_cuda(tid, rows, gbox, ro, rd, tmin, tmax, best_t, best_e, any_hit):
     )
     if err != 0:
         raise RuntimeError(f"dense_traverse kernel launch failed: CUDA error {err}")
-    LAUNCHES["any_hit" if any_hit else "closest"] += 1
+    LAUNCHES["dense.any_hit" if any_hit else "dense.closest"] += 1
     return out_t, out_e
 
 
@@ -331,8 +334,13 @@ def group_variant(g):
 
 def group_query(g, ro, rd, tmin, tmax, best_t, best_e, any_hit=False):
     """One group's traversal over a flat wavefront (see module docstring)."""
+    variant = group_variant(g)
+    if variant == "grid":
+        from pine_tpu_torch.accel.grid_traverse import grid_cuda, grid_plain
+
+        fn = grid_cuda if ro.is_cuda else grid_plain
+        return fn(g["tid"], g["rows"], g["grid"], ro, rd, tmin, tmax, best_t, best_e, any_hit)
     if ro.is_cuda:
-        variant = group_variant(g)
         if variant != "dense":
             raise NotImplementedError(
                 f"group of {g['rows'].shape[0]} prims needs the {variant} traversal "

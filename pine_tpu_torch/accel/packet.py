@@ -1,13 +1,14 @@
 """Primitive groups and the per-group traversal dispatch.
 
-Counterpart of pine_tpu/accel/packet.py for analytic shapes:
+Counterpart of pine_tpu/accel/packet.py for analytic shapes and meshes:
 
 - ``build_packet_accel`` groups the prims by shape type.  A type with
   DENSE_MAX or fewer prims keeps insertion order ("dense"); a larger one is
   put in SAH leaf order ("bvh", plus LEAF_MAX zero pad rows that never hit).
   A group that forms a regular 1-D/2-D lattice (script loops) has its rows
   snapped to the affine model, so every traversal path sees the same
-  geometry.
+  geometry.  The triangles of all meshes form one more group, with their
+  shading attributes in entity order.
 - ``packet_intersect`` / ``packet_any_hit`` run each group through
   accel/dense_traverse.group_query, the kernel route on CUDA tensors.
 
@@ -22,8 +23,10 @@ import torch
 
 from pine_tpu_torch.accel.bvh import LEAF_MAX, sah_arrays
 from pine_tpu_torch.accel.dense_traverse import BIG, group_query
+from pine_tpu_torch.scene import shapes as S
 
 DENSE_MAX = 16  # types with <= this many prims keep insertion order
+ENT_PARAM_WIDTH = 32  # entity rows, padded to the widest prim
 
 
 def _detect_lattice(params, lo, hi):
@@ -94,28 +97,66 @@ def _detect_lattice(params, lo, hi):
                 dU=dU.astype(np.float32), dV=dV.astype(np.float32), snapped=snapped)
 
 
-def build_packet_accel(analytic_prims):
-    """analytic_prims: list of (type_id, params (k,), gidx, (lo, hi)).
+def _mesh_triangles(meshes):
+    """All meshes' triangles in scene order -> (rows (F,12) [v0, v1, v2, gn],
+    gidx, lo, hi, n_attr (F,9), t_attr (F,6), has_n, has_t)."""
+    parts = []
+    for mesh, gidx in meshes:
+        v = mesh.vertices
+        f = mesh.indices.astype(np.int64)
+        v0, v1, v2 = v[f[:, 0]], v[f[:, 1]], v[f[:, 2]]
+        gn = np.cross(v0 - v1, v0 - v2)
+        gn = gn / np.maximum(np.linalg.norm(gn, axis=-1, keepdims=True), 1e-20)
+        F = len(f)
+        has_n, has_t = mesh.normals is not None, mesh.texcoords is not None
+        vn, vt = mesh.normals, mesh.texcoords
+        parts.append((
+            np.concatenate([v0, v1, v2, gn], axis=1).astype(np.float32),
+            np.full(F, gidx, np.int32),
+            np.minimum(np.minimum(v0, v1), v2), np.maximum(np.maximum(v0, v1), v2),
+            np.concatenate([vn[f[:, k]] for k in range(3)], axis=1) if has_n
+            else np.zeros((F, 9), np.float32),
+            np.concatenate([vt[f[:, k]] for k in range(3)], axis=1) if has_t
+            else np.zeros((F, 6), np.float32),
+            np.full(F, has_n), np.full(F, has_t),
+        ))
+    rows, gidx, lo, hi, n_attr, t_attr, has_n, has_t = (np.concatenate(x) for x in zip(*parts))
+    return (rows, gidx, lo.astype(np.float32), hi.astype(np.float32),
+            n_attr.astype(np.float32), t_attr.astype(np.float32), has_n, has_t)
+
+
+def build_packet_accel(analytic_prims, meshes=()):
+    """analytic_prims: list of (type_id, params (k,), gidx, (lo, hi));
+    meshes: list of (Mesh, gidx).
 
     -> host accel dict: ``groups`` (each: tid, kind, base, rows, prim_aabbs,
-    lattice) and ``ent_gidx``; None when there are no prims."""
+    lattice) and ``ent_gidx``; with meshes also the entity-order tables
+    ``ent_param`` (E, 32), ``geom_n``, ``tri_n``, ``tri_t``, ``tri_has_n``,
+    ``tri_has_t`` that mesh shading reads (accel/unified.py).  The triangles
+    of all meshes form one group after the analytic ones; it is never
+    lattice-detected.  None when there are no prims."""
     from pine_tpu_torch.accel.dense_traverse import PRIM_TESTS
 
     by_type = {}
     for tid, prm, gidx, (lo, hi) in analytic_prims:
         by_type.setdefault(tid, []).append((prm, gidx, lo, hi))
-
-    groups, ent_gidx = [], []
-    base = 0
+    inputs = []
     for tid in sorted(by_type):
         entries = by_type[tid]
-        params = np.stack([e[0] for e in entries]).astype(np.float32)
-        gidxs = np.asarray([e[1] for e in entries], np.int32)
-        lo = np.stack([e[2] for e in entries]).astype(np.float32)
-        hi = np.stack([e[3] for e in entries]).astype(np.float32)
+        inputs.append((tid, np.stack([e[0] for e in entries]).astype(np.float32),
+                       np.asarray([e[1] for e in entries], np.int32),
+                       np.stack([e[2] for e in entries]).astype(np.float32),
+                       np.stack([e[3] for e in entries]).astype(np.float32), None))
+    if meshes:
+        rows, gidx, lo, hi, *attrs = _mesh_triangles(meshes)
+        inputs.append((S.TRIANGLE, rows, gidx, lo, hi, attrs))
+
+    groups, ent_gidx, ent_param, ent_attrs = [], [], [], []
+    base = 0
+    for tid, params, gidxs, lo, hi, attrs in inputs:
         n = len(params)
         lattice = None
-        if n > DENSE_MAX and tid in PRIM_TESTS:
+        if n > DENSE_MAX and tid in PRIM_TESTS and attrs is None:
             lattice = _detect_lattice(params, lo, hi)
             if lattice is not None:
                 params = lattice["snapped"]
@@ -124,7 +165,7 @@ def build_packet_accel(analytic_prims):
             rows = params
             kind = "dense"
         else:
-            order = sah_arrays(lo, hi, (lo + hi) * 0.5)[0]
+            order = sah_arrays(lo, hi)[0]
             rows = np.concatenate([params[order], np.zeros((LEAF_MAX, params.shape[1]), np.float32)])
             kind = "bvh"
         groups.append(dict(
@@ -133,11 +174,27 @@ def build_packet_accel(analytic_prims):
             lattice=lattice is not None,
         ))
         ent_gidx.append(gidxs[order])
+        padded = np.zeros((n, ENT_PARAM_WIDTH), np.float32)
+        padded[:, :params.shape[1]] = params[order]
+        ent_param.append(padded)
+        ent_attrs.append([a[order] for a in attrs] if attrs is not None else
+                         [np.zeros((n, 9), np.float32), np.zeros((n, 6), np.float32),
+                          np.zeros(n, bool), np.zeros(n, bool)])
         base += n
     if base == 0:
         return None
     ent_gidx.append(np.zeros(LEAF_MAX, np.int32))
-    return dict(groups=groups, ent_gidx=np.concatenate(ent_gidx))
+    accel = dict(groups=groups, ent_gidx=np.concatenate(ent_gidx))
+    if meshes:
+        ep = np.concatenate(ent_param + [np.zeros((LEAF_MAX, ENT_PARAM_WIDTH), np.float32)])
+        is_tri = np.concatenate([np.full(len(g["prim_aabbs"]), g["tid"] == S.TRIANGLE)
+                                 for g in groups] + [np.zeros(LEAF_MAX, bool)])
+        accel["ent_param"] = ep
+        accel["geom_n"] = np.where(is_tri[:, None], ep[:, 9:12], 0.0).astype(np.float32)
+        for k, parts in zip(("tri_n", "tri_t", "tri_has_n", "tri_has_t"), zip(*ent_attrs)):
+            pad = np.zeros((LEAF_MAX,) + parts[0].shape[1:], parts[0].dtype)
+            accel[k] = np.concatenate(list(parts) + [pad])
+    return accel
 
 
 def ent_to_gidx(accel, ent):

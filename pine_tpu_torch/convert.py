@@ -8,18 +8,33 @@ trace identical rows in identical order, and entity ids compare directly.
 
 Keys (``i`` counts from 0):
 
-- ``g_type``, ``g_local``, ``g_mat``: int32 (n_global,) per scene geometry;
+- ``g_type``, ``g_local``, ``g_mat``: int32 (n_global,) per scene geometry.
+  A Mesh is one geometry with ``g_type == MESH_TYPE`` (11) and ``g_local``
+  its index among the meshes; its triangles live only in the triangle
+  group below;
 - ``table.<tid>`` float32 (n, w) and ``type_global.<tid>`` int32 (n,): the
   per-type parameter rows (unsnapped) and their geometry ids;
+- ``world_lo`` float32 (3,) and ``world_span``: the scene's bounds, which key
+  the coherence sort's origin cells;
 - ``n_groups``; ``group.<i>.tid``, ``.kind`` ("dense" or "bvh"), ``.base``,
   ``.rows`` float32 (rows, w) as traversed (leaf order, lattice-snapped, pad
   rows included), ``.prim_aabbs`` float32 (n, 6), ``.lattice`` bool;
-  ``ent_gidx`` int32: entity -> geometry.  No groups for 24 or fewer prims;
+  ``ent_gidx`` int32: entity -> geometry.  No groups for 24 or fewer
+  analytic prims and no mesh.  The triangles of all meshes form one group
+  of ``tid`` 6 (triangle rows [v0, v1, v2, geometric normal]) after the
+  analytic groups;
+- with meshes, entity-order tables (LEAF_MAX zero rows at the end):
+  ``ent_param`` float32 (E, 32) each entity's row, zero-padded;
+  ``geom_n`` float32 (E, 3) triangle geometric normals; ``tri_n`` float32
+  (E, 9) and ``tri_t`` (E, 6) the three vertex normals and texcoords;
+  ``tri_has_n``, ``tri_has_t`` bool (E,) whether the mesh had them;
 - ``n_materials``; ``mat.<i>.tag``, ``.albedo`` (3,), ``.roughness``,
   ``.ior``, ``.color`` (3,);
-- ``n_lights``; ``light.<i>.kind`` ("point" or "area"); a point light has
-  ``.position`` and ``.color``; an area light ``.tid``, ``.params``,
-  ``.gidx`` and ``.color``;
+- ``n_lights``; ``light.<i>.kind`` ("point", "area" or "mesh"); a point
+  light has ``.position`` and ``.color``; an area light ``.tid``,
+  ``.params``, ``.gidx`` and ``.color``; a mesh light ``.tris`` float32
+  (F, 9) (the mesh's triangles [v0, v1, v2] in mesh order), ``.gidx`` and
+  ``.color``;
 - optional camera: ``cam.position`` (3,), ``cam.rot`` (3,3) camera-to-world,
   ``cam.fov2d`` (2,), ``cam.len_radius``, ``cam.focus_distance``.
 """
@@ -28,13 +43,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pine_tpu_torch.accel.dense_traverse import group_variant
+from pine_tpu_torch.accel.grid_traverse import grid_layout, upload_layout
 from pine_tpu_torch.accel.packet import build_packet_accel
 from pine_tpu_torch.core.place import resolve_device
 from pine_tpu_torch.scene import lights as L
 from pine_tpu_torch.scene import materials as M
-from pine_tpu_torch.scene.scene import BIG, CompiledScene, analytic_only
+from pine_tpu_torch.scene import shapes as S
+from pine_tpu_torch.scene.scene import BIG, CompiledScene, check_ported
 
-DENSE_SCENE_MAX = 24  # scenes with more prims than this use the prim groups
+DENSE_SCENE_MAX = 24  # scenes with more prims than this (or a mesh) use the prim groups
+GROUP_KEYS = ("tid", "kind", "base", "rows", "prim_aabbs", "lattice")
+MESH_KEYS = ("ent_param", "geom_n", "tri_n", "tri_t", "tri_has_n", "tri_has_t")
 
 
 def scene_arrays(scene) -> dict:
@@ -43,37 +63,56 @@ def scene_arrays(scene) -> dict:
     mat_slots, mat_of = [], {}
     g_type, g_local, g_mat = [], [], []
     per_type, type_global = {}, {}
-    prims, area = [], []
+    prims, meshes, area_lights = [], [], []
+    world_lo = np.full(3, np.inf, np.float32)
+    world_hi = np.full(3, -np.inf, np.float32)
     for shape, mat in scene.geometries:
-        analytic_only(shape)
+        check_ported(shape)
         if id(mat) not in mat_of:
             mat_of[id(mat)] = len(mat_slots)
             mat_slots.append(mat)
-        tid, gidx = shape.type_id, len(g_type)
+        gidx = len(g_type)
+        g_type.append(shape.type_id)
+        g_mat.append(mat_of[id(mat)])
+        lo, hi = shape.get_aabb()
+        world_lo, world_hi = np.minimum(world_lo, lo), np.maximum(world_hi, hi)
+        if isinstance(shape, S.Mesh):
+            g_local.append(len(meshes))
+            meshes.append((shape, gidx))
+            if mat.is_emissive():
+                area_lights.append(dict(kind="mesh", tris=shape.triangles(), gidx=gidx,
+                                        color=M.material_arrays(mat)["color"]))
+            continue
+        tid = shape.type_id
         rows = per_type.setdefault(tid, [])
         type_global.setdefault(tid, []).append(gidx)
-        g_type.append(tid)
         g_local.append(len(rows))
-        g_mat.append(mat_of[id(mat)])
         rows.append(shape.params())
-        prims.append((tid, shape.params(), gidx, shape.get_aabb()))
+        prims.append((tid, shape.params(), gidx, (lo, hi)))
         if mat.is_emissive():
-            area.append((tid, shape.params(), gidx, M.material_arrays(mat)["color"]))
+            area_lights.append(dict(kind="area", tid=tid, params=shape.params(), gidx=gidx,
+                                    color=M.material_arrays(mat)["color"]))
     a["g_type"] = np.asarray(g_type, np.int32)
     a["g_local"] = np.asarray(g_local, np.int32)
     a["g_mat"] = np.asarray(g_mat, np.int32)
     for tid, rows in per_type.items():
         a[f"table.{tid}"] = np.stack(rows).astype(np.float32)
         a[f"type_global.{tid}"] = np.asarray(type_global[tid], np.int32)
+    if not (np.isfinite(world_lo).all() and np.isfinite(world_hi).all()):
+        world_lo, world_hi = np.zeros(3, np.float32), np.ones(3, np.float32)
+    a["world_lo"] = world_lo.astype(np.float32)
+    a["world_span"] = np.asarray(max(float(np.max(world_hi - world_lo)), 1e-6))
 
-    accel = build_packet_accel(prims) if len(prims) > DENSE_SCENE_MAX else None
+    use_accel = meshes or len(prims) > DENSE_SCENE_MAX
+    accel = build_packet_accel(prims, meshes) if use_accel else None
     groups = accel["groups"] if accel else []
     a["n_groups"] = np.asarray(len(groups))
     for i, g in enumerate(groups):
-        for k in ("tid", "kind", "base", "rows", "prim_aabbs", "lattice"):
+        for k in GROUP_KEYS:
             a[f"group.{i}.{k}"] = np.asarray(g[k])
-    if accel:
-        a["ent_gidx"] = accel["ent_gidx"]
+    for k in ("ent_gidx",) + MESH_KEYS:
+        if accel and k in accel:
+            a[k] = accel[k]
 
     a["n_materials"] = np.asarray(len(mat_slots))
     for i, mat in enumerate(mat_slots):
@@ -87,8 +126,7 @@ def scene_arrays(scene) -> dict:
                 f"{type(li).__name__} is not ported yet (ROADMAP.md, modules item 10)"
             )
         lights.append(dict(kind="point", position=li.position, color=li.color))
-    for tid, params, gidx, color in area:
-        lights.append(dict(kind="area", tid=tid, params=params, gidx=gidx, color=color))
+    lights += area_lights
     a["n_lights"] = np.asarray(len(lights))
     for i, li in enumerate(lights):
         for k, v in li.items():
@@ -107,17 +145,22 @@ def scene_arrays(scene) -> dict:
 def upload_group(g: dict, device) -> dict:
     """One prim group as the traversal reads it: the host group of
     ``build_packet_accel`` (tid, kind, base, rows, prim_aabbs, lattice) with
-    ``rows`` and the group box ``gbox`` (6,) as float32 tensors on ``device``.
-    The rows are uploaded here, once, never per query."""
+    ``rows`` and the group box ``gbox`` (6,) as float32 tensors on ``device``,
+    and for a group that takes the grid traversal its tables ``grid``
+    (accel/grid_traverse.grid_layout).  Everything is uploaded here, once,
+    never per query."""
     pa = np.asarray(g["prim_aabbs"], np.float32)
     gbox = (np.concatenate([pa[:, 0:3].min(0), pa[:, 3:6].max(0)]) if len(pa)
             else np.array([-BIG] * 3 + [BIG] * 3))
-    return dict(
+    out = dict(
         tid=int(g["tid"]), kind=str(g["kind"]), base=int(g["base"]),
         rows=torch.as_tensor(np.array(g["rows"], np.float32), device=device),
         prim_aabbs=pa, gbox=torch.as_tensor(gbox.astype(np.float32), device=device),
         lattice=bool(g["lattice"]),
     )
+    if group_variant(out) == "grid":
+        out["grid"] = upload_layout(grid_layout(pa), device)
+    return out
 
 
 def compiled_scene_from_arrays(arrays: dict, device=None) -> CompiledScene:
@@ -135,10 +178,10 @@ def compiled_scene_from_arrays(arrays: dict, device=None) -> CompiledScene:
     unified = None
     n_groups = int(arrays["n_groups"])
     if n_groups:
-        keys = ("tid", "kind", "base", "rows", "prim_aabbs", "lattice")
-        groups = [upload_group({k: arrays[f"group.{i}.{k}"] for k in keys}, dev)
+        groups = [upload_group({k: arrays[f"group.{i}.{k}"] for k in GROUP_KEYS}, dev)
                   for i in range(n_groups)]
         unified = dict(groups=groups, ent_gidx=t(arrays["ent_gidx"], torch.int32))
+        unified.update({k: t(arrays[k]) for k in MESH_KEYS if k in arrays})
 
     materials = []
     for i in range(int(arrays["n_materials"])):
@@ -152,8 +195,12 @@ def compiled_scene_from_arrays(arrays: dict, device=None) -> CompiledScene:
     lights = []
     for i in range(int(arrays["n_lights"])):
         get = lambda k: arrays[f"light.{i}.{k}"]  # noqa: E731
-        if str(get("kind")) == "point":
+        kind = str(get("kind"))
+        if kind == "point":
             lights.append(L.PointLight(get("position"), get("color")))
+        elif kind == "mesh":
+            lights.append(L.MeshLight(get("tris"), int(get("gidx")),
+                                      t(get("color"), torch.float32), dev))
         else:
             lights.append(L.AreaLight(
                 int(get("tid")), t(get("params"), torch.float32), int(get("gidx")),
@@ -172,5 +219,5 @@ def compiled_scene_from_arrays(arrays: dict, device=None) -> CompiledScene:
     return CompiledScene(
         dev, t(arrays["g_type"], torch.int32), t(arrays["g_local"], torch.int32),
         t(arrays["g_mat"], torch.int32), tables, type_global, unified, materials,
-        lights, camera,
+        lights, camera, t(arrays["world_lo"], torch.float32), float(arrays["world_span"]),
     )

@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by nvcc
 into ``build/pine_tpu_torch/lib<name>-<hash>.so`` at the root of the checkout,
-at first use; the hash covers the source and the flags, so an edited source
-rebuilds.  Several sources build in parallel, one nvcc process each.  Nothing
+at first use; the hash covers the source, the shared headers (csrc/*.cuh) and
+the flags, so an edited source rebuilds.  Several sources build in parallel, one nvcc process each.  Nothing
 here runs at import time.
 """
 from __future__ import annotations
@@ -41,6 +41,7 @@ def _nvcc():
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{h}.so"
 

@@ -12,6 +12,10 @@ Sampler dimension schedule: dims 0-3 = pixel jitter + lens; per depth d
     +3,+4 material lobe choices   +5,+6  bxdf wm u2
     +7   bxdf fresnel u1          +8,+9  bxdf cosine u2
 
+On heavy scenes on the card, each bounce's continuation rays are put in
+coherence-sort order once (CompiledScene.sort_perm); the permutation serves
+that depth's NEE shadow rays and the next depth's intersect.
+
 Media, subsurface walks and environment lights are not ported yet (their
 scenes are refused at compile()).
 """
@@ -125,16 +129,18 @@ def sample_one_light(cscene, p_s, u_sel, u_light):
     return ls
 
 
-def nee_contribution(cscene, p_s, ns, state, wi, ls, alive):
+def nee_contribution(cscene, p_s, ns, state, wi, ls, alive, sort_perm=None):
     """Shadow-tested NEE contribution at a surface vertex -> (contrib (N,3)
-    without beta, did_cast (N,) bool)."""
+    without beta, did_cast (N,) bool).  ``sort_perm``: the bounce's coherence
+    sort, shared with the next depth's intersect (shadow rays start at the
+    same hit points)."""
     n = p_s.shape[0]
     do_nee = alive & ls["valid"] & ~bxdf_mod.is_delta(state) & (ls["pdf"] > 0.0)
     so = offset_ray_origin(p_s, face_forward(ns, ls["wo"]))
     # lanes that cast no shadow ray get tmax = -1: every group culls them
     occluded = cscene.any_hit(
         so, ls["wo"].contiguous(), torch.zeros(n, device=p_s.device),
-        torch.where(do_nee, ls["distance"] * (1.0 - 1e-3), -1.0),
+        torch.where(do_nee, ls["distance"] * (1.0 - 1e-3), -1.0), sort_perm=sort_perm,
     )
     f_l, pdf_l = bxdf_mod.f_and_pdf(state, wi, to_local(ns, ls["wo"]))
     cosine = dot(ls["wo"], ns).abs()
@@ -165,19 +171,21 @@ def path_trace_sample(cscene, cp, xs, ys, W, H, sampler, sample_index, max_depth
     diffused = torch.zeros(n, dtype=torch.bool, device=dev)
     tmin = torch.zeros(n, device=dev)
     n_lights = len(cscene.lights)
+    carry_perm = None  # depth 0 is not sorted: tile-major primaries are coherent
 
     for depth in range(max_depth):
         dim = 4 + depth * 16
         n_rays = n_rays + alive.sum()
 
         # dead lanes get tmax = -1 and miss every group box up front
-        t, gidx, hitm = cscene.intersect(ro, rd, tmin, torch.where(alive, FLOAT_MAX, -1.0))
+        t, gidx, hitm, mesh_tri = cscene.intersect(
+            ro, rd, tmin, torch.where(alive, FLOAT_MAX, -1.0), sort_perm=carry_perm)
         hitm = hitm & alive
 
         # clamp miss-lane t before forming hit points (t = BIG overflows)
         t_hit = torch.where(hitm, t, 1.0)
         hp = ro + t_hit[:, None] * rd
-        p_s, ns, _uv = cscene.surface_info(gidx, hp)
+        p_s, ns, _uv = cscene.surface_info(gidx, hp, mesh_tri)
         wi_world = -rd
 
         # ---- emissive hit ----
@@ -211,13 +219,15 @@ def path_trace_sample(cscene, cp, xs, ys, W, H, sampler, sample_index, max_depth
         thr = bs["f"] * (cosine / torch.clamp_min(bs["pdf"], 1e-20))[:, None]
         surf_next = alive & bs["valid"]
         ro_next = offset_ray_origin(p_s, face_forward(ns, wo_world))
+        carry_perm = cscene.sort_perm(ro_next, wo_world, ~surf_next)
 
         # ---- NEE ----
         if n_lights > 0 and nee:
             u_sel = sampler.u1(xs, ys, sample_index, dim + 0)
             u_light = sampler.u2(xs, ys, sample_index, dim + 1)
             ls = sample_one_light(cscene, p_s, u_sel, u_light)
-            contrib, do_nee = nee_contribution(cscene, p_s, ns, state, wi, ls, alive)
+            contrib, do_nee = nee_contribution(cscene, p_s, ns, state, wi, ls, alive,
+                                               sort_perm=carry_perm)
             n_rays = n_rays + do_nee.sum()
             L_indirect = L_indirect + beta * contrib
 

@@ -1,4 +1,5 @@
-"""Lights.  Counterpart of pine_tpu/scene/lights.py: point and area lights.
+"""Lights.  Counterpart of pine_tpu/scene/lights.py: point lights, and area
+lights on an analytic shape or a triangle mesh.
 
 ``sample(p, u2, u1)`` is batched: p (N,3), u2 (N,2), u1 (N,) ->
 dict(le, wo, distance, pdf, valid).  Spot, directional and environment
@@ -11,6 +12,7 @@ import torch
 
 from pine_tpu_torch.core.vecmath import dot, length
 from pine_tpu_torch.scene import intersect as I
+from pine_tpu_torch.scene import shapes as S
 
 
 class Light:
@@ -62,3 +64,37 @@ class AreaLight(Light):
         front = dot(-ss["w"], ss["n"]) >= 0.0
         valid = front & (ss["pdf"] > 0.0) & (le > 0.0).any(-1)
         return dict(le=le, wo=ss["w"], distance=ss["distance"], pdf=ss["pdf"], valid=valid)
+
+
+class MeshLight(AreaLight):
+    """Emissive triangle mesh ``global_idx``: a triangle picked with
+    probability proportional to its area by u1, a uniform point on it by u2.
+    ``tris`` are the mesh's (F,9) host rows [v0, v1, v2] in mesh order."""
+
+    def __init__(self, tris, global_idx, color, device):
+        tris = np.asarray(tris, np.float32)
+        areas = S.triangle_areas(tris)
+        super().__init__(S.MESH_TYPE, None, global_idx, color)
+        self.area = S.mesh_area(tris)  # the pdf of a hit on the mesh
+        self.total_area = float(areas.sum())
+        self.cdf = torch.as_tensor((np.cumsum(areas) / max(areas.sum(), 1e-20)).astype(np.float32),
+                                   device=device)
+        self.tris = torch.as_tensor(tris, device=device)
+
+    def sample(self, p, u2, u1):
+        n = p.shape[0]
+        tri = torch.searchsorted(self.cdf, u1.contiguous()).clamp(0, self.cdf.shape[0] - 1)
+        rows = self.tris[tri]
+        v0, v1, v2 = rows[:, 0:3], rows[:, 3:6], rows[:, 6:9]
+        flip = (u2[:, 0] + u2[:, 1]) > 1.0
+        uu = torch.where(flip[:, None], 1.0 - u2, u2)
+        sp = v0 + uu[:, 0:1] * (v1 - v0) + uu[:, 1:2] * (v2 - v0)
+        nrm = torch.linalg.cross(v1 - v0, v2 - v0)
+        nrm = nrm / torch.clamp_min(length(nrm)[:, None], 1e-20)
+        dvec = sp - p
+        dist = length(dvec)
+        w = dvec / torch.clamp_min(dist[:, None], 1e-20)
+        pdf = dist**2 / torch.clamp_min(dot(w, nrm).abs() * self.total_area, 1e-20)
+        le = self.color.expand(n, 3)
+        valid = (dot(-w, nrm) >= 0.0) & (pdf > 0.0) & (le > 0.0).any(-1)
+        return dict(le=le, wo=w, distance=dist, pdf=pdf, valid=valid)

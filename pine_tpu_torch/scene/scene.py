@@ -1,15 +1,22 @@
 """Scene (host container) and CompiledScene (device tables plus queries).
 
-Counterpart of pine_tpu/scene/scene.py for analytic shapes, constant
-materials, area and point lights.  ``Scene.compile(device)`` flattens the
-scene into the arrays of pine_tpu_torch/convert.py and uploads them once; the
-renderer then queries the CompiledScene.  Scenes with 24 or fewer prims keep
-the brute-force per-type product (no accel, no kernel); larger ones go
-through the prim groups of accel/packet.py, whose traversal is the dense
-kernel on CUDA.
+Counterpart of pine_tpu/scene/scene.py for analytic shapes, triangle meshes,
+constant materials, area (analytic or mesh) and point lights.
+``Scene.compile(device)`` flattens the scene into the arrays of
+pine_tpu_torch/convert.py and uploads them once; the renderer then queries
+the CompiledScene.  Scenes with 24 or fewer analytic prims and no mesh keep
+the brute-force per-type product (no accel, no kernel); the others go
+through the prim groups of accel/packet.py, whose traversal runs the dense
+or the grid kernel on CUDA.
 
-Not ported yet, and refused at compile() with their ROADMAP.md row: meshes
-(modules item 7), instancing (8), SDF and CSG (9), environment lights and
+Scenes with a group of more than GRID_MAX_PRIMS prims are "heavy": on the
+card, each bounce's rays are traversed in the order of a coherence sort
+(``_ray_sort_perm``), so the lanes of a warp share a direction octant and an
+origin region.  The sort is a pure permutation: per-lane results do not
+change.
+
+Not ported yet, and refused at compile() with their ROADMAP.md row:
+instancing (modules item 8), SDF and CSG (9), environment lights and
 textured nodes (10), media (11), the Subsurface and Uber materials (3).
 """
 from __future__ import annotations
@@ -21,6 +28,34 @@ from pine_tpu_torch.scene import lights as L
 from pine_tpu_torch.scene import shapes as S
 
 BIG = I.BIG
+GRID_MAX_PRIMS = 8192  # pine_tpu's threshold for heavy-traversal scenes
+SORT_MIN_LANES = 4096  # smaller wavefronts are not sorted
+
+
+def _spread10(x):
+    """Interleave-ready bit spread: 10 low bits -> every 3rd bit."""
+    x = x & 0x3FF
+    x = (x | (x << 16)) & 0x30000FF
+    x = (x | (x << 8)) & 0x300F00F
+    x = (x | (x << 4)) & 0x30C30C3
+    x = (x | (x << 2)) & 0x9249249
+    return x
+
+
+def _ray_sort_perm(ro, rd, tmin, tmax, world_lo, world_span):
+    """Wavefront coherence sort, pine_tpu's default octant mode: key (dead,
+    direction octant, 32^3 origin morton), stable argsort.  ``world_lo`` is a
+    (3,) tensor on the rays' device.  -> (perm, inv_perm)."""
+    q = torch.clamp(((ro - world_lo) * (32.0 / world_span)).to(torch.int32), 0, 31)
+    m = _spread10(q[:, 0]) | (_spread10(q[:, 1]) << 1) | (_spread10(q[:, 2]) << 2)
+    dbin = (rd[:, 0] < 0).to(torch.int32) + 2 * (rd[:, 1] < 0).to(torch.int32) \
+        + 4 * (rd[:, 2] < 0).to(torch.int32)
+    dead = (tmax <= tmin).to(torch.int32)
+    key = m | (dbin << 15) | (dead << 18)
+    perm = torch.argsort(key, stable=True)
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.shape[0], device=perm.device)
+    return perm, inv
 
 
 class Scene:
@@ -78,29 +113,53 @@ class CompiledScene:
     """Device tables of one scene.  Built by convert.compiled_scene_from_arrays."""
 
     def __init__(self, device, g_type, g_local, g_mat, tables, type_global, unified,
-                 materials, lights, camera=None):
+                 materials, lights, camera=None, world_lo=None, world_span=1.0):
         self.device = device
         self.n_global = int(g_type.shape[0])
         self.g_type, self.g_local, self.g_mat = g_type, g_local, g_mat
         self.tables = tables  # tid -> (n, w) unsnapped params
         self.type_global = type_global  # tid -> (n,) geometry ids
-        self.unified = unified  # None, or prim groups (accel/packet.py)
+        self.unified = unified  # None, or prim groups (accel/packet.py) + mesh tables
         self.materials = materials  # per slot: dict of tag, albedo, roughness, ior, color
         self.lights = lights
         self.emissive_globals = {
             li.global_idx: li for li in lights if isinstance(li, L.AreaLight)
         }
         self.camera = camera
+        self.has_meshes = unified is not None and "ent_param" in unified
+        self.heavy_traversal = unified is not None and any(
+            len(g["prim_aabbs"]) > GRID_MAX_PRIMS for g in unified["groups"])
+        self.world_lo = torch.zeros(3, device=device) if world_lo is None else world_lo
+        self.world_span = float(world_span)
 
-    def intersect(self, ro, rd, tmin, tmax):
-        """Closest hit -> (t, gidx, hit); t = BIG on a miss."""
+    def sort_perm(self, ro, rd, dead):
+        """Coherence-sort permutation (perm, inv) for a wavefront, or None when
+        the sort is off: it is on for heavy scenes on the card and wavefronts
+        of at least SORT_MIN_LANES lanes.  The integrator shares one per
+        bounce between the NEE shadow rays and the next depth's intersect."""
+        n = ro.shape[0]
+        if not (ro.is_cuda and self.heavy_traversal and n >= SORT_MIN_LANES):
+            return None
+        return _ray_sort_perm(ro, rd, torch.zeros_like(ro[:, 0]),
+                              torch.where(dead, -1.0, 1.0), self.world_lo, self.world_span)
+
+    def intersect(self, ro, rd, tmin, tmax, sort_perm=None):
+        """Closest hit -> (t, gidx, hit, mesh_tri); t = BIG on a miss and
+        mesh_tri the hit entity (0 on a miss), which surface_info reads for
+        mesh lanes.  ``sort_perm`` (from sort_perm) reorders the traversal."""
         if self.unified is not None:
             from pine_tpu_torch.accel.packet import ent_to_gidx, packet_intersect
 
-            t, ent = packet_intersect(self.unified, ro, rd, tmin, tmax)
+            if sort_perm is not None:
+                perm, inv = sort_perm
+                t, ent = packet_intersect(self.unified, ro[perm], rd[perm], tmin[perm],
+                                          tmax[perm])
+                t, ent = t[inv], ent[inv]
+            else:
+                t, ent = packet_intersect(self.unified, ro, rd, tmin, tmax)
             better = t < BIG
             g = torch.where(better, ent_to_gidx(self.unified, ent), -1)
-            return t, g, better
+            return t, g, better, torch.where(better, ent, 0)
         n = ro.shape[0]
         best_t = torch.full((n,), BIG, device=ro.device)
         best_g = torch.full((n,), -1, dtype=torch.int32, device=ro.device)
@@ -110,13 +169,17 @@ class CompiledScene:
             better = t_min < best_t
             best_t = torch.where(better, t_min, best_t)
             best_g = torch.where(better, self.type_global[tid][idx], best_g)
-        return best_t, best_g, best_t < BIG
+        return best_t, best_g, best_t < BIG, torch.zeros_like(best_g)
 
-    def any_hit(self, ro, rd, tmin, tmax):
+    def any_hit(self, ro, rd, tmin, tmax, sort_perm=None):
         """Shadow-ray occlusion -> (N,) bool."""
         if self.unified is not None:
             from pine_tpu_torch.accel.packet import packet_any_hit
 
+            if sort_perm is not None:
+                perm, inv = sort_perm
+                return packet_any_hit(self.unified, ro[perm], rd[perm], tmin[perm],
+                                      tmax[perm])[inv]
             return packet_any_hit(self.unified, ro, rd, tmin, tmax)
         return self.intersect(ro, rd, tmin, tmax)[2]
 
@@ -124,8 +187,9 @@ class CompiledScene:
         params = self.tables[tid]
         return params[local.clamp(0, params.shape[0] - 1).long()]
 
-    def surface_info(self, gidx, p):
-        """Per-lane (p_corrected, n, uv) by masked per-type dispatch."""
+    def surface_info(self, gidx, p, mesh_tri=None):
+        """Per-lane (p_corrected, n, uv) by masked per-type dispatch; mesh
+        lanes interpolate their triangle's attributes at ``mesh_tri``."""
         gi = gidx.clamp(0, self.n_global - 1).long()
         tid_lane, local = self.g_type[gi], self.g_local[gi]
         out_p, out_n = p, torch.zeros_like(p)
@@ -133,6 +197,14 @@ class CompiledScene:
         for tid in self.tables:
             pc, nn, uv = I.SURFACE_INFO[tid](self._rows_at(tid, local), p)
             m = (tid_lane == tid)[:, None]
+            out_p = torch.where(m, pc, out_p)
+            out_n = torch.where(m, nn, out_n)
+            out_uv = torch.where(m, uv, out_uv)
+        if self.has_meshes and mesh_tri is not None:
+            from pine_tpu_torch.accel.unified import unified_surface_info_triangle
+
+            pc, nn, uv = unified_surface_info_triangle(self.unified, mesh_tri, p)
+            m = (tid_lane == S.MESH_TYPE)[:, None]
             out_p = torch.where(m, pc, out_p)
             out_n = torch.where(m, nn, out_n)
             out_uv = torch.where(m, uv, out_uv)
@@ -144,7 +216,10 @@ class CompiledScene:
         pdf = torch.zeros_like(t)
         local = self.g_local[gidx.clamp(0, self.n_global - 1).long()]
         for g, al in self.emissive_globals.items():
-            p_t = I.PDF[al.tid](self._rows_at(al.tid, local), ro, rd, t, ns)
+            if isinstance(al, L.MeshLight):
+                p_t = t**2 / torch.clamp_min(max(al.area, 1e-20) * (ns * rd).sum(-1).abs(), 1e-20)
+            else:
+                p_t = I.PDF[al.tid](self._rows_at(al.tid, local), ro, rd, t, ns)
             pdf = torch.where(gidx == g, p_t, pdf)
         return pdf / n_lights
 
@@ -164,10 +239,9 @@ class CompiledScene:
         return le
 
 
-def analytic_only(shape):
-    if isinstance(shape, S.Mesh):
-        raise NotImplementedError("meshes are not ported yet (ROADMAP.md, modules item 7)")
-    if shape.type_id not in S.PARAM_WIDTH:
+def check_ported(shape):
+    """Refuse shapes the port cannot render yet."""
+    if shape.type_id not in S.PARAM_WIDTH and not isinstance(shape, S.Mesh):
         raise NotImplementedError(
             f"{type(shape).__name__} is not ported yet (ROADMAP.md, modules item 9)"
         )

@@ -1,9 +1,8 @@
 """Analytic shapes: host-side classes that flatten into per-type parameter rows.
 
 Counterpart of pine_tpu/scene/shapes.py: the same type ids, the same
-``params()`` layouts and the same ``get_aabb()``.  Meshes are accepted by
-``Scene.add`` but refused at compile() until the mesh slice (ROADMAP.md,
-modules item 7); lines, SDFs, CSG and instancing are not ported.
+``params()`` layouts and the same ``get_aabb()``, plus triangle meshes.
+Lines, SDFs, CSG and instancing are not ported.
 """
 from __future__ import annotations
 
@@ -257,14 +256,68 @@ class Cylinder(Shape):
 
 
 class Mesh(Shape):
-    """Triangle mesh holder; rendering one waits for the mesh slice."""
+    """Triangle mesh: vertices (V,3), indices (F,3), optional per-vertex
+    normals (V,3) and texcoords (V,2).  Its triangles join the scene's one
+    triangle group at compile()."""
 
     type_id = MESH_TYPE
 
     def __init__(self, vertices, indices, texcoords=None, normals=None):
         self.vertices = np.asarray(vertices, np.float32).reshape(-1, 3)
         self.indices = np.asarray(indices, np.uint32).reshape(-1, 3)
-        self.texcoords, self.normals = texcoords, normals
+        self.texcoords = (
+            None if texcoords is None else np.asarray(texcoords, np.float32).reshape(-1, 2)
+        )
+        self.normals = (
+            None if normals is None else np.asarray(normals, np.float32).reshape(-1, 3)
+        )
 
     def get_aabb(self):
         return self.vertices.min(0), self.vertices.max(0)
+
+    def num_triangles(self):
+        return len(self.indices)
+
+    def triangles(self):
+        """(F,9) float32 rows [v0, v1, v2]."""
+        f = self.indices.astype(np.int64)
+        return np.concatenate([self.vertices[f[:, k]] for k in range(3)], axis=1)
+
+    def area(self):
+        return mesh_area(self.triangles())
+
+
+def _cross_lengths(tris):
+    e1 = tris[:, 3:6] - tris[:, 0:3]
+    e2 = tris[:, 6:9] - tris[:, 0:3]
+    return np.linalg.norm(np.cross(e1, e2), axis=-1)
+
+
+def mesh_area(tris):
+    """Total area of (F,9) triangle rows, summed as pine_tpu's Mesh.area()."""
+    return float(_cross_lengths(tris).sum() / 2)
+
+
+def triangle_areas(tris):
+    """Per-triangle areas of (F,9) rows, as pine_tpu's Mesh.triangle_areas()."""
+    return _cross_lengths(tris) / 2
+
+
+def heightmap_from_array(height_map):
+    """Mesh grid from a (W,H) height array: x, z in [-1, 1], y the 3x3
+    box-smoothed height (pine_tpu's heightmap_from_array)."""
+    hm = np.asarray(height_map, np.float32)
+    w, h = hm.shape
+    pad = np.pad(hm, 1, mode="edge")
+    sm = sum(
+        pad[1 + dx : 1 + dx + w, 1 + dy : 1 + dy + h] for dx in (-1, 0, 1) for dy in (-1, 0, 1)
+    ) / 9.0
+    xs = np.linspace(-1, 1, w, dtype=np.float32)
+    zs = np.linspace(-1, 1, h, dtype=np.float32)
+    X, Z = np.meshgrid(xs, zs, indexing="ij")
+    verts = np.stack([X, sm, Z], axis=-1).reshape(-1, 3)
+    x, y = np.meshgrid(np.arange(w - 1), np.arange(h - 1), indexing="ij")
+    p00, p10 = x + y * w, x + 1 + y * w
+    p11, p01 = x + 1 + (y + 1) * w, x + (y + 1) * w
+    idx = np.stack([np.stack([p00, p10, p11], -1), np.stack([p00, p11, p01], -1)], axis=2)
+    return Mesh(verts, idx.reshape(-1, 3).astype(np.uint32))

@@ -1,5 +1,10 @@
 """Scenes built through the port's Scene API.
 
+``terrain`` is the mesh benchmark of the repository's ``bench_mesh.py``: a
+seeded fbm heightfield of (grid-1)^2 * 2 triangles (99,458 at the benchmark's
+grid of 224), one emissive rect above it, a low camera in the valley.  Its
+vertices and indices are bench_mesh's to the bit.
+
 ``cbox`` is the benchmark Cornell box of the repository's ``bench.py``
 (``CBOX_PRL``): five walls, a floor field of cones, a diffuse box, a metal box
 and one small emissive rect, seen by a ThinLenCamera.  The cone loops follow
@@ -61,4 +66,44 @@ def cbox(size=(640, 640), cones_x=CONES_X, cones_z=CONES_Z):
     scene.add(S.Rect([0.0, 1.9, 0.5], [0.1, 0, 0], [0, 0, 0.1]),
               M.Emissive(np.float32(600) * np.float32([1.0, 0.64, 0.185])))
     scene.set(ThinLenCamera(Film(size, "uncharted2"), [0, 1, -4], [0, 1, 0], 0.25))
+    return scene
+
+
+TERRAIN_GRID = 224  # bench_mesh.py's GRID: 99,458 triangles
+
+
+def make_terrain(grid=TERRAIN_GRID, size=8.0, amp=1.2, seed=7):
+    """Deterministic fbm heightfield mesh -> (vertices (grid^2,3), indices)."""
+    xs = np.linspace(-size / 2, size / 2, grid, dtype=np.float32)
+    zs = np.linspace(0.0, size, grid, dtype=np.float32)
+    X, Z = np.meshgrid(xs, zs, indexing="xy")
+    rng = np.random.default_rng(seed)
+    Y = np.zeros_like(X)
+    for octave in range(5):
+        f = 2.0 ** octave
+        ph = rng.uniform(0, 2 * np.pi, 4)
+        Y += (amp / f) * (
+            np.sin(f * X * 1.3 + ph[0]) * np.cos(f * Z * 0.9 + ph[1])
+            + 0.5 * np.sin(f * (X + Z) * 0.7 + ph[2]) * np.cos(f * (X - Z) * 1.1 + ph[3])
+        )
+    V = np.stack([X, Y, Z], axis=-1).reshape(-1, 3).astype(np.float32)
+    idx = np.arange(grid * grid, dtype=np.uint32).reshape(grid, grid)
+    a, b = idx[:-1, :-1].ravel(), idx[:-1, 1:].ravel()
+    c, d = idx[1:, :-1].ravel(), idx[1:, 1:].ravel()
+    F = np.concatenate([np.stack([a, b, c], -1), np.stack([b, d, c], -1)]).astype(np.uint32)
+    return V, F
+
+
+def terrain(size=(640, 640), grid=TERRAIN_GRID):
+    """The mesh benchmark's scene at film ``size``; ``grid`` cuts the mesh."""
+    V, F = make_terrain(grid)
+    scene = Scene()
+    scene.add("ground", M.Diffuse([0.75, 0.7, 0.6]))
+    scene.add(S.Mesh(V, F), "ground")
+    scene.add(S.Rect([0.0, 6.0, 4.0], [1.5, 0, 0], [0, 0, 1.5]),
+              M.Emissive(np.asarray([300.0, 290.0, 260.0], np.float32)))
+    # the camera sits low in the valley, so the mesh fills the frame
+    hmax = float(V[:, 1].max())
+    scene.set(ThinLenCamera(Film(size, "uncharted2"), [0.0, hmax * 0.55, 0.8],
+                            [0.5, 0.2, 5.5], 0.7))
     return scene

@@ -240,7 +240,7 @@ def test_group_variant_choice():
 
 def test_lattice_rows_snap_like_pine_tpu(jx):
     """The reduced cbox's 36-cone lattice: snapped rows bit-equal to pine_tpu's,
-    entity by entity (the two packages may order the SAH leaves differently)."""
+    entity by entity."""
     import bench
     from pine_tpu.prl.interp import Interpreter
 

@@ -9,7 +9,13 @@
    Measured: 99.6 % of pixels agree to 1e-3 relative or 1e-4 absolute, the
    image means differ by 1e-4 relative, traced rays by 2 in 20,782.
    Held to: 97 % of pixels, means to 1 %, traced rays to 0.5 %.
-2. A scene of 24 or fewer prims (brute force, no accel, no kernel) through
+2. The reduced mesh benchmark (bench_mesh.py's terrain at grid 40: 3,042
+   triangles, the grid traversal with its coarse level, plus the rect light)
+   at 32x32, BlueSampler(4), depth 4: pine_tpu's compiled scene carried
+   across by convert, and the port's own Scene API (scenes.terrain), each
+   against pine_tpu's render.  Measured: 100 % of pixels agree and the
+   traced rays are equal (12,736) both ways.  The same criteria.
+3. A scene of 24 or fewer prims (brute force, no accel, no kernel) through
    each package's own Scene API and PathIntegrator, with a point light and
    every ported material; the same criteria.  Measured: 99.8 % of pixels
    agree, the means differ by 4e-4 relative.
@@ -41,8 +47,10 @@ def assert_renders_agree(got, want, rays_got=None, rays_want=None):
 
 def jax_scene_arrays(cs, cam):
     """pine_tpu's CompiledScene flattened to pine_tpu_torch.convert's format:
-    the same rows in the same (native SAH) order, materials, lights, camera."""
+    the same rows in the same (native SAH) order, the mesh attribute tables,
+    materials, lights (mesh lights too), camera and world bounds."""
     from pine_tpu.scene import lights as JL
+    from pine_tpu.scene import shapes as JS
 
     def v3(node):
         return np.broadcast_to(np.asarray(node.value, np.float32).reshape(-1), (3,)).copy()
@@ -67,6 +75,11 @@ def jax_scene_arrays(cs, cam):
         })
     if cs.unified:
         a["ent_gidx"] = np.asarray(cs.unified["ent_gidx"])
+        for k in ("ent_param", "geom_n", "tri_n", "tri_t", "tri_has_n", "tri_has_t"):
+            if k in cs.unified and cs.meshes:
+                a[k] = np.asarray(cs.unified[k])
+    a["world_lo"] = np.asarray(cs.world_lo, np.float32)
+    a["world_span"] = np.asarray(cs.world_span)
     a["n_materials"] = np.asarray(len(cs.materials))
     for i, m in enumerate(cs.materials):
         zero = np.zeros(3, np.float32)
@@ -79,7 +92,15 @@ def jax_scene_arrays(cs, cam):
         })
     a["n_lights"] = np.asarray(len(cs.lights))
     for i, li in enumerate(cs.lights):
-        if isinstance(li, JL.AreaLight):
+        if isinstance(li, JL.AreaLight) and isinstance(li.shape, JS.Mesh):
+            f = li.shape.indices.astype(np.int64)
+            a.update({
+                f"light.{i}.kind": np.asarray("mesh"),
+                f"light.{i}.tris": np.concatenate([li.shape.vertices[f[:, k]] for k in range(3)], 1),
+                f"light.{i}.gidx": np.asarray(li.global_idx),
+                f"light.{i}.color": v3(li.material.color),
+            })
+        elif isinstance(li, JL.AreaLight):
             a.update({
                 f"light.{i}.kind": np.asarray("area"),
                 f"light.{i}.tid": np.asarray(li.shape.type_id),
@@ -123,6 +144,71 @@ def test_reduced_cbox_matches_pine_tpu():
     got, pstats = render_wavefront(pcs, None, 32, 32, BlueSampler(4), 4, 4, return_stats=True)
     assert_renders_agree(got.numpy(), np.asarray(want),
                          pstats["traced_rays"], float(jstats["traced_rays"]))
+
+
+@pytest.fixture(scope="module")
+def jax_terrain():
+    """bench_mesh's terrain cut to grid 40 (3,042 triangles, so the triangle
+    group takes the grid traversal with its coarse level) built through
+    pine_tpu's Scene API, and pine_tpu's render of it at 32x32, 4 spp, depth
+    4 -> (scene, compiled scene, image, traced rays)."""
+    import bench_mesh
+    from pine_tpu.core.camera import ThinLenCamera
+    from pine_tpu.core.film import Film
+    from pine_tpu.core.samplers import BlueSampler as JBlue
+    from pine_tpu.integrators.path import render_wavefront as jax_render
+    from pine_tpu.scene import materials as JM
+    from pine_tpu.scene import shapes as JS
+    from pine_tpu.scene.scene import Scene
+
+    V, F = bench_mesh.make_terrain(40)
+    scene = Scene()
+    scene.add("ground", JM.Diffuse([0.75, 0.7, 0.6]))
+    scene.add(JS.Mesh(V, F), "ground")
+    scene.add(JS.Rect([0.0, 6.0, 4.0], [1.5, 0, 0], [0, 0, 1.5]),
+              JM.Emissive(np.asarray([300.0, 290.0, 260.0], np.float32)))
+    hmax = float(V[:, 1].max())
+    scene.set(ThinLenCamera(Film([32, 32], "uncharted2"), [0.0, hmax * 0.55, 0.8],
+                            [0.5, 0.2, 5.5], 0.7))
+    jcs = scene.compile()
+    img, stats = jax_render(jcs, scene.camera, 32, 32, JBlue(4), 4, 4, return_stats=True)
+    return scene, jcs, np.asarray(img), float(stats["traced_rays"])
+
+
+def test_reduced_terrain_matches_pine_tpu(jax_terrain):
+    """pine_tpu's compiled terrain carried across by convert: the same rows in
+    the same order, rendered by the port on the CPU (grid_plain)."""
+    from pine_tpu_torch.convert import compiled_scene_from_arrays
+    from pine_tpu_torch.core.samplers import BlueSampler
+    from pine_tpu_torch.integrators.path import render_wavefront
+
+    scene, jcs, want, rays_want = jax_terrain
+    a = jax_scene_arrays(jcs, scene.camera)
+    assert [(int(a[f"group.{i}.tid"]), a[f"group.{i}.rows"].shape[0]) for i in range(2)] == [
+        (1, 1), (6, 3046)]
+    pcs = compiled_scene_from_arrays(a, "cpu")
+    assert "grid" in pcs.unified["groups"][1] and pcs.unified["groups"][1]["grid"]["use_coarse"]
+    got, pstats = render_wavefront(pcs, None, 32, 32, BlueSampler(4), 4, 4, return_stats=True)
+    assert_renders_agree(got.numpy(), want, pstats["traced_rays"], rays_want)
+
+
+def test_terrain_scene_api_matches_pine_tpu(jax_terrain):
+    """The same terrain through the port's own Scene API (scenes.terrain, the
+    port's SAH builder) against pine_tpu's render."""
+    from pine_tpu_torch import scenes
+    from pine_tpu_torch.core.samplers import BlueSampler
+    from pine_tpu_torch.integrators.path import PathIntegrator, render_wavefront
+
+    _, jcs, want, rays_want = jax_terrain
+    scene = scenes.terrain((32, 32), 40)
+    cs = scene.compile("cpu")
+    np.testing.assert_array_equal(cs.unified["ent_gidx"].numpy(),
+                                  np.asarray(jcs.unified["ent_gidx"]))
+    got, pstats = render_wavefront(cs, scene.camera, 32, 32, BlueSampler(4), 4, 4,
+                                   return_stats=True)
+    assert_renders_agree(got.numpy(), want, pstats["traced_rays"], rays_want)
+    film = PathIntegrator(BlueSampler(1), 2).render(scenes.terrain((8, 8), 12), device="cpu")
+    assert np.isfinite(film.pixels).all() and film.pixels[..., :3].mean() > 0
 
 
 def _small_scene(S, M, L, Scene, Camera, Film):
@@ -206,12 +292,16 @@ def test_unported_features_are_refused():
         return scene.compile("cpu")
 
     sphere = S.Sphere([0, 0, 0], 1.0)
-    tri = S.Mesh(np.eye(3, dtype=np.float32), [[0, 1, 2]])
-    for shape, mat, item in ((tri, M.Diffuse([1, 1, 1]), "item 7"),
-                             (sphere, M.Subsurface([1, 1, 1], 0.0, 40.0), "item 3"),
+    for shape, mat, item in ((sphere, M.Subsurface([1, 1, 1], 0.0, 40.0), "item 3"),
                              (sphere, M.Uber([1, 1, 1], 0.5), "item 3")):
         with pytest.raises(NotImplementedError, match=item):
             compile_with(shape, mat)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        Scene().add(object())
+    # meshes are ported now: a one-triangle mesh compiles into a triangle group
+    tri = S.Mesh(np.eye(3, dtype=np.float32), [[0, 1, 2]])
+    groups = compile_with(tri, M.Diffuse([1, 1, 1])).unified["groups"]
+    assert [(g["tid"], g["kind"]) for g in groups] == [(S.TRIANGLE, "dense")]
     with pytest.raises(NotImplementedError, match="item 10"):
         M.Diffuse(lambda ctx: 1.0)
     with pytest.raises(NotImplementedError, match="item 10"):

@@ -5,10 +5,10 @@ and the light pdf.  Per
 material: the per-lane BXDF state, then BSDF sampling and f/pdf evaluation
 for the four ported lobes (diffuse, conductor, refractive dielectric,
 diffusive dielectric).  And the scene build: the Scene API's benchmark box
-flattens to pine_tpu's tables, and the SAH leaf order is pine_tpu's numpy
-builder's.  Tolerance: rtol 1e-4, atol 1e-5 (float32; the GGX terms divide
-small numbers, so a few ulps of input grow); where a value is ill-conditioned
-the test says why it compares it otherwise.
+flattens to pine_tpu's tables, and the numpy SAH builder's leaf order is
+pine_tpu's numpy builder's.  Tolerance: rtol 1e-4, atol 1e-5 (float32; the
+GGX terms divide small numbers, so a few ulps of input grow); where a value
+is ill-conditioned the test says why it compares it otherwise.
 """
 from __future__ import annotations
 
@@ -201,7 +201,10 @@ def test_bxdf_sample_and_eval_match():
 
 
 def test_sah_order_is_pine_tpu_numpy_builder():
+    """The numpy builder, kept as the reference, orders leaves as pine_tpu's;
+    the groups themselves take the C++ builder's order (test_torch_mesh.py)."""
     from pine_tpu.accel import bvh as Jbvh
+    from pine_tpu.accel.native_build import build_sah_native
     from pine_tpu_torch.accel import bvh as Pbvh
 
     rng = np.random.default_rng(13)
@@ -209,8 +212,9 @@ def test_sah_order_is_pine_tpu_numpy_builder():
         c = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
         lo, hi = c - 0.05, c + 0.05
         want, _ = Jbvh._build_sah(lo, hi, (lo + hi) * 0.5)
-        got = Pbvh.sah_arrays(lo, hi, (lo + hi) * 0.5)[0]
-        np.testing.assert_array_equal(got, np.asarray(want))
+        got, _ = Pbvh._build_sah(lo, hi, (lo + hi) * 0.5)
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+        np.testing.assert_array_equal(Pbvh.sah_arrays(lo, hi)[0], build_sah_native(lo, hi)[0])
 
 
 def test_cbox_scene_flattens_like_pine_tpu():
@@ -240,4 +244,13 @@ def test_cbox_scene_flattens_like_pine_tpu():
     groups = [(int(a[f"group.{i}.tid"]), str(a[f"group.{i}.kind"]), a[f"group.{i}.rows"].shape)
               for i in range(int(a["n_groups"]))]
     assert groups == [(g["tid"], g["kind"], g["rows_np"].shape) for g in jcs.unified["groups"]]
+    # each group holds the same geometries.  The cone lattice's leaf order may
+    # differ: pine_tpu builds its C++ builder with -march=native, whose fused
+    # multiply-adds break the lattice's exact SAH cost ties another way than
+    # the port's contraction-free build (test_torch_mesh.py holds the builders
+    # equal on meshes without such ties)
+    ent = np.asarray(jcs.unified["ent_gidx"])
+    for i, g in enumerate(jcs.unified["groups"]):
+        b, n = g["base"], len(g["_prim_aabbs"])
+        assert sorted(a["ent_gidx"][b:b + n]) == sorted(ent[b:b + n])
     np.testing.assert_array_equal(a["cam.rot"], np.asarray(jscene.camera.params()["rot"]))
