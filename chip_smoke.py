@@ -16,21 +16,31 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
       any-hit, groups of 1, 16 and 424 prims, plus the benchmark Cornell
       box's own three groups;
    b. the grid traversal on triangle soups of 300 (no coarse level), 3,000
-      and 20,000 triangles and on the 99,458-triangle terrain's own group.
-      Lanes may differ where a cull decides at a box face; at most
-      GRID_MISMATCH_SHARE of them, and the counts are printed.
+      and 20,000 triangles and on the 99,458-triangle terrain's own group;
+   c. the two-level instanced traversal on the instancing benchmark's rock
+      (4,802 triangles) in fields of 2x2, 32x32 (the benchmark's 1,024
+      instances) and 101x101 (its --big 10,201), rays aimed into the field
+      from above and started inside it.
+   In b and c lanes may differ where a cull decides at a box face; at most
+   GRID_MISMATCH_SHARE of them, and the counts are printed.
 3. Render parity, card (kernels) against CPU (plain versions): the reduced
-   Cornell box (36 cones) and the reduced terrain (grid 40, 3,042 triangles,
-   the card also with the coherence sort forced on), 64x64, 4 spp, depth 4.
-4. The main paths at full width, 640x640, BlueSampler(16), depth 4, through
-   ``Scene.compile`` and ``render_wavefront`` on the card: the benchmark
-   Cornell box (420 cones), then the mesh benchmark's terrain (99,458
-   triangles, one rect light).  For each, the launch counts are zeroed just
-   before one render and read just after, and every kernel of that path must
-   have run; then a profile of a 2-spp render.  The kernel line times each
-   kernel form on every launch the main path gives it in a 1-spp render; on
-   the terrain also with the coherence sort's permutation undone, beside
-   the device time of the sort itself.
+   Cornell box (36 cones), the reduced terrain (grid 40, 3,042 triangles,
+   the card also with the coherence sort forced on) and a reduced rock
+   field (3x3 instances of a 242-triangle rock, the card with its origin
+   sort), 64x64, 4 spp, depth 4.
+4. The main paths at full width through ``Scene.compile`` and
+   ``render_wavefront`` on the card: the benchmark Cornell box (420 cones)
+   and the mesh benchmark's terrain (99,458 triangles, one rect light) at
+   640x640, BlueSampler(16), depth 4; the instancing benchmark's field
+   (1,024 rocks, a plane, one rect light) at 512x512, BlueSampler(4), depth
+   3.  For each, the launch counts are zeroed just before one render and
+   read just after, and every kernel of that path must have run; then a
+   profile of a 2-spp render.  The kernel line times each kernel form on
+   every launch the main path gives it in a 1-spp render.  The
+   ``coherence_sort`` record times the launches of a 1-spp render with the
+   sort on (terrain: the octant key, on by default; rock field: the origin
+   key, off by default and forced on here) and with its permutation undone,
+   beside the device time of the sort itself.
 
 Per-case records and the full-width images go to build/chip_smoke/.  The
 last line is ``{"ok": true, "device": {...}}``.  Without a GPU, or
@@ -64,17 +74,23 @@ TYPE_NAMES = {0: "sphere", 1: "rect", 2: "disk", 3: "plane", 4: "aabb", 5: "obb"
 T_RTOL, T_ATOL = 1e-5, 1e-6  # as tests/test_torch_dense_kernel.py
 N_RAYS = 65536
 MAIN_SIZE, MAIN_SPP, MAIN_DEPTH = 640, 16, 4  # bench.py's and bench_mesh.py's configuration
-GRID_MISMATCH_SHARE = 1e-4  # lanes where the grid kernel may differ from grid_plain
+INST_SIZE, INST_SPP, INST_DEPTH = 512, 4, 3  # bench_instanced.py's configuration
+GRID_MISMATCH_SHARE = 1e-4  # lanes where a culling kernel may differ from its plain version
 
 # kind -> (module under pine_tpu_torch.accel, kernel wrapper, plain version,
-# the group's table for it, kernel source, the TPU kernel it replaces)
+# the group's table for it, kernel source, the TPU kernel it replaces).  The
+# dense and grid wrappers take (tid, rows, table, rays...); with no table
+# (None) a wrapper takes the whole group (g, rays...).
 KERNELS = {
     "dense": ("dense_traverse", "dense_cuda", "dense_plain", "gbox",
               "pine_tpu_torch/csrc/dense_traverse.cu", "pine_tpu/accel/pallas_traverse.py:389"),
     "grid": ("grid_traverse", "grid_cuda", "grid_plain", "grid",
              "pine_tpu_torch/csrc/grid_traverse.cu", "pine_tpu/accel/pallas_traverse.py:791"),
+    "inst": ("inst_traverse", "inst_cuda", "inst_plain", None,
+             "pine_tpu_torch/csrc/inst_traverse.cu", "pine_tpu/accel/instanced_kernel.py:56"),
 }
-ALLOWED_SHARE = {"dense": 0.0, "grid": GRID_MISMATCH_SHARE}  # lanes that may differ
+# lanes that may differ
+ALLOWED_SHARE = {"dense": 0.0, "grid": GRID_MISMATCH_SHARE, "inst": GRID_MISMATCH_SHARE}
 
 
 def emit(obj):
@@ -105,18 +121,36 @@ def module(kind):
     return importlib.import_module("pine_tpu_torch.accel." + KERNELS[kind][0])
 
 
+def group_args(kind, g):
+    """The leading arguments a wrapper of ``kind`` takes for group ``g``."""
+    table = KERNELS[kind][3]
+    return (g,) if table is None else (g["tid"], g["rows"], g[table])
+
+
 def launch(kind, g, args, any_hit, plain=False, **kw):
     """One group's query through the kernel (or its plain version)."""
-    _, wrapper, plain_fn, table = KERNELS[kind][:4]
+    _, wrapper, plain_fn = KERNELS[kind][:3]
     fn = getattr(module(kind), plain_fn if plain else wrapper)
-    return fn(g["tid"], g["rows"], g[table], *args, any_hit, **kw)
+    return fn(*group_args(kind, g), *args, any_hit, **kw)
+
+
+def all_groups(cs):
+    return cs.unified["groups"] + cs.unified.get("inst_groups", [])
 
 
 def group_sig(g):
-    """(kernel kind, prim type, prims) of one compiled group."""
+    """(kernel kind, prim type, prims or instances) of one compiled group."""
+    if g["kind"] == "instanced":
+        return ("inst", g["tid"], g["n_inst"])
     if "grid" in g:
         return ("grid", g["tid"], g["grid"]["n_prims"])
     return ("dense", g["tid"], int(g["rows"].shape[0]))
+
+
+def group_desc(g):
+    if g["kind"] == "instanced":
+        return f"{TYPE_NAMES[g['tid']]}[{g['n_tris']}] x {g['n_inst']} instances"
+    return f"{TYPE_NAMES[g['tid']]}[{group_sig(g)[2]}]"
 
 
 def check_outputs(kind, out_k, out_p):
@@ -220,6 +254,8 @@ def compare(kind, g, args, any_hit, time_it, what):
     )
     if kind == "grid":
         rec["coarse"] = bool(g["grid"]["use_coarse"])
+    if kind == "inst":
+        rec["instances"] = g["n_inst"]
     if time_it:
         rec["ms"] = cuda_ms(lambda: launch(kind, g, args, any_hit), 20)
         rec["plain_ms"] = plain_ms
@@ -310,11 +346,73 @@ def phase_grid_vs_plain(dev):
     return recs
 
 
+def inst_group(n_side, dev):
+    """The instancing benchmark's rock in an n_side x n_side field, as one
+    instanced group on ``dev`` (its record built as Scene.compile builds it)."""
+    import numpy as np
+
+    from pine_tpu_torch import scenes
+    from pine_tpu_torch.accel import inst_traverse as IT
+    from pine_tpu_torch.accel.packet import build_packet_accel, instancing_record
+    from pine_tpu_torch.scene import shapes as S
+
+    rec = instancing_record(S.Mesh(*scenes.make_rock()), scenes.rock_transforms(n_side),
+                            np.arange(n_side * n_side))
+    (g,) = build_packet_accel([], [], [rec])["inst_groups"]
+    return IT.upload_inst_group(g, dev)
+
+
+def field_rays(rng, dev, n_side, vbase):
+    """random_rays' lanes (far, dead, windows, prepared best with regular
+    ids below vbase); past the far quarter, half aimed from above at points
+    of the field, half started inside its box in random directions."""
+    import numpy as np
+    import torch
+
+    r = random_rays(rng, dev, vbase)
+    n, q = N_RAYS, N_RAYS // 4
+    lo = np.array([-0.8 * n_side - 0.5, 0.0, 1.5])
+    hi = np.array([0.8 * n_side - 1.0, 1.2, 1.6 * n_side + 2.5])
+    h = (n - q) // 2
+    above = rng.uniform(lo, hi, (h, 3))
+    above[:, 1] = rng.uniform(3.0, 8.0, h)
+    inside = rng.uniform(lo, hi, (n - q - h, 3))
+    ro = np.concatenate([above, inside])
+    rd = np.concatenate([rng.uniform(lo, hi * [1, 0.8, 1], (h, 3)) - above,
+                         rng.normal(size=(n - q - h, 3))])
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    r["ro"][q:] = torch.from_numpy(ro.astype(np.float32)).to(dev)
+    r["rd"][q:] = torch.from_numpy(rd.astype(np.float32)).to(dev)
+    return r
+
+
+def phase_inst_vs_plain(dev):
+    import numpy as np
+
+    recs = []
+    for n_side in (2, 32, 101):
+        g = inst_group(n_side, dev)
+        r = field_rays(np.random.default_rng(n_side), dev, n_side, g["vbase"])
+        for any_hit in (False, True):
+            recs.append(compare("inst", g, ray_args(r, any_hit), any_hit, time_it=n_side == 32,
+                                what=f"rock field {n_side}x{n_side}"))
+    return recs
+
+
 # ---------------------------------------------------------------- phase 3 ----
 
-def render_parity(what, make_scene, force_sort=False):
-    """Render ``make_scene()`` at 64x64x4spp depth 4 on the card and on the
-    CPU and hold them to the port's render criteria."""
+def force_sort(cs, mode):
+    """Turn the coherence sort on with key ``mode`` ("octant" or "origin")."""
+    if mode == "octant":
+        cs.heavy_traversal = True  # as on the full terrain
+    elif mode == "origin":
+        cs.origin_sort = True
+
+
+def render_parity(what, make_scene, sort=None):
+    """Render ``make_scene()`` at 64x64x4spp depth 4 on the card (with the
+    coherence sort forced on with key ``sort``) and on the CPU and hold them
+    to the port's render criteria."""
     import numpy as np
 
     from pine_tpu_torch.core.samplers import BlueSampler
@@ -324,14 +422,16 @@ def render_parity(what, make_scene, force_sort=False):
     for dev in ("cuda", "cpu"):
         sc = make_scene()
         cs = sc.compile(dev)
-        if dev == "cuda" and force_sort:
-            cs.heavy_traversal = True  # the coherence sort, as on the full terrain
+        if dev == "cuda":
+            force_sort(cs, sort)
+            if cs.sort_mode(64 * 64, True) != sort:
+                fail(f"{what}: the card's sort key is {cs.sort_mode(64 * 64, True)}, not {sort}")
         img, st = render_wavefront(cs, sc.camera, 64, 64, BlueSampler(4), 4, 4, return_stats=True)
         out[dev] = (img.cpu().numpy(), st["traced_rays"])
     (g, rg), (c, rc) = out["cuda"], out["cpu"]
     d = np.abs(g - c)
     agree = ((d <= 1e-3 * np.abs(c)) | (d <= 1e-4)).all(-1).mean()
-    rec = dict(phase="render_parity", scene=what, sort_forced=force_sort,
+    rec = dict(phase="render_parity", scene=what, sort=sort,
                size="64x64x4spp depth 4", pixels_agree=float(agree),
                mean_cuda=float(g.mean()), mean_cpu=float(c.mean()),
                rays_cuda=int(rg), rays_cpu=int(rc), finite=bool(np.isfinite(g).all()))
@@ -341,14 +441,27 @@ def render_parity(what, make_scene, force_sort=False):
         fail(f"card render disagrees with the CPU render: {rec}")
 
 
+def lazy_field(size, n_side, rock_grid):
+    """scenes.instanced with its instancing kept lazy however small."""
+    from pine_tpu_torch import scenes
+    from pine_tpu_torch.scene import scene as scene_mod
+
+    limit, scene_mod.FLATTEN_LIMIT = scene_mod.FLATTEN_LIMIT, 0
+    try:
+        return scenes.instanced(size, n_side, rock_grid)
+    finally:
+        scene_mod.FLATTEN_LIMIT = limit
+
+
 def phase_render_parity():
     from pine_tpu_torch import scenes
 
     render_parity("reduced cbox, 36 cones",
                   lambda: scenes.cbox((64, 64), (-0.3, 0.1, 0.3), (0.5, 0.1, 1.0)))
-    for force_sort in (False, True):
-        render_parity("reduced terrain, grid 40", lambda: scenes.terrain((64, 64), 40),
-                      force_sort)
+    for sort in (None, "octant"):
+        render_parity("reduced terrain, grid 40", lambda: scenes.terrain((64, 64), 40), sort)
+    render_parity("reduced rock field, 3x3 x 242 triangles", lambda: lazy_field((64, 64), 3, 12),
+                  "origin")
 
 
 # ---------------------------------------------------------------- phase 4 ----
@@ -404,24 +517,48 @@ def grid_work(g, args, any_hit, out_p, counts):
                              min_slab_tests=need["slabs"], min_prim_tests=need["tests"])
 
 
+def inst_work(g, args, any_hit, out_p, counts):
+    """(FP32 operations, bytes, counts) of one instanced call on these
+    inputs.  ``counts`` are inst_plain's (instances entered, slab and cell
+    tests, triangle tests).  The bound counts what any correct walk must do:
+    enter each instance whose world box the ray reaches within its window
+    (slab and transform), test the cells of each supercell whose box it
+    reaches, and test the triangles of each cell it reaches; top-tree,
+    supercell-tree and supercell-box slabs are not counted.  Closest-hit:
+    the window is each lane's final t (inst_plain rerun), which no visit
+    order can undercut; any-hit: the work up to each lane's first hit in
+    inst_plain's order."""
+    IT = module("inst")
+    sct = g["sctree"]
+    n = args[0].shape[0]
+    need = counts
+    if not any_hit:
+        need = {}
+        IT.inst_plain(g, *args[:4], *out_p, False, counts=need)
+    ops = (n * 3 + need["entries"] * IT.ENTER_OPS + need["cells"] * module("grid").SLAB_OPS
+           + need["tests"] * TEST_OPS[g["tid"]])
+    table_bytes = g["rows"].numel() * 4 + sum(
+        sct[k].numel() * 4 for k in ("sc_boxes", "cell_boxes", "boxes", "cnode", "cstart",
+                                     "ccount", "sc_order")) + sum(
+        g[k].numel() * 4 for k in ("tboxes", "tnode", "tstart", "tcount", "iboxes", "minv"))
+    nbytes = n * ((10 if any_hit else 9) + 2) * 4 + table_bytes
+    return ops, nbytes, dict(instance_entries=counts["entries"], slab_tests=counts["slabs"],
+                             prim_tests=counts["tests"], min_instance_entries=need["entries"],
+                             min_cell_slabs=need["cells"], min_prim_tests=need["tests"])
+
+
 def kernel_line_entry(kind, form, calls, launches):
     """Time one kernel form on the recorded main-path launches (every launch
     of one 1-spp render).  ms, plain_ms and bound_ms are means per launch;
-    the work counts are sums over the launches.  Launches that ran under the
-    coherence sort are timed again with the permutation undone."""
+    the work counts are sums over the launches."""
     any_hit = form == "any_hit"
-    ms_each, unsorted_each = [], []
+    ms_each = []
     plain_ms = bound = err = 0.0
     ops = nbytes = differ = 0
     sums = {}
-    for g, args, inv in calls:
+    for g, args, _ in calls:
         ms_each.append(cuda_ms(lambda: launch(kind, g, args, any_hit), 10))
-        if inv is not None:
-            unsorted = tuple(x[inv] for x in args)
-            unsorted_each.append(cuda_ms(lambda: launch(kind, g, unsorted, any_hit), 10))
-        else:
-            unsorted_each.append(ms_each[-1])
-        counts = {} if kind == "grid" else None
+        counts = None if kind == "dense" else {}
         out_p, p_ms = timed_plain(kind, g, args, any_hit, counts)
         plain_ms += p_ms
         c_err, _, _, c_differ, allowed = check_outputs(kind, launch(kind, g, args, any_hit), out_p)
@@ -431,6 +568,8 @@ def kernel_line_entry(kind, form, calls, launches):
         err, differ = max(err, c_err), differ + c_differ
         if kind == "grid":
             c_ops, c_bytes, c = grid_work(g, args, any_hit, out_p, counts)
+        elif kind == "inst":
+            c_ops, c_bytes, c = inst_work(g, args, any_hit, out_p, counts)
         else:
             c_ops, c_bytes, c = dense_work(g, args, any_hit)
         for key, v in c.items():
@@ -439,21 +578,47 @@ def kernel_line_entry(kind, form, calls, launches):
         nbytes += c_bytes
         bound += max(c_bytes / HBM_BYTES_PER_S, c_ops / FP32_OPS_PER_S) * 1e3
     k = len(calls)
-    groups = sorted({group_sig(g)[1:] for g, _, _ in calls})
+    groups = sorted({group_desc(g) for g, _, _ in calls})
     entry = dict(
         name=f"{KERNELS[kind][0]}.{form}", route="cuda", source=KERNELS[kind][4],
         replaces=KERNELS[kind][5], launches=launches, max_abs_err=err,
         ms=sum(ms_each) / k, plain_ms=plain_ms / k, bound_ms=bound / k,
         bound_by="operations" if ops / FP32_OPS_PER_S > nbytes / HBM_BYTES_PER_S else "bytes",
         library_ms=None,
-        inputs=" + ".join(f"{TYPE_NAMES[t]}[{r}]" for t, r in groups)
+        inputs=" + ".join(groups)
         + f" x {calls[0][1][0].shape[0]} rays; means per launch over the {k} launches "
           "of one 1-spp render, work counts summed over them",
         ms_each=ms_each, lanes_differ=differ, **{f"{key}_sum": v for key, v in sums.items()},
     )
-    if any(inv is not None for _, _, inv in calls):
-        entry.update(ms_unsorted=sum(unsorted_each) / k, ms_unsorted_each=unsorted_each)
     return entry
+
+
+def coherence_sort_record(cs, tag, kinds, render, n):
+    """The coherence sort on the device: the kernels' launches of one 1-spp
+    render with the sort on (forced for an instanced scene, where it is off
+    by default), each timed as it ran and with the permutation undone,
+    beside the device time of the sorts themselves (key, stable argsort,
+    inverse)."""
+    origin = cs.origin_sort
+    cs.origin_sort = True
+    try:
+        mode = cs.sort_mode(n, True)
+        recorded, sorts = record_launches(cs, kinds, render)
+        sort_ms = sum(cuda_ms(lambda: cs.sort_perm(*s), 10) for s in sorts)
+    finally:
+        cs.origin_sort = origin
+    sorted_each, unsorted_each = [], []
+    for (kind, any_hit), calls in sorted(recorded.items()):
+        for g, args, inv in calls:
+            unsorted = args if inv is None else tuple(x[inv] for x in args)
+            sorted_each.append(cuda_ms(lambda: launch(kind, g, args, any_hit), 10))
+            unsorted_each.append(cuda_ms(lambda: launch(kind, g, unsorted, any_hit), 10))
+    return dict(phase="coherence_sort", scene=tag, mode=mode,
+                on_by_default=cs.sort_mode(n, True) is not None, per="one 1-spp render",
+                sorts=len(sorts), sort_ms=sort_ms, kernel_ms_sorted=sum(sorted_each),
+                kernel_ms_unsorted=sum(unsorted_each),
+                net_saving_ms=sum(unsorted_each) - sum(sorted_each) - sort_ms,
+                ms_sorted_each=sorted_each, ms_unsorted_each=unsorted_each)
 
 
 def profile_render(what, render):
@@ -480,7 +645,7 @@ def profile_render(what, render):
         device_busy_share=busy_ms / (wall * 1e3) if busy_ms else "not measured",
         launches=sum(e.count for e in kernels),
         **{f"{k}_ms": sum(e.self_device_time_total for e in kernels if k in e.key) / 1e3
-           for k in ("dense_kernel", "grid_kernel")},
+           for k in ("dense_kernel", "grid_kernel", "inst_kernel")},
         top=[dict(name=e.key[:90], ms=e.self_device_time_total / 1e3, count=e.count)
              for e in top],
     ))
@@ -491,7 +656,7 @@ def record_launches(cs, kinds, render):
     -> ({(kind, any_hit): [(group, inputs, inv)]}, [sort_perm inputs]);
     ``inv`` is the inverse of the coherence-sort permutation the launch ran
     under (None when unsorted), so inputs[inv] are the rays unsorted."""
-    groups = cs.unified["groups"]
+    groups = all_groups(cs)
     recorded = {(kind, any_hit): [] for kind in kinds for any_hit in (False, True)}
     sorts = []
     current = {"inv": None}
@@ -507,12 +672,14 @@ def record_launches(cs, kinds, render):
     reals = {kind: getattr(module(kind), KERNELS[kind][1]) for kind in kinds}
 
     def recorder(kind):
-        def rec(tid, rows, table, ro, rd, tmin, tmax, best_t, best_e, any_hit):
-            g = next(g for g in groups if g["rows"] is rows)
+        n_lead = 3 if KERNELS[kind][3] else 1
+
+        def rec(*a):
+            lead, rays, any_hit = a[:n_lead], a[n_lead:n_lead + 6], a[n_lead + 6]
+            g = lead[0] if n_lead == 1 else next(g for g in groups if g["rows"] is lead[1])
             recorded[(kind, any_hit)].append(
-                (g, tuple(x.clone() for x in (ro, rd, tmin, tmax, best_t, best_e)),
-                 current["inv"]))
-            return reals[kind](tid, rows, table, ro, rd, tmin, tmax, best_t, best_e, any_hit)
+                (g, tuple(x.clone() for x in rays), current["inv"]))
+            return reals[kind](*a)
         return rec
 
     cs.sort_perm = sort_recorder
@@ -527,7 +694,8 @@ def record_launches(cs, kinds, render):
     return recorded, sorts
 
 
-def phase_main_path(dev_name, tag, what, scene, groups_want, heavy_want, kinds):
+def phase_main_path(dev_name, tag, what, scene, groups_want, heavy_want, kinds,
+                    size=MAIN_SIZE, spp=MAIN_SPP, depth=MAIN_DEPTH):
     """One main path at full width: compile on the card, record the kernels'
     inputs, warm up, three timed renders (launch counts zeroed just before the
     first, read just after), the image checked and saved, a profile, and the
@@ -539,18 +707,17 @@ def phase_main_path(dev_name, tag, what, scene, groups_want, heavy_want, kinds):
     from pine_tpu_torch.core.samplers import BlueSampler
     from pine_tpu_torch.integrators.path import render_wavefront
 
-    W = H = MAIN_SIZE
-    spp, depth = MAIN_SPP, MAIN_DEPTH
+    W = H = size
     t0 = time.perf_counter()
     cs = scene.compile()  # the card, by default; the C++ SAH builder
     compile_s = time.perf_counter() - t0
-    groups = [group_sig(g) for g in cs.unified["groups"]]
+    groups = [group_sig(g) for g in all_groups(cs)]
     if groups != groups_want or cs.heavy_traversal != heavy_want:
         fail(f"unexpected {tag} groups {groups} (heavy: {cs.heavy_traversal})")
     sampler = BlueSampler(spp)
     render = lambda s: render_wavefront(cs, scene.camera, W, H, sampler, s, depth)  # noqa: E731
 
-    recorded, sorts = record_launches(cs, kinds, lambda: render(1))
+    recorded, _ = record_launches(cs, kinds, lambda: render(1))
     torch.cuda.synchronize()
 
     render(spp)  # warm-up
@@ -589,16 +756,8 @@ def phase_main_path(dev_name, tag, what, scene, groups_want, heavy_want, kinds):
     entries = [kernel_line_entry(kind, form, recorded[(kind, any_hit)],
                                  launches[f"{kind}.{form}"])
                for kind in kinds for form, any_hit in (("closest", False), ("any_hit", True))]
-    if sorts:
-        # device time of the sort itself (key, stable argsort, inverse) per
-        # 1-spp render, against what it saves the kernels
-        sort_ms = sum(cuda_ms(lambda: cs.sort_perm(*s), 10) for s in sorts)
-        sorted_ms = sum(sum(e["ms_each"]) for e in entries)
-        unsorted_ms = sum(sum(e["ms_unsorted_each"]) for e in entries)
-        emit(dict(phase="coherence_sort", scene=tag, per="one 1-spp render",
-                  sorts=len(sorts), sort_ms=sort_ms, kernel_ms_sorted=sorted_ms,
-                  kernel_ms_unsorted=unsorted_ms,
-                  net_saving_ms=unsorted_ms - sorted_ms - sort_ms))
+    if cs.heavy_traversal or cs.inst_traversal:
+        emit(coherence_sort_record(cs, tag, kinds, lambda: render(1), W * H))
     return entries
 
 
@@ -639,7 +798,8 @@ def main():
 
     dev = torch.device("cuda")
     os.makedirs(OUT_DIR, exist_ok=True)
-    for kind, phase in (("dense", phase_dense_vs_plain), ("grid", phase_grid_vs_plain)):
+    for kind, phase in (("dense", phase_dense_vs_plain), ("grid", phase_grid_vs_plain),
+                        ("inst", phase_inst_vs_plain)):
         recs = phase(dev)
         with open(os.path.join(OUT_DIR, f"chip_smoke_{kind}.json"), "w") as f:
             json.dump(recs, f, indent=1)
@@ -658,6 +818,11 @@ def main():
     kernels += phase_main_path(
         name, "terrain", "bench_mesh terrain, 99,458 triangles + 1 rect", scenes.terrain((W, H)),
         [("dense", 1, 1), ("grid", 6, 99458)], True, ["grid"])
+    kernels += phase_main_path(
+        name, "instanced", "bench_instanced rock field, 1,024 x 4,802 triangles + plane + rect",
+        scenes.instanced((INST_SIZE, INST_SIZE)),
+        [("dense", 1, 1), ("dense", 3, 1), ("inst", 6, 1024)], False, ["inst"],
+        INST_SIZE, INST_SPP, INST_DEPTH)
     emit(dict(phase="done", seconds=time.perf_counter() - t_start))
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,7 +36,8 @@ DENSE_DEFAULT_MAX = 512  # groups of up to this many rows take the dense kernel
 GRID_MAX_PRIMS_HBM = 2_000_000
 
 # kernel launches, counted where a wrapper launches its CUDA kernel
-LAUNCHES = {"dense.closest": 0, "dense.any_hit": 0, "grid.closest": 0, "grid.any_hit": 0}
+LAUNCHES = {"dense.closest": 0, "dense.any_hit": 0, "grid.closest": 0, "grid.any_hit": 0,
+            "inst.closest": 0, "inst.any_hit": 0}
 
 
 def reset_launches():

@@ -122,7 +122,8 @@ def grid_plain(tid, rows, grid, ro, rd, tmin, tmax, best_t, best_e, any_hit, cou
     """The grid traversal in plain PyTorch (see module docstring).  With a
     ``counts`` dict, adds the slab tests and prim tests this call ran to
     ``counts["slabs"]`` and ``counts["tests"]`` (any-hit: tests up to each
-    lane's first hit, as the kernel stops there)."""
+    lane's first hit, as the kernel stops there), and the cell slab tests
+    among them, those of the supercells that passed, to ``counts["cells"]``."""
     test = PRIM_TESTS[tid]
     n_prims, n_super = grid["n_prims"], grid["n_super"]
     sc, cells, coarse = grid["sc_boxes"], grid["cell_boxes"], grid["coarse_boxes"]
@@ -131,7 +132,7 @@ def grid_plain(tid, rows, grid, ro, rd, tmin, tmax, best_t, best_e, any_hit, cou
     o = [ro[:, a] for a in range(3)]
     cols = torch.arange(SUPER, device=dev)
     big_row = torch.full((SUPER,), 2**30, dtype=torch.int64, device=dev)
-    n_slabs = n_tests = 0
+    n_slabs = n_cells = n_tests = 0
     if any_hit:
         occ = best_e.clone()
         active = (best_e == 0) & (tmax > tmin)
@@ -160,6 +161,7 @@ def grid_plain(tid, rows, grid, ro, rd, tmin, tmax, best_t, best_e, any_hit, cou
             oi, ii, tmi = [x[idx, None] for x in o], [x[idx, None] for x in inv], tmin[idx, None]
             k_cells = min(SUPER // CELL, (n_prims - si * SUPER + CELL - 1) // CELL)
             n_slabs += idx.numel() * k_cells
+            n_cells += idx.numel() * k_cells
             cell_ok = _slab(cells[si * (SUPER // CELL) : si * (SUPER // CELL) + k_cells],
                             oi, ii, tmi, window(idx)[:, None])
             p0 = si * SUPER
@@ -185,6 +187,7 @@ def grid_plain(tid, rows, grid, ro, rd, tmin, tmax, best_t, best_e, any_hit, cou
     if counts is not None:
         counts["slabs"] = counts.get("slabs", 0) + n_slabs
         counts["tests"] = counts.get("tests", 0) + n_tests
+        counts["cells"] = counts.get("cells", 0) + n_cells
     if any_hit:
         return best_t, occ
     return cur_t, cur_e

@@ -9,12 +9,21 @@ Counterpart of pine_tpu/accel/packet.py for analytic shapes and meshes:
   snapped to the affine model, so every traversal path sees the same
   geometry.  The triangles of all meshes form one more group, with their
   shading attributes in entity order.
-- ``packet_intersect`` / ``packet_any_hit`` run each group through
-  accel/dense_traverse.group_query, the kernel route on CUDA tensors.
+- Each lazy instancing becomes an instanced group (``_instanced_group``):
+  the mesh's triangles once, in the mesh's own SAH leaf order, and a second
+  SAH tree over the instances' world boxes, whose order the per-instance
+  transforms and geometry ids follow.
+- ``packet_intersect`` / ``packet_any_hit`` run each regular group through
+  accel/dense_traverse.group_query and then each instanced group through
+  accel/inst_traverse.inst_query, the kernel routes on CUDA tensors.
 
 Entity ids concatenate the groups' rows: a group-local row plus the group's
 ``base`` is the entity, and ``ent_gidx`` maps an entity to its scene
-geometry.
+geometry.  Hits on instanced groups carry virtual ids
+``vbase + instance * stride + tri`` (``tri`` in the mesh's leaf order;
+``stride = T + LEAF_MAX``, ``vbase`` after the regular entities and their
+LEAF_MAX pad rows), so the memory stays O(mesh); ``ent_to_gidx`` and
+``instanced_surface_info`` decode them.
 """
 from __future__ import annotations
 
@@ -23,6 +32,7 @@ import torch
 
 from pine_tpu_torch.accel.bvh import LEAF_MAX, sah_arrays
 from pine_tpu_torch.accel.dense_traverse import BIG, group_query
+from pine_tpu_torch.accel.inst_traverse import inst_query
 from pine_tpu_torch.scene import shapes as S
 
 DENSE_MAX = 16  # types with <= this many prims keep insertion order
@@ -125,16 +135,68 @@ def _mesh_triangles(meshes):
             n_attr.astype(np.float32), t_attr.astype(np.float32), has_n, has_t)
 
 
-def build_packet_accel(analytic_prims, meshes=()):
+def box_corners(lo, hi):
+    """The 8 corners (8, 3) float32 of the box [lo, hi]."""
+    return np.array([[x, y, z] for x in (lo[0], hi[0]) for y in (lo[1], hi[1])
+                     for z in (lo[2], hi[2])], np.float32)
+
+
+def instancing_record(mesh, transforms, gidx):
+    """The record ``_instanced_group`` takes, from 4x4 local->world
+    transforms: their 3x4 parts ``m`` and those of their inverses ``minv``
+    (float32, one row of 12 per instance) and the instances' geometry ids."""
+    ms = np.asarray(transforms, np.float32).reshape(-1, 4, 4)
+    return dict(mesh=mesh, m=ms[:, :3, :4].reshape(-1, 12),
+                minv=np.linalg.inv(ms).astype(np.float32)[:, :3, :4].reshape(-1, 12),
+                gidx=np.asarray(gidx, np.int32))
+
+
+def _instanced_group(rec, vbase):
+    """One lazy instanced group from an instancing record
+    (``instancing_record``): the mesh's triangle
+    rows and shading attributes in its SAH leaf order with LEAF_MAX pad rows;
+    the instances' world boxes (the mesh box's corners through each ``m``)
+    and the SAH tree over them (``ic_*``, as ``sah_arrays`` returns it);
+    ``iboxes``, ``minv``, ``m``, ``gidx`` in that tree's instance order, the
+    last three with LEAF_MAX zero pad rows."""
+    rows, _, lo, hi, n_attr, t_attr, has_n, has_t = _mesh_triangles([(rec["mesh"], 0)])
+    order = sah_arrays(lo, hi)[0]
+    T = len(rows)
+
+    def pad(x, idx):
+        return np.concatenate([x[idx], np.zeros((LEAF_MAX,) + x.shape[1:], x.dtype)])
+
+    corners = box_corners(lo.min(0), hi.max(0))
+    m_l2w = np.asarray(rec["m"], np.float32).reshape(-1, 3, 4)
+    n_inst = len(m_l2w)
+    wc = np.einsum("iab,cb->ica", m_l2w[:, :, :3], corners) + m_l2w[:, None, :, 3]
+    ilo, ihi = wc.min(axis=1), wc.max(axis=1)
+    iorder, ic_lower, ic_upper, ic_node, ic_start, ic_count = sah_arrays(ilo, ihi)
+    return dict(
+        kind="instanced", tid=S.TRIANGLE, vbase=vbase, stride=T + LEAF_MAX, n_tris=T,
+        n_inst=n_inst, rows=pad(rows, order), prim_aabbs=np.concatenate([lo, hi], 1)[order],
+        tri_n=pad(n_attr, order), tri_t=pad(t_attr, order), tri_has_n=pad(has_n, order),
+        tri_has_t=pad(has_t, order),
+        ic_lower=ic_lower, ic_upper=ic_upper, ic_node=ic_node, ic_start=ic_start,
+        ic_count=ic_count, iboxes=np.concatenate([ilo, ihi], 1)[iorder].astype(np.float32),
+        minv=pad(np.asarray(rec["minv"], np.float32).reshape(n_inst, 12), iorder),
+        m=pad(m_l2w.reshape(n_inst, 12), iorder),
+        gidx=pad(np.asarray(rec["gidx"], np.int32), iorder),
+    )
+
+
+def build_packet_accel(analytic_prims, meshes=(), instanced=()):
     """analytic_prims: list of (type_id, params (k,), gidx, (lo, hi));
-    meshes: list of (Mesh, gidx).
+    meshes: list of (Mesh, gidx); instanced: list of instancing records
+    (``instancing_record``).
 
     -> host accel dict: ``groups`` (each: tid, kind, base, rows, prim_aabbs,
-    lattice) and ``ent_gidx``; with meshes also the entity-order tables
-    ``ent_param`` (E, 32), ``geom_n``, ``tri_n``, ``tri_t``, ``tri_has_n``,
-    ``tri_has_t`` that mesh shading reads (accel/unified.py).  The triangles
-    of all meshes form one group after the analytic ones; it is never
-    lattice-detected.  None when there are no prims."""
+    lattice), ``inst_groups`` (``_instanced_group``'s dicts) and
+    ``ent_gidx``; with meshes also the entity-order tables ``ent_param``
+    (E, 32), ``geom_n``, ``tri_n``, ``tri_t``, ``tri_has_n``, ``tri_has_t``
+    that mesh shading reads (accel/unified.py).  The triangles of all meshes
+    form one group after the analytic ones; it is never lattice-detected.
+    None when there are no prims and no instancings."""
     from pine_tpu_torch.accel.dense_traverse import PRIM_TESTS
 
     by_type = {}
@@ -181,10 +243,15 @@ def build_packet_accel(analytic_prims, meshes=()):
                          [np.zeros((n, 9), np.float32), np.zeros((n, 6), np.float32),
                           np.zeros(n, bool), np.zeros(n, bool)])
         base += n
-    if base == 0:
+    inst_groups = []
+    vbase = base + LEAF_MAX  # virtual ids start clear of the entity pad rows
+    for rec in instanced:
+        inst_groups.append(_instanced_group(rec, vbase))
+        vbase += inst_groups[-1]["n_inst"] * inst_groups[-1]["stride"]
+    if base == 0 and not inst_groups:
         return None
     ent_gidx.append(np.zeros(LEAF_MAX, np.int32))
-    accel = dict(groups=groups, ent_gidx=np.concatenate(ent_gidx))
+    accel = dict(groups=groups, inst_groups=inst_groups, ent_gidx=np.concatenate(ent_gidx))
     if meshes:
         ep = np.concatenate(ent_param + [np.zeros((LEAF_MAX, ENT_PARAM_WIDTH), np.float32)])
         is_tri = np.concatenate([np.full(len(g["prim_aabbs"]), g["tid"] == S.TRIANGLE)
@@ -197,19 +264,73 @@ def build_packet_accel(analytic_prims, meshes=()):
     return accel
 
 
+def _inst_lanes(ig, ent):
+    """(lanes whose entity is a virtual id of instanced group ``ig``, their
+    instance, their triangle row)."""
+    span = ig["n_inst"] * ig["stride"]
+    is_i = (ent >= ig["vbase"]) & (ent < ig["vbase"] + span)
+    rel = (ent.long() - ig["vbase"]).clamp(0, span - 1)
+    return is_i, rel // ig["stride"], (rel % ig["stride"]).clamp(0, ig["n_tris"] - 1)
+
+
 def ent_to_gidx(accel, ent):
-    """Entity ids -> scene geometry ids."""
-    return accel["ent_gidx"][ent.clamp(0, accel["ent_gidx"].shape[0] - 1).long()]
+    """Entity ids (virtual ids of instanced groups too) -> scene geometry ids."""
+    g = accel["ent_gidx"][ent.clamp(0, accel["ent_gidx"].shape[0] - 1).long()]
+    for ig in accel.get("inst_groups", ()):
+        is_i, inst, _ = _inst_lanes(ig, ent)
+        g = torch.where(is_i, ig["gidx"][inst], g)
+    return g
+
+
+def instanced_surface_info(accel, ent, p, out_p, out_n, out_uv):
+    """Overlay the shading of instanced hits: the local triangle through the
+    instance's transform, barycentrics at ``p`` in world space, normals
+    through the transpose of ``minv`` (the inverse transpose of ``m``)."""
+    for ig in accel.get("inst_groups", ()):
+        is_i, inst, tri = _inst_lanes(ig, ent)
+        m = ig["m"][inst].reshape(-1, 3, 4)  # local -> world
+        mi = ig["minv"][inst].reshape(-1, 3, 4)  # world -> local
+        rows = ig["rows"][tri]
+        v0, v1, v2 = (m[:, :, 0] * rows[:, k:k + 1] + m[:, :, 1] * rows[:, k + 1:k + 2]
+                      + m[:, :, 2] * rows[:, k + 2:k + 3] + m[:, :, 3] for k in (0, 3, 6))
+        e1, e2, dp = v1 - v0, v2 - v0, p - v0
+        d11, d12, d22 = (e1 * e1).sum(-1), (e1 * e2).sum(-1), (e2 * e2).sum(-1)
+        dp1, dp2 = (dp * e1).sum(-1), (dp * e2).sum(-1)
+        det = torch.clamp_min(d11 * d22 - d12 * d12, 1e-20)
+        u = torch.clamp((d22 * dp1 - d12 * dp2) / det, 0.0, 1.0)
+        v = torch.clamp((d11 * dp2 - d12 * dp1) / det, 0.0, 1.0)
+        w = torch.clamp(1.0 - u - v, 0.0, 1.0)
+
+        def to_world_n(nl):
+            nw = mi[:, 0, :3] * nl[:, 0:1] + mi[:, 1, :3] * nl[:, 1:2] + mi[:, 2, :3] * nl[:, 2:3]
+            return nw / torch.clamp_min(torch.linalg.vector_norm(nw, dim=-1, keepdim=True), 1e-20)
+
+        n = to_world_n(rows[:, 9:12])
+        na = ig["tri_n"][tri]
+        nl = w[:, None] * na[:, 0:3] + u[:, None] * na[:, 3:6] + v[:, None] * na[:, 6:9]
+        ln = torch.linalg.vector_norm(nl, dim=-1, keepdim=True)
+        smooth = ig["tri_has_n"][tri][:, None] & (ln > 1e-8)
+        n = torch.where(smooth, to_world_n(nl / torch.clamp_min(ln, 1e-8)), n)
+        ta = ig["tri_t"][tri]
+        uv_i = w[:, None] * ta[:, 0:2] + u[:, None] * ta[:, 2:4] + v[:, None] * ta[:, 4:6]
+        uv = torch.where(ig["tri_has_t"][tri][:, None], uv_i, torch.stack([u, v], -1))
+        out_n = torch.where(is_i[:, None], n, out_n)
+        out_uv = torch.where(is_i[:, None], uv, out_uv)
+    return out_p, out_n, out_uv
 
 
 def packet_intersect(accel, ro, rd, tmin, tmax):
-    """Closest hit over all groups -> (t, ent), t = BIG on a miss."""
+    """Closest hit over all groups -> (t, ent), t = BIG on a miss.  The
+    regular groups run first, then the instanced groups, which return full
+    virtual ids."""
     best_t = tmax
     best_e = torch.full_like(tmax, -1, dtype=torch.int32)
     for g in accel["groups"]:
         t_new, e_loc = group_query(g, ro, rd, tmin, best_t, best_t, best_e, any_hit=False)
         best_e = torch.where(t_new < best_t, g["base"] + e_loc, best_e)
         best_t = t_new
+    for g in accel.get("inst_groups", ()):
+        best_t, best_e = inst_query(g, ro, rd, tmin, best_t, best_t, best_e, any_hit=False)
     return torch.where(best_t < tmax, best_t, BIG), best_e.clamp_min(0)
 
 
@@ -218,4 +339,6 @@ def packet_any_hit(accel, ro, rd, tmin, tmax):
     occ = torch.zeros_like(tmax, dtype=torch.int32)
     for g in accel["groups"]:
         _, occ = group_query(g, ro, rd, tmin, tmax, tmax, occ, any_hit=True)
+    for g in accel.get("inst_groups", ()):
+        _, occ = inst_query(g, ro, rd, tmin, tmax, tmax, occ, any_hit=True)
     return occ != 0

@@ -13,8 +13,9 @@ import torch
 def unified_surface_info_triangle(accel, ent, p):
     """Barycentric normal and uv of triangle entities ``ent`` at points ``p``
     -> (p, n, uv).  A vertex normal that interpolates to under 1e-8 falls
-    back to the geometric normal."""
-    ent = ent.long()
+    back to the geometric normal.  Ids past the table (virtual ids of
+    instanced hits, which instanced_surface_info shades) are clamped."""
+    ent = ent.clamp(0, accel["ent_param"].shape[0] - 1).long()
     rows = accel["ent_param"][ent]
     v0, v1, v2 = rows[:, 0:3], rows[:, 3:6], rows[:, 6:9]
     gn = rows[:, 9:12]

@@ -11,18 +11,32 @@ Keys (``i`` counts from 0):
 - ``g_type``, ``g_local``, ``g_mat``: int32 (n_global,) per scene geometry.
   A Mesh is one geometry with ``g_type == MESH_TYPE`` (11) and ``g_local``
   its index among the meshes; its triangles live only in the triangle
-  group below;
+  group below.  Each instance of a lazy instancing is one geometry too
+  (``MESH_TYPE``, ``g_local`` 0), after the scene's other geometries;
 - ``table.<tid>`` float32 (n, w) and ``type_global.<tid>`` int32 (n,): the
   per-type parameter rows (unsnapped) and their geometry ids;
-- ``world_lo`` float32 (3,) and ``world_span``: the scene's bounds, which key
-  the coherence sort's origin cells;
+- ``world_lo`` float32 (3,) and ``world_span``: the scene's bounds (lazy
+  instances by their mesh box's corners), which key the coherence sort's
+  origin cells;
 - ``n_groups``; ``group.<i>.tid``, ``.kind`` ("dense" or "bvh"), ``.base``,
   ``.rows`` float32 (rows, w) as traversed (leaf order, lattice-snapped, pad
   rows included), ``.prim_aabbs`` float32 (n, 6), ``.lattice`` bool;
   ``ent_gidx`` int32: entity -> geometry.  No groups for 24 or fewer
-  analytic prims and no mesh.  The triangles of all meshes form one group
-  of ``tid`` 6 (triangle rows [v0, v1, v2, geometric normal]) after the
-  analytic groups;
+  analytic prims, no mesh and no lazy instancing.  The triangles of all
+  meshes form one group of ``tid`` 6 (triangle rows [v0, v1, v2, geometric
+  normal]) after the analytic groups;
+- ``n_inst_groups``; per lazy instancing (accel/packet._instanced_group)
+  ``inst.<i>.tid`` (6), ``.vbase``, ``.stride``, ``.n_tris`` (T),
+  ``.n_inst`` (I): hits carry virtual ids vbase + instance * stride + tri;
+  the mesh in its own SAH leaf order: ``.rows`` float32 (T + 4, 12) (4
+  zero pad rows), ``.prim_aabbs`` (T, 6), ``.tri_n`` (T + 4, 9), ``.tri_t``
+  (T + 4, 6), ``.tri_has_n``, ``.tri_has_t`` bool (T + 4,); the SAH tree
+  over the instances' world boxes: ``.ic_lower``, ``.ic_upper`` float32
+  (M, 2, 3), ``.ic_node``, ``.ic_start``, ``.ic_count`` int32 (M, 2); in
+  that tree's instance order: ``.iboxes`` float32 (I, 6) world boxes,
+  ``.minv`` (world -> local) and ``.m`` (local -> world) float32 (I + 4,
+  12) 3x4 row-major, ``.gidx`` int32 (I + 4,) the instances' geometries (4
+  zero pad rows each);
 - with meshes, entity-order tables (LEAF_MAX zero rows at the end):
   ``ent_param`` float32 (E, 32) each entity's row, zero-padded;
   ``geom_n`` float32 (E, 3) triangle geometric normals; ``tri_n`` float32
@@ -45,7 +59,8 @@ import torch
 
 from pine_tpu_torch.accel.dense_traverse import group_variant
 from pine_tpu_torch.accel.grid_traverse import grid_layout, upload_layout
-from pine_tpu_torch.accel.packet import build_packet_accel
+from pine_tpu_torch.accel.inst_traverse import upload_inst_group
+from pine_tpu_torch.accel.packet import box_corners, build_packet_accel, instancing_record
 from pine_tpu_torch.core.place import resolve_device
 from pine_tpu_torch.scene import lights as L
 from pine_tpu_torch.scene import materials as M
@@ -55,12 +70,22 @@ from pine_tpu_torch.scene.scene import BIG, CompiledScene, check_ported
 DENSE_SCENE_MAX = 24  # scenes with more prims than this (or a mesh) use the prim groups
 GROUP_KEYS = ("tid", "kind", "base", "rows", "prim_aabbs", "lattice")
 MESH_KEYS = ("ent_param", "geom_n", "tri_n", "tri_t", "tri_has_n", "tri_has_t")
+INST_KEYS = ("tid", "vbase", "stride", "n_tris", "n_inst", "rows", "prim_aabbs", "tri_n",
+             "tri_t", "tri_has_n", "tri_has_t", "ic_lower", "ic_upper", "ic_node", "ic_start",
+             "ic_count", "iboxes", "minv", "m", "gidx")
 
 
 def scene_arrays(scene) -> dict:
     """Flatten a Scene (shapes, used materials, lights, camera) to host arrays."""
     a = {}
     mat_slots, mat_of = [], {}
+
+    def mat_slot(mat):
+        if id(mat) not in mat_of:
+            mat_of[id(mat)] = len(mat_slots)
+            mat_slots.append(mat)
+        return mat_of[id(mat)]
+
     g_type, g_local, g_mat = [], [], []
     per_type, type_global = {}, {}
     prims, meshes, area_lights = [], [], []
@@ -68,12 +93,9 @@ def scene_arrays(scene) -> dict:
     world_hi = np.full(3, -np.inf, np.float32)
     for shape, mat in scene.geometries:
         check_ported(shape)
-        if id(mat) not in mat_of:
-            mat_of[id(mat)] = len(mat_slots)
-            mat_slots.append(mat)
         gidx = len(g_type)
         g_type.append(shape.type_id)
-        g_mat.append(mat_of[id(mat)])
+        g_mat.append(mat_slot(mat))
         lo, hi = shape.get_aabb()
         world_lo, world_hi = np.minimum(world_lo, lo), np.maximum(world_hi, hi)
         if isinstance(shape, S.Mesh):
@@ -92,6 +114,18 @@ def scene_arrays(scene) -> dict:
         if mat.is_emissive():
             area_lights.append(dict(kind="area", tid=tid, params=shape.params(), gidx=gidx,
                                     color=M.material_arrays(mat)["color"]))
+    inst_records = []
+    for inst in scene.instancings:
+        corners = box_corners(*inst.shape.get_aabb())
+        gidx = []
+        for m, mat in inst.instances:
+            gidx.append(len(g_type))
+            g_type.append(S.MESH_TYPE)
+            g_local.append(0)
+            g_mat.append(mat_slot(mat))
+            wc = corners @ m[:3, :3].T + m[:3, 3]
+            world_lo, world_hi = np.minimum(world_lo, wc.min(0)), np.maximum(world_hi, wc.max(0))
+        inst_records.append(instancing_record(inst.shape, [m for m, _ in inst.instances], gidx))
     a["g_type"] = np.asarray(g_type, np.int32)
     a["g_local"] = np.asarray(g_local, np.int32)
     a["g_mat"] = np.asarray(g_mat, np.int32)
@@ -103,13 +137,18 @@ def scene_arrays(scene) -> dict:
     a["world_lo"] = world_lo.astype(np.float32)
     a["world_span"] = np.asarray(max(float(np.max(world_hi - world_lo)), 1e-6))
 
-    use_accel = meshes or len(prims) > DENSE_SCENE_MAX
-    accel = build_packet_accel(prims, meshes) if use_accel else None
+    use_accel = meshes or inst_records or len(prims) > DENSE_SCENE_MAX
+    accel = build_packet_accel(prims, meshes, inst_records) if use_accel else None
     groups = accel["groups"] if accel else []
     a["n_groups"] = np.asarray(len(groups))
     for i, g in enumerate(groups):
         for k in GROUP_KEYS:
             a[f"group.{i}.{k}"] = np.asarray(g[k])
+    inst_groups = accel["inst_groups"] if accel else []
+    a["n_inst_groups"] = np.asarray(len(inst_groups))
+    for i, g in enumerate(inst_groups):
+        for k in INST_KEYS:
+            a[f"inst.{i}.{k}"] = np.asarray(g[k])
     for k in ("ent_gidx",) + MESH_KEYS:
         if accel and k in accel:
             a[k] = accel[k]
@@ -177,10 +216,14 @@ def compiled_scene_from_arrays(arrays: dict, device=None) -> CompiledScene:
 
     unified = None
     n_groups = int(arrays["n_groups"])
-    if n_groups:
+    n_inst = int(arrays.get("n_inst_groups", 0))
+    if n_groups or n_inst:
         groups = [upload_group({k: arrays[f"group.{i}.{k}"] for k in GROUP_KEYS}, dev)
                   for i in range(n_groups)]
-        unified = dict(groups=groups, ent_gidx=t(arrays["ent_gidx"], torch.int32))
+        inst_groups = [upload_inst_group({k: arrays[f"inst.{i}.{k}"] for k in INST_KEYS}, dev)
+                       for i in range(n_inst)]
+        unified = dict(groups=groups, inst_groups=inst_groups,
+                       ent_gidx=t(arrays["ent_gidx"], torch.int32))
         unified.update({k: t(arrays[k]) for k in MESH_KEYS if k in arrays})
 
     materials = []

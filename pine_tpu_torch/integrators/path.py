@@ -12,9 +12,11 @@ Sampler dimension schedule: dims 0-3 = pixel jitter + lens; per depth d
     +3,+4 material lobe choices   +5,+6  bxdf wm u2
     +7   bxdf fresnel u1          +8,+9  bxdf cosine u2
 
-On heavy scenes on the card, each bounce's continuation rays are put in
-coherence-sort order once (CompiledScene.sort_perm); the permutation serves
-that depth's NEE shadow rays and the next depth's intersect.
+Where the scene sorts on the card (CompiledScene.sort_mode: heavy scenes;
+instanced ones with ``origin_sort`` set), each bounce's continuation rays are
+put in coherence-sort order once (CompiledScene.sort_perm); the permutation
+serves that depth's NEE shadow rays and the next depth's intersect.  Depth 0
+is not sorted: the tile-major primary rays are coherent already.
 
 Media, subsurface walks and environment lights are not ported yet (their
 scenes are refused at compile()).

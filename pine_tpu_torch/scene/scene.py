@@ -1,23 +1,34 @@
 """Scene (host container) and CompiledScene (device tables plus queries).
 
 Counterpart of pine_tpu/scene/scene.py for analytic shapes, triangle meshes,
-constant materials, area (analytic or mesh) and point lights.
-``Scene.compile(device)`` flattens the scene into the arrays of
+mesh instancing, constant materials, area (analytic or mesh) and point
+lights.  ``Scene.compile(device)`` flattens the scene into the arrays of
 pine_tpu_torch/convert.py and uploads them once; the renderer then queries
-the CompiledScene.  Scenes with 24 or fewer analytic prims and no mesh keep
-the brute-force per-type product (no accel, no kernel); the others go
-through the prim groups of accel/packet.py, whose traversal runs the dense
-or the grid kernel on CUDA.
+the CompiledScene.  Scenes with 24 or fewer analytic prims, no mesh and no
+lazy instancing keep the brute-force per-type product (no accel, no
+kernel); the others go through the prim groups of accel/packet.py, whose
+traversal runs the dense, grid or instanced kernel on CUDA.
 
-Scenes with a group of more than GRID_MAX_PRIMS prims are "heavy": on the
-card, each bounce's rays are traversed in the order of a coherence sort
-(``_ray_sort_perm``), so the lanes of a warp share a direction octant and an
-origin region.  The sort is a pure permutation: per-lane results do not
-change.
+``Scene.add(InstancedShape)`` flattens an instancing into transformed meshes
+when its shape is not a Mesh, when an instance is emissive (area-light
+sampling needs the geometry) or when it realizes FLATTEN_LIMIT triangles or
+fewer; otherwise it stays lazy: the mesh is stored once, and each instance
+is one scene geometry of its own (``MESH_TYPE``, ``g_local`` 0, its own
+material slot).
 
-Not ported yet, and refused at compile() with their ROADMAP.md row:
-instancing (modules item 8), SDF and CSG (9), environment lights and
-textured nodes (10), media (11), the Subsurface and Uber materials (3).
+The coherence sort: on the card, each bounce's rays are traversed in the
+order of a sort (``_ray_sort_perm``), so the lanes of a warp share a region
+and a direction octant.  Scenes with a regular group of more than
+GRID_MAX_PRIMS prims are "heavy" and take the octant-major key; scenes with
+a lazy instanced group (and no heavy group) may take the origin-major key,
+whose fine origin cells bin bounce rays by the instance they start on; it is
+off unless ``CompiledScene.origin_sort`` is set, because on the H100 it cost
+more device time than it saved (PERF.md, PR 3).  The sort is a pure
+permutation: per-lane results do not change.
+
+Not ported yet, and refused at compile() with their ROADMAP.md row: SDF and
+CSG (modules item 9), environment lights and textured nodes (10), media
+(11), the Subsurface and Uber materials (3).
 """
 from __future__ import annotations
 
@@ -30,6 +41,8 @@ from pine_tpu_torch.scene import shapes as S
 BIG = I.BIG
 GRID_MAX_PRIMS = 8192  # pine_tpu's threshold for heavy-traversal scenes
 SORT_MIN_LANES = 4096  # smaller wavefronts are not sorted
+# instancings that realize more triangle rows than this stay lazy
+FLATTEN_LIMIT = 200_000
 
 
 def _spread10(x):
@@ -42,16 +55,24 @@ def _spread10(x):
     return x
 
 
-def _ray_sort_perm(ro, rd, tmin, tmax, world_lo, world_span):
-    """Wavefront coherence sort, pine_tpu's default octant mode: key (dead,
-    direction octant, 32^3 origin morton), stable argsort.  ``world_lo`` is a
+def _morton(ro, world_lo, world_span, cells):
+    """Morton code of each origin's cell in a cells^3 grid over the world."""
+    q = torch.clamp(((ro - world_lo) * (cells / world_span)).to(torch.int32), 0, cells - 1)
+    return _spread10(q[:, 0]) | (_spread10(q[:, 1]) << 1) | (_spread10(q[:, 2]) << 2)
+
+
+def _ray_sort_perm(ro, rd, tmin, tmax, world_lo, world_span, mode="octant"):
+    """Wavefront coherence sort, pine_tpu's: key (dead, direction octant,
+    32^3 origin morton) in the octant mode, (dead, 128^3 origin morton,
+    direction octant) in the origin mode; stable argsort.  ``world_lo`` is a
     (3,) tensor on the rays' device.  -> (perm, inv_perm)."""
-    q = torch.clamp(((ro - world_lo) * (32.0 / world_span)).to(torch.int32), 0, 31)
-    m = _spread10(q[:, 0]) | (_spread10(q[:, 1]) << 1) | (_spread10(q[:, 2]) << 2)
     dbin = (rd[:, 0] < 0).to(torch.int32) + 2 * (rd[:, 1] < 0).to(torch.int32) \
         + 4 * (rd[:, 2] < 0).to(torch.int32)
     dead = (tmax <= tmin).to(torch.int32)
-    key = m | (dbin << 15) | (dead << 18)
+    if mode == "origin":
+        key = dbin | (_morton(ro, world_lo, world_span, 128) << 3) | (dead << 24)
+    else:
+        key = _morton(ro, world_lo, world_span, 32) | (dbin << 15) | (dead << 18)
     perm = torch.argsort(key, stable=True)
     inv = torch.empty_like(perm)
     inv[perm] = torch.arange(perm.shape[0], device=perm.device)
@@ -62,6 +83,7 @@ class Scene:
     def __init__(self):
         self.materials = {}  # name -> Material
         self.geometries = []  # (shape, material)
+        self.instancings = []  # InstancedShape kept lazy
         self.lights = []
         self.camera = None
 
@@ -78,7 +100,8 @@ class Scene:
         return material
 
     def add(self, *args):
-        """add(name, material) | add(shape, material) | add(light)."""
+        """add(name, material) | add(shape, material) | add(light) |
+        add(InstancedShape): flattened or kept lazy (module docstring)."""
         if len(args) == 2 and isinstance(args[0], str):
             return self.add_material(args[0], args[1])
         if len(args) == 2:
@@ -87,9 +110,19 @@ class Scene:
         if isinstance(x, L.Light):
             self.lights.append(x)
             return x
+        if isinstance(x, S.InstancedShape):
+            is_mesh = isinstance(x.shape, S.Mesh)
+            n_rows = len(x.instances) * x.shape.num_triangles() if is_mesh else 0
+            if (not is_mesh or any(mat.is_emissive() for _, mat in x.instances)
+                    or n_rows <= FLATTEN_LIMIT):
+                for m, mat in x.instances:
+                    self.add_geometry(x.shape.transformed(m), mat)
+            else:
+                self.instancings.append(x)
+            return x
         raise NotImplementedError(
-            f"Scene.add({type(x).__name__}) is not ported yet: instancing is "
-            "ROADMAP.md modules item 8, media item 11"
+            f"Scene.add({type(x).__name__}) is not ported yet: media are ROADMAP.md "
+            "modules item 11"
         )
 
     def set(self, x):
@@ -127,21 +160,35 @@ class CompiledScene:
         }
         self.camera = camera
         self.has_meshes = unified is not None and "ent_param" in unified
+        # instanced groups are kept apart (unified["inst_groups"]): a large
+        # shared mesh does not make a scene heavy
         self.heavy_traversal = unified is not None and any(
             len(g["prim_aabbs"]) > GRID_MAX_PRIMS for g in unified["groups"])
+        self.inst_traversal = unified is not None and bool(unified.get("inst_groups"))
+        self.origin_sort = False  # the origin-major sort for instanced scenes (module docstring)
         self.world_lo = torch.zeros(3, device=device) if world_lo is None else world_lo
         self.world_span = float(world_span)
 
+    def sort_mode(self, n, on_card):
+        """The coherence sort's key for a wavefront of ``n`` lanes: "octant"
+        for heavy scenes, "origin" for instanced ones with ``origin_sort``
+        set, None when the sort is off (off the card, or under
+        SORT_MIN_LANES lanes)."""
+        if not (on_card and n >= SORT_MIN_LANES):
+            return None
+        if self.heavy_traversal:
+            return "octant"
+        return "origin" if self.inst_traversal and self.origin_sort else None
+
     def sort_perm(self, ro, rd, dead):
         """Coherence-sort permutation (perm, inv) for a wavefront, or None when
-        the sort is off: it is on for heavy scenes on the card and wavefronts
-        of at least SORT_MIN_LANES lanes.  The integrator shares one per
-        bounce between the NEE shadow rays and the next depth's intersect."""
-        n = ro.shape[0]
-        if not (ro.is_cuda and self.heavy_traversal and n >= SORT_MIN_LANES):
+        the sort is off (``sort_mode``).  The integrator shares one per bounce
+        between the NEE shadow rays and the next depth's intersect."""
+        mode = self.sort_mode(ro.shape[0], ro.is_cuda)
+        if mode is None:
             return None
-        return _ray_sort_perm(ro, rd, torch.zeros_like(ro[:, 0]),
-                              torch.where(dead, -1.0, 1.0), self.world_lo, self.world_span)
+        return _ray_sort_perm(ro, rd, torch.zeros_like(ro[:, 0]), torch.where(dead, -1.0, 1.0),
+                              self.world_lo, self.world_span, mode)
 
     def intersect(self, ro, rd, tmin, tmax, sort_perm=None):
         """Closest hit -> (t, gidx, hit, mesh_tri); t = BIG on a miss and
@@ -189,7 +236,8 @@ class CompiledScene:
 
     def surface_info(self, gidx, p, mesh_tri=None):
         """Per-lane (p_corrected, n, uv) by masked per-type dispatch; mesh
-        lanes interpolate their triangle's attributes at ``mesh_tri``."""
+        lanes interpolate their triangle's attributes at ``mesh_tri``, and
+        instanced lanes (virtual ids) their instance's triangle's."""
         gi = gidx.clamp(0, self.n_global - 1).long()
         tid_lane, local = self.g_type[gi], self.g_local[gi]
         out_p, out_n = p, torch.zeros_like(p)
@@ -208,6 +256,11 @@ class CompiledScene:
             out_p = torch.where(m, pc, out_p)
             out_n = torch.where(m, nn, out_n)
             out_uv = torch.where(m, uv, out_uv)
+        if self.inst_traversal and mesh_tri is not None:
+            from pine_tpu_torch.accel.packet import instanced_surface_info
+
+            out_p, out_n, out_uv = instanced_surface_info(self.unified, mesh_tri, p,
+                                                          out_p, out_n, out_uv)
         return out_p, out_n, out_uv
 
     def light_pdf_at_hit(self, gidx, ro, rd, t, ns):

@@ -1,8 +1,8 @@
 """Analytic shapes: host-side classes that flatten into per-type parameter rows.
 
 Counterpart of pine_tpu/scene/shapes.py: the same type ids, the same
-``params()`` layouts and the same ``get_aabb()``, plus triangle meshes.
-Lines, SDFs, CSG and instancing are not ported.
+``params()`` layouts and the same ``get_aabb()``, plus triangle meshes and
+mesh instancing.  Lines, SDFs and CSG are not ported.
 """
 from __future__ import annotations
 
@@ -272,6 +272,27 @@ class Mesh(Shape):
             None if normals is None else np.asarray(normals, np.float32).reshape(-1, 3)
         )
 
+    def apply(self, m):
+        """Transform in place by the 4x4 ``m``; normals through the inverse of
+        its 3x3 part, renormalized."""
+        m = np.asarray(m, np.float32)
+        self.vertices = (self.vertices @ m[:3, :3].T + m[:3, 3]).astype(np.float32)
+        if self.normals is not None:
+            nrm = self.normals @ np.linalg.inv(m[:3, :3]).astype(np.float32)
+            self.normals = (
+                nrm / np.maximum(np.linalg.norm(nrm, axis=-1, keepdims=True), 1e-20)
+            ).astype(np.float32)
+        return self
+
+    def transformed(self, m):
+        """A transformed copy (the flattened form of an instance)."""
+        out = Mesh(
+            self.vertices.copy(), self.indices.copy(),
+            None if self.texcoords is None else self.texcoords.copy(),
+            None if self.normals is None else self.normals.copy(),
+        )
+        return out.apply(m)
+
     def get_aabb(self):
         return self.vertices.min(0), self.vertices.max(0)
 
@@ -285,6 +306,22 @@ class Mesh(Shape):
 
     def area(self):
         return mesh_area(self.triangles())
+
+
+class InstancedShape:
+    """Mesh instancing: one mesh plus per-instance (4x4 transform, material).
+    ``Scene.add`` flattens small instancings into transformed meshes and keeps
+    large ones lazy: the mesh stored once, traversed in each instance's frame
+    (accel/inst_traverse.py)."""
+
+    def __init__(self, mesh):
+        self.shape = mesh
+        self.instances = []
+
+    def add(self, transform, material):
+        transform = getattr(transform, "data", transform)
+        self.instances.append((np.asarray(transform, np.float32), material))
+        return self
 
 
 def _cross_lengths(tris):

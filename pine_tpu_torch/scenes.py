@@ -1,5 +1,13 @@
 """Scenes built through the port's Scene API.
 
+``instanced`` is the instancing benchmark of the repository's
+``bench_instanced.py``: an n_side x n_side field of instances (1,024 at the
+benchmark's 32) of one bumpy-ellipsoid rock of (rock_grid-1)^2 * 2 triangles
+(4,802 at its 50), on a ground plane, under one emissive rect.  The rock's
+vertices and indices and the instance transforms are the benchmark's to the
+bit.  The benchmark's field realizes 4.9 M triangles, so it stays lazy
+(scene.FLATTEN_LIMIT); smaller fields flatten unless that limit is lowered.
+
 ``terrain`` is the mesh benchmark of the repository's ``bench_mesh.py``: a
 seeded fbm heightfield of (grid-1)^2 * 2 triangles (99,458 at the benchmark's
 grid of 224), one emissive rect above it, a low camera in the valley.  Its
@@ -92,6 +100,60 @@ def make_terrain(grid=TERRAIN_GRID, size=8.0, amp=1.2, seed=7):
     c, d = idx[1:, :-1].ravel(), idx[1:, 1:].ravel()
     F = np.concatenate([np.stack([a, b, c], -1), np.stack([b, d, c], -1)]).astype(np.uint32)
     return V, F
+
+
+ROCK_GRID = 50  # bench_instanced.py's GRID: 4,802 triangles per rock
+ROCK_SIDE = 32  # bench_instanced.py's N_SIDE: 1,024 instances
+
+
+def make_rock(grid=ROCK_GRID):
+    """Bumpy ellipsoid mesh -> (vertices (grid^2, 3), indices)."""
+    th = np.linspace(0, np.pi, grid, dtype=np.float32)
+    ph = np.linspace(0, 2 * np.pi, grid, dtype=np.float32)
+    T, P = np.meshgrid(th, ph, indexing="ij")
+    r = 1.0 + 0.25 * (np.sin(3 * T + 1.3) * np.cos(4 * P)
+                      + 0.5 * np.sin(7 * T) * np.sin(5 * P + 0.7))
+    V = np.stack([r * np.sin(T) * np.cos(P), 0.8 * r * np.cos(T), r * np.sin(T) * np.sin(P)],
+                 axis=-1).reshape(-1, 3).astype(np.float32)
+    idx = np.arange(grid * grid, dtype=np.uint32).reshape(grid, grid)
+    a, b = idx[:-1, :-1].ravel(), idx[:-1, 1:].ravel()
+    c, d = idx[1:, :-1].ravel(), idx[1:, 1:].ravel()
+    F = np.concatenate([np.stack([a, b, c], -1), np.stack([b, d, c], -1)]).astype(np.uint32)
+    return V, F
+
+
+def rock_transforms(n_side=ROCK_SIDE, seed=11):
+    """The field's instance transforms, row-major over (i, j): a random
+    scale in [0.35, 0.6), resting on the ground, on a jittered 1.6 grid."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n_side):
+        for j in range(n_side):
+            m = np.eye(4, dtype=np.float32)
+            s = 0.35 + 0.25 * rng.random()
+            m[:3, :3] *= s
+            m[0, 3] = (i - n_side / 2) * 1.6 + rng.uniform(-0.3, 0.3)
+            m[1, 3] = 0.8 * s
+            m[2, 3] = j * 1.6 + 2.0 + rng.uniform(-0.3, 0.3)
+            out.append(m)
+    return out
+
+
+def instanced(size=(512, 512), n_side=ROCK_SIDE, rock_grid=ROCK_GRID):
+    """The instancing benchmark's scene at film ``size``; ``n_side`` and
+    ``rock_grid`` cut the field and the rock."""
+    V, F = make_rock(rock_grid)
+    scene = Scene()
+    scene.add(S.Plane([0, -0.1, 0], [0, 1, 0]), M.Diffuse([0.55, 0.5, 0.45]))
+    inst = S.InstancedShape(S.Mesh(V, F))
+    mat = M.Diffuse([0.6, 0.55, 0.5])
+    for m in rock_transforms(n_side):
+        inst.add(m, mat)
+    scene.add(inst)
+    scene.add(S.Rect([0, 30, 20], [6, 0, 0], [0, 0, 6]),
+              M.Emissive(np.asarray([400.0, 390.0, 360.0], np.float32)))
+    scene.set(ThinLenCamera(Film(size, "uncharted2"), [0.0, 6.0, -6.0], [0.0, 0.5, 14.0], 0.7))
+    return scene
 
 
 def terrain(size=(640, 640), grid=TERRAIN_GRID):

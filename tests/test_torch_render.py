@@ -45,10 +45,26 @@ def assert_renders_agree(got, want, rays_got=None, rays_want=None):
         assert abs(rays_got - rays_want) <= 0.005 * rays_want
 
 
+def jax_inst_group(g):
+    """One of pine_tpu's lazy instanced groups in pine_tpu_torch.convert's
+    ``inst.<i>.*`` format: its mesh rows, leaf order, instance tree and
+    instance order as they are."""
+    npz = g["inst_np"]
+    out = {k: np.asarray(g[k]) for k in ("tid", "vbase", "stride", "n_tris", "n_inst", "tri_n",
+                                          "tri_t", "tri_has_n", "tri_has_t")}
+    out.update({k: np.asarray(npz[k]) for k in ("ic_lower", "ic_upper", "ic_node", "ic_start",
+                                                 "ic_count", "iboxes")})
+    out.update(rows=g["mesh"]["rows_np"], prim_aabbs=g["mesh"]["_prim_aabbs"],
+               minv=np.asarray(g["inst_minv"]), m=np.asarray(g["inst_m"]),
+               gidx=np.asarray(g["inst_gidx"]))
+    return out
+
+
 def jax_scene_arrays(cs, cam):
     """pine_tpu's CompiledScene flattened to pine_tpu_torch.convert's format:
     the same rows in the same (native SAH) order, the mesh attribute tables,
-    materials, lights (mesh lights too), camera and world bounds."""
+    lazy instanced groups, materials, lights (mesh lights too), camera and
+    world bounds."""
     from pine_tpu.scene import lights as JL
     from pine_tpu.scene import shapes as JS
 
@@ -64,7 +80,7 @@ def jax_scene_arrays(cs, cam):
     for tid, table in cs.tables.items():
         a[f"table.{tid}"] = np.asarray(table)
         a[f"type_global.{tid}"] = np.asarray(cs.type_global[tid])
-    groups = cs.unified["groups"] if cs.unified else []
+    groups = [g for g in cs.unified["groups"] if g["kind"] != "instanced"] if cs.unified else []
     a["n_groups"] = np.asarray(len(groups))
     for i, g in enumerate(groups):
         a.update({
@@ -73,6 +89,10 @@ def jax_scene_arrays(cs, cam):
             f"group.{i}.prim_aabbs": g["_prim_aabbs"],
             f"group.{i}.lattice": np.asarray(g.get("lattice") is not None),
         })
+    inst_groups = cs.unified.get("inst_groups", []) if cs.unified else []
+    a["n_inst_groups"] = np.asarray(len(inst_groups))
+    for i, g in enumerate(inst_groups):
+        a.update({f"inst.{i}.{k}": v for k, v in jax_inst_group(g).items()})
     if cs.unified:
         a["ent_gidx"] = np.asarray(cs.unified["ent_gidx"])
         for k in ("ent_param", "geom_n", "tri_n", "tri_t", "tri_has_n", "tri_has_t"):
@@ -296,7 +316,7 @@ def test_unported_features_are_refused():
                              (sphere, M.Uber([1, 1, 1], 0.5), "item 3")):
         with pytest.raises(NotImplementedError, match=item):
             compile_with(shape, mat)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 11"):  # instancing is ported now
         Scene().add(object())
     # meshes are ported now: a one-triangle mesh compiles into a triangle group
     tri = S.Mesh(np.eye(3, dtype=np.float32), [[0, 1, 2]])
