@@ -20,27 +20,43 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    c. the two-level instanced traversal on the instancing benchmark's rock
       (4,802 triangles) in fields of 2x2, 32x32 (the benchmark's 1,024
       instances) and 101x101 (its --big 10,201), rays aimed into the field
-      from above and started inside it.
+      from above and started inside it;
+   d. the lattice traversal on the cone forest's own 40x40 group, on the
+      benchmark box's 21x20 cone group with the lattice march forced (the
+      JAX package's cbox-lattice A/B), on a 1-D field of 600 cones and on a
+      24x24 field of spheres, rays aimed at the field and grazing it; beside
+      it, not gated, the dense kernel on the same groups and rays.
    In b and c lanes may differ where a cull decides at a box face; at most
-   GRID_MISMATCH_SHARE of them, and the counts are printed.
+   GRID_MISMATCH_SHARE of them, and the counts are printed.  In a and d no
+   lane may differ.
 3. Render parity, card (kernels) against CPU (plain versions): the reduced
    Cornell box (36 cones), the reduced terrain (grid 40, 3,042 triangles,
-   the card also with the coherence sort forced on) and a reduced rock
-   field (3x3 instances of a 242-triangle rock, the card with its origin
-   sort), 64x64, 4 spp, depth 4.
+   the card also with the coherence sort forced on), a reduced rock field
+   (3x3 instances of a 242-triangle rock, the card with its origin sort)
+   and a reduced cone forest (24x24 cones, still the lattice traversal),
+   64x64, 4 spp, depth 4.
 4. The main paths at full width through ``Scene.compile`` and
-   ``render_wavefront`` on the card: the benchmark Cornell box (420 cones)
-   and the mesh benchmark's terrain (99,458 triangles, one rect light) at
-   640x640, BlueSampler(16), depth 4; the instancing benchmark's field
-   (1,024 rocks, a plane, one rect light) at 512x512, BlueSampler(4), depth
-   3.  For each, the launch counts are zeroed just before one render and
-   read just after, and every kernel of that path must have run; then a
-   profile of a 2-spp render.  The kernel line times each kernel form on
+   ``render_wavefront`` on the card: the benchmark Cornell box (420 cones;
+   built from bench.py's script through the port's PRL interpreter, as
+   bench.py builds it, after checking that it gives the Scene API box's
+   arrays), the cone forest (the box's floor at twice the density: 1,600
+   cones in one lattice group, from its script) and the mesh benchmark's
+   terrain (99,458 triangles, one rect light) at 640x640, BlueSampler(16),
+   depth 4; the instancing benchmark's field (1,024 rocks, a plane, one rect
+   light) at 512x512, BlueSampler(4), depth 3.  For each, the launch counts
+   are zeroed just before one render and read just after, and every kernel
+   of that path must have run; then a profile of a 2-spp render.  The
+   ``lattice_ab`` record times the box's cone group on one 1-spp render's
+   launches through the dense kernel and through the lattice march forced.  The kernel line times each kernel form on
    every launch the main path gives it in a 1-spp render.  The
    ``coherence_sort`` record times the launches of a 1-spp render with the
    sort on (terrain: the octant key, on by default; rock field: the origin
    key, off by default and forced on here) and with its permutation undone,
    beside the device time of the sort itself.
+5. The CLI: the benchmark box's script plus a render and a save, run as
+   ``python -m pine_tpu_torch cbox.pine`` in a subprocess on the card; its
+   image must equal phase 4's in-process render of the box (same sampler,
+   spp and seed) on 97 % of the pixels.
 
 Per-case records and the full-width images go to build/chip_smoke/.  The
 last line is ``{"ok": true, "device": {...}}``.  Without a GPU, or
@@ -88,9 +104,13 @@ KERNELS = {
              "pine_tpu_torch/csrc/grid_traverse.cu", "pine_tpu/accel/pallas_traverse.py:791"),
     "inst": ("inst_traverse", "inst_cuda", "inst_plain", None,
              "pine_tpu_torch/csrc/inst_traverse.cu", "pine_tpu/accel/instanced_kernel.py:56"),
+    "lattice": ("lattice_traverse", "lattice_cuda", "lattice_plain", None,
+                "pine_tpu_torch/csrc/lattice_traverse.cu", "pine_tpu/accel/pallas_traverse.py:592"),
 }
-# lanes that may differ
-ALLOWED_SHARE = {"dense": 0.0, "grid": GRID_MISMATCH_SHARE, "inst": GRID_MISMATCH_SHARE}
+# lanes that may differ (the lattice march has no cull whose outcome depends
+# on the visit order, so every lane must agree)
+ALLOWED_SHARE = {"dense": 0.0, "grid": GRID_MISMATCH_SHARE, "inst": GRID_MISMATCH_SHARE,
+                 "lattice": 0.0}
 
 
 def emit(obj):
@@ -139,12 +159,14 @@ def all_groups(cs):
 
 
 def group_sig(g):
-    """(kernel kind, prim type, prims or instances) of one compiled group."""
+    """(kernel kind, prim type, prims, rows or instances) of one compiled group."""
+    from pine_tpu_torch.accel.dense_traverse import group_variant
+
     if g["kind"] == "instanced":
         return ("inst", g["tid"], g["n_inst"])
     if "grid" in g:
         return ("grid", g["tid"], g["grid"]["n_prims"])
-    return ("dense", g["tid"], int(g["rows"].shape[0]))
+    return (group_variant(g), g["tid"], int(g["rows"].shape[0]))
 
 
 def group_desc(g):
@@ -160,6 +182,8 @@ def check_outputs(kind, out_k, out_p):
 
     (t_k, e_k), (t_p, e_p) = out_k, out_p
     close = torch.isclose(t_k, t_p, rtol=T_RTOL, atol=T_ATOL) | (t_k == t_p)
+    if kind == "lattice":  # the same rounded arithmetic: held bit for bit
+        close = t_k.view(torch.int32) == t_p.view(torch.int32)
     return (float((t_k - t_p).abs().max()), int((~close).sum()), int((e_k != e_p).sum()),
             int((~close | (e_k != e_p)).sum()), ALLOWED_SHARE[kind] * t_k.shape[0])
 
@@ -256,6 +280,8 @@ def compare(kind, g, args, any_hit, time_it, what):
         rec["coarse"] = bool(g["grid"]["use_coarse"])
     if kind == "inst":
         rec["instances"] = g["n_inst"]
+    if kind == "lattice":
+        rec["lattice"] = f"{g['lat']['ni']}x{g['lat']['nj']}, max_seg {g['lat']['max_seg']}"
     if time_it:
         rec["ms"] = cuda_ms(lambda: launch(kind, g, args, any_hit), 20)
         rec["plain_ms"] = plain_ms
@@ -399,6 +425,94 @@ def phase_inst_vs_plain(dev):
     return recs
 
 
+def lattice_field(dev, tid, ni, nj, spacing, size):
+    """An ni x nj field of cones (radius ``size``, height 0.05) or spheres
+    (radius ``size``) on the floor plane y = 0, from x = -1.25 and z = 0.25,
+    as one compiled group on ``dev``."""
+    from pine_tpu_torch.accel.packet import build_packet_accel
+    from pine_tpu_torch.convert import upload_group
+    from pine_tpu_torch.scene import shapes as S
+
+    prims = []
+    for i in range(ni):
+        for j in range(nj):
+            p = [-1.25 + spacing * j, 0.0, 0.25 + spacing * i]
+            shape = (S.Cone(p, [0, 1, 0], size, 0.05) if tid == S.CONE
+                     else S.Sphere([p[0], size, p[2]], size))
+            prims.append((tid, shape.params(), 0, shape.get_aabb()))
+    (g,) = build_packet_accel(prims)["groups"]
+    if g["lattice"] is None:
+        fail(f"the {ni}x{nj} {TYPE_NAMES[tid]} field is not detected as a lattice")
+    return upload_group(g, dev)
+
+
+def lattice_rays(rng, dev, g):
+    """random_rays' lanes (far, dead, windows, prepared best); past the far
+    quarter, half aimed from above at points of the group's box, of which
+    every 7th starts just above the floor and grazes it."""
+    import numpy as np
+    import torch
+
+    r = random_rays(rng, dev, int(g["rows"].shape[0]))
+    n, q = N_RAYS, N_RAYS // 4
+    box = g["gbox"].cpu().numpy().astype(np.float64)
+    h = (n - q) // 2
+    tgt = rng.uniform(box[:3], box[3:], (h, 3))
+    ro = tgt + rng.uniform([-1.5, 0.3, -1.5], [1.5, 2.5, 1.5], (h, 3))
+    ro[::7, 1] = rng.uniform(0.0, 0.06, len(ro[::7]))
+    rd = tgt - ro
+    rd[::7, 1] = rng.normal(scale=0.02, size=len(rd[::7]))
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    r["ro"][q:q + h] = torch.from_numpy(ro.astype(np.float32)).to(dev)
+    r["rd"][q:q + h] = torch.from_numpy(rd.astype(np.float32)).to(dev)
+    return r
+
+
+def lattice_vs_dense(g, args, any_hit):
+    """The lattice kernel against the dense kernel on the same group and rays
+    (recorded, not gated: the march rebuilds rows in float32 where the group's
+    table holds the model rounded from float64)."""
+    import torch
+
+    DT = module("dense")
+    t_l, e_l = launch("lattice", g, args, any_hit)
+    t_d, e_d = DT.dense_cuda(g["tid"], g["rows"], g["gbox"], *args, any_hit)
+    if any_hit:
+        return dict(flags_differ=int((e_l != e_d).sum()))
+    # a hit lowers t below the running best and the miss sentinel BIG
+    hit_l, hit_d = (t_l < args[4]) & (t_l < 1e30), (t_d < args[4]) & (t_d < 1e30)
+    both = hit_l & hit_d
+    return dict(hit_masks_differ=int((hit_l != hit_d).sum()),
+                max_abs_dt=float((t_l - t_d)[both].abs().max()) if bool(both.any()) else 0.0,
+                t_bits_differ=int((t_l.view(torch.int32) != t_d.view(torch.int32))[both].sum()),
+                ids_differ=int((e_l != e_d)[both].sum()), hits=int(both.sum()))
+
+
+def phase_lattice_vs_plain(dev):
+    import numpy as np
+
+    from pine_tpu_torch import scenes
+    from pine_tpu_torch.scene import shapes as S
+
+    forest = scenes.prl_scene(scenes.CONE_FOREST_PRL).compile(dev).unified["groups"][2]
+    cbox = scenes.cbox().compile(dev).unified["groups"][2]
+    cases = [("cone forest 40x40", forest), ("bench cbox 21x20, lattice forced", cbox),
+             ("cones 1x600", lattice_field(dev, S.CONE, 1, 600, 1 / 256, 0.0025)),
+             ("spheres 24x24", lattice_field(dev, S.SPHERE, 24, 24, 0.1, 0.04))]
+    recs = []
+    for k, (what, g) in enumerate(cases):
+        r = lattice_rays(np.random.default_rng(40 + k), dev, g)
+        for any_hit in (False, True):
+            args = ray_args(r, any_hit)
+            rec = compare("lattice", g, args, any_hit, time_it=k < 2, what=what)
+            rec["vs_dense"] = lattice_vs_dense(g, args, any_hit)
+            if k < 2:
+                rec["dense_ms"] = cuda_ms(lambda: module("dense").dense_cuda(
+                    g["tid"], g["rows"], g["gbox"], *args, any_hit), 20)
+            recs.append(rec)
+    return recs
+
+
 # ---------------------------------------------------------------- phase 3 ----
 
 def force_sort(cs, mode):
@@ -462,6 +576,8 @@ def phase_render_parity():
         render_parity("reduced terrain, grid 40", lambda: scenes.terrain((64, 64), 40), sort)
     render_parity("reduced rock field, 3x3 x 242 triangles", lambda: lazy_field((64, 64), 3, 12),
                   "origin")
+    render_parity("reduced cone forest, 24x24 cones",
+                  lambda: scenes.prl_scene(scenes.cone_forest_prl(*scenes.REDUCED_FOREST, size=64)))
 
 
 # ---------------------------------------------------------------- phase 4 ----
@@ -547,6 +663,31 @@ def inst_work(g, args, any_hit, out_p, counts):
                              min_cell_slabs=need["cells"], min_prim_tests=need["tests"])
 
 
+def lattice_work(g, args, any_hit, out_p, counts):
+    """(FP32 operations, bytes, counts) of one lattice call on these inputs.
+    ``counts`` are lattice_plain's (lanes past the group-box clip, windows,
+    prim tests).  The bound counts the clip per lane, the march's set-up per
+    clipped lane, each window's bounds and first cell, and each candidate's
+    prim test; the row rebuild, which stands in for reading the row, is not
+    counted.  Closest-hit: the march rerun with each lane's final t as its
+    window (the windows and candidates no march order can skip); any-hit:
+    the tests up to each lane's first hit, where the kernel stops."""
+    LT = module("lattice")
+    n = args[0].shape[0]
+    need = counts
+    if not any_hit:
+        need = {}
+        LT.lattice_plain(g, *args[:4], *out_p, False, counts=need)
+    ops = (n * CULL_OPS + need["live"] * LT.SETUP_OPS + need["windows"] * LT.WINDOW_OPS
+           + need["tests"] * TEST_OPS[g["tid"]])
+    nbytes = n * ((10 if any_hit else 9) + 2) * 4 + g["lat"]["latf"].nbytes + 24
+    if not any_hit:
+        nbytes += 4 * int((out_p[0] < args[4]).sum())  # one slot read per improved lane
+    return ops, nbytes, dict(live_rays=counts["live"], windows=counts["windows"],
+                             prim_tests=counts["tests"], min_windows=need["windows"],
+                             min_prim_tests=need["tests"])
+
+
 def kernel_line_entry(kind, form, calls, launches):
     """Time one kernel form on the recorded main-path launches (every launch
     of one 1-spp render).  ms, plain_ms and bound_ms are means per launch;
@@ -570,6 +711,8 @@ def kernel_line_entry(kind, form, calls, launches):
             c_ops, c_bytes, c = grid_work(g, args, any_hit, out_p, counts)
         elif kind == "inst":
             c_ops, c_bytes, c = inst_work(g, args, any_hit, out_p, counts)
+        elif kind == "lattice":
+            c_ops, c_bytes, c = lattice_work(g, args, any_hit, out_p, counts)
         else:
             c_ops, c_bytes, c = dense_work(g, args, any_hit)
         for key, v in c.items():
@@ -645,7 +788,7 @@ def profile_render(what, render):
         device_busy_share=busy_ms / (wall * 1e3) if busy_ms else "not measured",
         launches=sum(e.count for e in kernels),
         **{f"{k}_ms": sum(e.self_device_time_total for e in kernels if k in e.key) / 1e3
-           for k in ("dense_kernel", "grid_kernel", "inst_kernel")},
+           for k in ("dense_kernel", "grid_kernel", "inst_kernel", "lattice_kernel")},
         top=[dict(name=e.key[:90], ms=e.self_device_time_total / 1e3, count=e.count)
              for e in top],
     ))
@@ -761,6 +904,128 @@ def phase_main_path(dev_name, tag, what, scene, groups_want, heavy_want, kinds,
     return entries
 
 
+def lattice_ab_record(scene):
+    """The JAX package's cbox-lattice A/B on the card: the bench box's
+    424-row cone group through the dense kernel (its default at this size)
+    and through the lattice march forced, on every launch the group gets in
+    one 1-spp render; device time summed per form, and the lanes where the
+    two disagree (recorded, not gated): t, and the id where t is a hit (on
+    a lane whose window ends above the miss sentinel BIG, both return BIG
+    with the id of the first prim each tested, which no caller reads)."""
+    import torch
+
+    from pine_tpu_torch.core.samplers import BlueSampler
+    from pine_tpu_torch.integrators.path import render_wavefront
+
+    cs = scene.compile()
+    (cones,) = [g for g in cs.unified["groups"] if g["tid"] == 7]
+    recorded, _ = record_launches(cs, ["dense"], lambda: render_wavefront(
+        cs, scene.camera, MAIN_SIZE, MAIN_SIZE, BlueSampler(MAIN_SPP), 1, MAIN_DEPTH))
+    rec = dict(phase="lattice_ab", scene="bench cbox, 424-row cone group", per="one 1-spp render")
+    for any_hit, form in ((False, "closest"), (True, "any_hit")):
+        calls = [args for g, args, _ in recorded[("dense", any_hit)] if g is cones]
+        dense_ms = sum(cuda_ms(lambda: launch("dense", cones, a, any_hit), 10) for a in calls)
+        lattice_ms = sum(cuda_ms(lambda: launch("lattice", cones, a, any_hit), 10) for a in calls)
+        t_differ = e_differ = 0
+        for a in calls:
+            (t_d, e_d), (t_l, e_l) = launch("dense", cones, a, any_hit), launch("lattice", cones, a,
+                                                                                any_hit)
+            t_differ += int((t_d.view(torch.int32) != t_l.view(torch.int32)).sum())
+            e_differ += int(((e_d != e_l) & (any_hit | (t_d < 1e30))).sum())
+        rec[form] = dict(launches=len(calls), dense_ms=dense_ms, lattice_ms=lattice_ms,
+                         t_bits_differ=t_differ, ids_differ=e_differ)
+    emit(rec)
+
+
+# ---------------------------------------------------------------- phase 5 ----
+
+def prl_box_checked():
+    """The benchmark box built from bench.py's script through the port's PRL
+    interpreter, as bench.py builds it; its scene arrays must equal the
+    Scene API box's (scenes.cbox)."""
+    import numpy as np
+
+    from pine_tpu_torch import scenes
+    from pine_tpu_torch.convert import scene_arrays
+
+    def equal(x, y):  # arrays, or a group's lattice model (a dict or None)
+        if isinstance(x, dict) and isinstance(y, dict):
+            return x.keys() == y.keys() and all(np.array_equal(x[k], y[k]) for k in x)
+        if x is None or y is None:
+            return x is y
+        return np.array_equal(x, y)
+
+    scene = scenes.prl_scene(scenes.CBOX_PRL, "<bench:cbox>")
+    a, b = scene_arrays(scene), scene_arrays(scenes.cbox())
+    same = a.keys() == b.keys() and all(equal(a[k], b[k]) for k in a)
+    emit(dict(phase="prl_scene", scene="bench cbox from CBOX_PRL", arrays=len(a),
+              equal_to_scene_api=bool(same)))
+    if not same:
+        fail("CBOX_PRL through the PRL interpreter differs from scenes.cbox")
+    return scene
+
+
+def read_png(path):
+    """(H,W,3) uint8 of an 8-bit RGB PNG as io/image_io.save_image writes it
+    (one IDAT stream, every row with filter 0)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    data = open(path, "rb").read()
+    pos, idat, w, h = 8, b"", None, None
+    while pos < len(data):
+        (length,), kind = struct.unpack(">I", data[pos:pos + 4]), data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + length]
+        if kind == b"IHDR":
+            w, h = struct.unpack(">II", body[:8])
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + length
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if rows[:, 0].any():
+        fail(f"{path}: a PNG row filter other than 0")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def phase_cli():
+    """``python -m pine_tpu_torch cbox.pine`` on the card: the benchmark
+    box's script plus a render and a save.  Its PNG must equal phase 4's
+    in-process render of the box (the same tone-mapped 8-bit pipeline) on
+    97 % of the pixels by the render-parity tolerance."""
+    import numpy as np
+
+    from pine_tpu_torch import scenes
+
+    out = os.path.join(OUT_DIR, "cli_cbox.png")
+    if os.path.exists(out):
+        os.remove(out)
+    script = os.path.join(OUT_DIR, "cbox.pine")
+    with open(script, "w") as f:
+        f.write(scenes.CBOX_PRL + f"\nPathIntegrator(BlueSampler({MAIN_SPP}), {MAIN_DEPTH})"
+                ".render(scene);\n" + f"scene.camera.film().save('{out}');\n")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "pine_tpu_torch", script], cwd=OUT_DIR,
+                          env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    rec = dict(phase="cli", command="python -m pine_tpu_torch cbox.pine", returncode=proc.returncode,
+               wall_s=wall, finished=lines[-1] if lines else "", png=os.path.exists(out))
+    if proc.returncode != 0 or not rec["png"]:
+        emit(rec)
+        fail(f"the CLI failed: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    got = read_png(out).astype(np.float32)
+    want = read_png(os.path.join(OUT_DIR, "chip_smoke_cbox.png")).astype(np.float32)
+    d = np.abs(got - want)
+    rec["pixels_agree"] = float(((d <= 1e-3 * np.abs(want)) | (d <= 1e-4)).all(-1).mean())
+    emit(rec)
+    if got.shape != want.shape or rec["pixels_agree"] < 0.97 or not rec["finished"].startswith(
+            "Finished in"):
+        fail(f"the CLI's image differs from the in-process render: {rec}")
+
+
 def main():
     try:
         import torch
@@ -799,22 +1064,30 @@ def main():
     dev = torch.device("cuda")
     os.makedirs(OUT_DIR, exist_ok=True)
     for kind, phase in (("dense", phase_dense_vs_plain), ("grid", phase_grid_vs_plain),
-                        ("inst", phase_inst_vs_plain)):
+                        ("inst", phase_inst_vs_plain), ("lattice", phase_lattice_vs_plain)):
         recs = phase(dev)
         with open(os.path.join(OUT_DIR, f"chip_smoke_{kind}.json"), "w") as f:
             json.dump(recs, f, indent=1)
         emit(dict(phase="kernel_vs_plain", kernel=kind, cases=len(recs),
                   max_abs_err=max(r["max_abs_err"] for r in recs),
                   lanes_differ=sum(r["lanes_differ"] for r in recs),
-                  timed=[{k: r[k] for k in ("group", "form", "ms", "plain_ms")}
-                         for r in recs if "ms" in r]))
+                  timed=[{k: r[k] for k in ("group", "form", "ms", "plain_ms", "dense_ms")
+                          if k in r} for r in recs if "ms" in r],
+                  **({"vs_dense": [dict(group=r["group"], form=r["form"], **r["vs_dense"])
+                                   for r in recs]} if kind == "lattice" else {})))
 
     phase_render_parity()
     name = torch.cuda.get_device_name(0)
     W = H = MAIN_SIZE
+    box = prl_box_checked()
     kernels = phase_main_path(
-        name, "cbox", "bench cbox, 420 cones", scenes.cbox((W, H)),
+        name, "cbox", "bench cbox, 420 cones, from CBOX_PRL", box,
         [("dense", 1, 6), ("dense", 5, 2), ("dense", 7, 424)], False, ["dense"])
+    lattice_ab_record(box)
+    kernels += phase_main_path(
+        name, "forest", "cone forest, 1,600 cones, from CONE_FOREST_PRL",
+        scenes.prl_scene(scenes.CONE_FOREST_PRL, "<cone forest>"),
+        [("dense", 1, 6), ("dense", 5, 2), ("lattice", 7, 1604)], False, ["lattice"])
     kernels += phase_main_path(
         name, "terrain", "bench_mesh terrain, 99,458 triangles + 1 rect", scenes.terrain((W, H)),
         [("dense", 1, 1), ("grid", 6, 99458)], True, ["grid"])
@@ -823,6 +1096,7 @@ def main():
         scenes.instanced((INST_SIZE, INST_SIZE)),
         [("dense", 1, 1), ("dense", 3, 1), ("inst", 6, 1024)], False, ["inst"],
         INST_SIZE, INST_SPP, INST_DEPTH)
+    phase_cli()
     emit(dict(phase="done", seconds=time.perf_counter() - t_start))
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

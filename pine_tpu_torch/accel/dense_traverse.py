@@ -14,14 +14,17 @@ Counterpart of the dense path of pine_tpu/accel/pallas_traverse.py:
   ``(tmin, best_t)``; any-hit: ``(tmin, tmax)``, empty once occluded) passes
   both through bit for bit.
 
-``group_query`` runs the kernel a group needs (``group_variant``): groups of
-512 or fewer rows take the dense sweep, other non-lattice groups the grid
-traversal (accel/grid_traverse.py).  On CUDA tensors it launches the
-hand-written kernel (csrc/dense_traverse.cu, csrc/grid_traverse.cu) or
-raises; on CPU tensors it runs the plain version (``dense_plain``, the same
-arithmetic as a sweep over the rows in order with ``torch.where``, or
-``grid_traverse.grid_plain``).  A group that needs a kernel not ported yet
-(lattice, bvh; ROADMAP.md, TPU kernels) raises on CUDA.
+``group_query`` runs the kernel a group needs (``group_variant``, pine_tpu's
+defaults): groups of 512 or fewer rows take the dense sweep; larger groups
+that form a lattice (``packet._detect_lattice``) the lattice march
+(accel/lattice_traverse.py), other groups the grid traversal
+(accel/grid_traverse.py), or above GRID_MAX_PRIMS_HBM prims the BVH walk.
+On CUDA tensors it launches the hand-written kernel (csrc/dense_traverse.cu,
+csrc/lattice_traverse.cu, csrc/grid_traverse.cu) or raises; on CPU tensors
+it runs the plain version (``dense_plain``, the same arithmetic as a sweep
+over the rows in order with ``torch.where``, ``lattice_plain`` or
+``grid_plain``).  The BVH walk (kernel 2) is not ported yet (ROADMAP.md, TPU
+kernels): a group that needs it raises on CUDA.
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ GRID_MAX_PRIMS_HBM = 2_000_000
 
 # kernel launches, counted where a wrapper launches its CUDA kernel
 LAUNCHES = {"dense.closest": 0, "dense.any_hit": 0, "grid.closest": 0, "grid.any_hit": 0,
-            "inst.closest": 0, "inst.any_hit": 0}
+            "inst.closest": 0, "inst.any_hit": 0, "lattice.closest": 0, "lattice.any_hit": 0}
 
 
 def reset_launches():
@@ -328,26 +331,35 @@ def group_variant(g):
     n = g["rows"].shape[0]
     if n <= DENSE_DEFAULT_MAX:
         return "dense"
-    if g["lattice"]:
+    if g.get("lattice"):
         return "lattice"
     return "grid" if len(g["prim_aabbs"]) <= GRID_MAX_PRIMS_HBM else "bvh"
 
 
-def group_query(g, ro, rd, tmin, tmax, best_t, best_e, any_hit=False):
-    """One group's traversal over a flat wavefront (see module docstring)."""
-    variant = group_variant(g)
+def group_query(g, ro, rd, tmin, tmax, best_t, best_e, any_hit=False, variant=None):
+    """One group's traversal over a flat wavefront (see module docstring).
+    ``variant`` forces a kernel, as pine_tpu's ``pallas_group_query`` does
+    for A/B runs: "dense" on any group, "lattice" on a lattice group (on
+    another it falls back to the size default, as there), "grid" on a group
+    that has its tables."""
+    if variant is None:
+        variant = group_variant(g)
+    elif variant == "lattice" and not g.get("lattice"):
+        variant = "dense" if g["rows"].shape[0] <= DENSE_DEFAULT_MAX else "grid"
+    if variant == "lattice":
+        from pine_tpu_torch.accel.lattice_traverse import lattice_cuda, lattice_plain
+
+        fn = lattice_cuda if ro.is_cuda else lattice_plain
+        return fn(g, ro, rd, tmin, tmax, best_t, best_e, any_hit)
     if variant == "grid":
         from pine_tpu_torch.accel.grid_traverse import grid_cuda, grid_plain
 
         fn = grid_cuda if ro.is_cuda else grid_plain
         return fn(g["tid"], g["rows"], g["grid"], ro, rd, tmin, tmax, best_t, best_e, any_hit)
-    if ro.is_cuda:
-        if variant != "dense":
-            raise NotImplementedError(
-                f"group of {g['rows'].shape[0]} prims needs the {variant} traversal "
-                "kernel, which is not ported yet (ROADMAP.md, TPU kernels)"
-            )
-        return dense_cuda(g["tid"], g["rows"], g["gbox"], ro, rd, tmin, tmax,
-                          best_t, best_e, any_hit)
-    return dense_plain(g["tid"], g["rows"], g["gbox"], ro, rd, tmin, tmax,
-                       best_t, best_e, any_hit)
+    if variant != "dense" and ro.is_cuda:  # on the CPU the dense sweep computes the BVH walk
+        raise NotImplementedError(
+            f"group of {g['rows'].shape[0]} prims needs the {variant} traversal "
+            "kernel, which is not ported yet (ROADMAP.md, TPU kernels)"
+        )
+    fn = dense_cuda if ro.is_cuda else dense_plain
+    return fn(g["tid"], g["rows"], g["gbox"], ro, rd, tmin, tmax, best_t, best_e, any_hit)

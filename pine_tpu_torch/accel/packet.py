@@ -7,15 +7,16 @@ Counterpart of pine_tpu/accel/packet.py for analytic shapes and meshes:
   put in SAH leaf order ("bvh", plus LEAF_MAX zero pad rows that never hit).
   A group that forms a regular 1-D/2-D lattice (script loops) has its rows
   snapped to the affine model, so every traversal path sees the same
-  geometry.  The triangles of all meshes form one more group, with their
+  geometry, and keeps the model, which the lattice traversal reads.  The triangles of all meshes form one more group, with their
   shading attributes in entity order.
 - Each lazy instancing becomes an instanced group (``_instanced_group``):
   the mesh's triangles once, in the mesh's own SAH leaf order, and a second
   SAH tree over the instances' world boxes, whose order the per-instance
   transforms and geometry ids follow.
 - ``packet_intersect`` / ``packet_any_hit`` run each regular group through
-  accel/dense_traverse.group_query and then each instanced group through
-  accel/inst_traverse.inst_query, the kernel routes on CUDA tensors.
+  accel/dense_traverse.group_query (the dense, grid or lattice traversal)
+  and then each instanced group through accel/inst_traverse.inst_query, the
+  kernel routes on CUDA tensors.
 
 Entity ids concatenate the groups' rows: a group-local row plus the group's
 ``base`` is the entity, and ``ent_gidx`` maps an entity to its scene
@@ -43,10 +44,14 @@ def _detect_lattice(params, lo, hi):
     """Detect a regular 1-D/2-D lattice of identical-shape prims.
 
     A lattice's rows are affine in the lattice indices:
-    rows[i*nj + j] = base + i*dU + j*dV.  Returns None, or a dict with the
-    affine model, the dual spatial basis, the margins and ``snapped``, the
-    rows recomputed from the model (float accumulation in script loops
-    drifts ~1e-7 from it).
+    rows[i*nj + j] = base + i*dU + j*dV.  Returns None, or the lattice model
+    the lattice kernel reads (accel/lattice_traverse.py): ``ni``, ``nj``,
+    ``K`` (the candidate window's side), ``base``, ``dU``, ``dV``; the dual
+    spatial basis ``gu``, ``gv`` and origin ``u0``, ``v0`` (x.gu - u0 is i at
+    the cell centres, likewise j); the margins ``r_u``, ``r_v`` (a prim's
+    half-extent in cell units) and the window capacities ``cap_u``,
+    ``cap_v``; and ``snapped``, the rows recomputed from the model (float
+    accumulation in script loops drifts ~1e-7 from it).
     """
     n = len(params)
     if n < 4:
@@ -104,7 +109,10 @@ def _detect_lattice(params, lo, hi):
         return None
     snapped = (P[0] + ii[:, None] * dU + jj[:, None] * dV).astype(np.float32)
     return dict(ni=ni, nj=nj, K=K, base=P[0].astype(np.float32),
-                dU=dU.astype(np.float32), dV=dV.astype(np.float32), snapped=snapped)
+                dU=dU.astype(np.float32), dV=dV.astype(np.float32),
+                gu=gu.astype(np.float32), gv=gv.astype(np.float32),
+                u0=float(C[0] @ gu), v0=float(C[0] @ gv), r_u=float(r_u), r_v=float(r_v),
+                cap_u=float(cap_u), cap_v=float(cap_v), snapped=snapped)
 
 
 def _mesh_triangles(meshes):
@@ -191,7 +199,8 @@ def build_packet_accel(analytic_prims, meshes=(), instanced=()):
     (``instancing_record``).
 
     -> host accel dict: ``groups`` (each: tid, kind, base, rows, prim_aabbs,
-    lattice), ``inst_groups`` (``_instanced_group``'s dicts) and
+    and ``lattice``: None, or ``_detect_lattice``'s model without ``snapped``
+    and with ``slot_of_k``, the inverse of the SAH order), ``inst_groups`` (``_instanced_group``'s dicts) and
     ``ent_gidx``; with meshes also the entity-order tables ``ent_param``
     (E, 32), ``geom_n``, ``tri_n``, ``tri_t``, ``tri_has_n``, ``tri_has_t``
     that mesh shading reads (accel/unified.py).  The triangles of all meshes
@@ -221,7 +230,7 @@ def build_packet_accel(analytic_prims, meshes=(), instanced=()):
         if n > DENSE_MAX and tid in PRIM_TESTS and attrs is None:
             lattice = _detect_lattice(params, lo, hi)
             if lattice is not None:
-                params = lattice["snapped"]
+                params = lattice.pop("snapped")
         if n <= DENSE_MAX:
             order = np.arange(n)
             rows = params
@@ -230,10 +239,13 @@ def build_packet_accel(analytic_prims, meshes=(), instanced=()):
             order = sah_arrays(lo, hi)[0]
             rows = np.concatenate([params[order], np.zeros((LEAF_MAX, params.shape[1]), np.float32)])
             kind = "bvh"
+            if lattice is not None:  # lattice index k -> the group's row (SAH slot)
+                lattice["slot_of_k"] = np.empty(n, np.int32)
+                lattice["slot_of_k"][order] = np.arange(n, dtype=np.int32)
         groups.append(dict(
             tid=tid, kind=kind, base=base, rows=rows,
             prim_aabbs=np.concatenate([lo, hi], axis=1)[order],
-            lattice=lattice is not None,
+            lattice=lattice,
         ))
         ent_gidx.append(gidxs[order])
         padded = np.zeros((n, ENT_PARAM_WIDTH), np.float32)

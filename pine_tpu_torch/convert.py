@@ -20,7 +20,11 @@ Keys (``i`` counts from 0):
   origin cells;
 - ``n_groups``; ``group.<i>.tid``, ``.kind`` ("dense" or "bvh"), ``.base``,
   ``.rows`` float32 (rows, w) as traversed (leaf order, lattice-snapped, pad
-  rows included), ``.prim_aabbs`` float32 (n, 6), ``.lattice`` bool;
+  rows included), ``.prim_aabbs`` float32 (n, 6), ``.lattice``: None, or the
+  group's lattice model as a dict (accel/packet._detect_lattice: ``ni``,
+  ``nj``, ``K``, ``base``, ``dU``, ``dV``, ``gu``, ``gv``, ``u0``, ``v0``,
+  ``r_u``, ``r_v``, ``cap_u``, ``cap_v``, and ``slot_of_k`` int32 (n,), the
+  group's row of each lattice index; ``carry_lattice`` takes pine_tpu's);
   ``ent_gidx`` int32: entity -> geometry.  No groups for 24 or fewer
   analytic prims, no mesh and no lazy instancing.  The triangles of all
   meshes form one group of ``tid`` 6 (triangle rows [v0, v1, v2, geometric
@@ -60,6 +64,7 @@ import torch
 from pine_tpu_torch.accel.dense_traverse import group_variant
 from pine_tpu_torch.accel.grid_traverse import grid_layout, upload_layout
 from pine_tpu_torch.accel.inst_traverse import upload_inst_group
+from pine_tpu_torch.accel.lattice_traverse import lattice_layout
 from pine_tpu_torch.accel.packet import box_corners, build_packet_accel, instancing_record
 from pine_tpu_torch.core.place import resolve_device
 from pine_tpu_torch.scene import lights as L
@@ -143,7 +148,7 @@ def scene_arrays(scene) -> dict:
     a["n_groups"] = np.asarray(len(groups))
     for i, g in enumerate(groups):
         for k in GROUP_KEYS:
-            a[f"group.{i}.{k}"] = np.asarray(g[k])
+            a[f"group.{i}.{k}"] = g[k] if k == "lattice" else np.asarray(g[k])
     inst_groups = accel["inst_groups"] if accel else []
     a["n_inst_groups"] = np.asarray(len(inst_groups))
     for i, g in enumerate(inst_groups):
@@ -181,22 +186,38 @@ def scene_arrays(scene) -> dict:
     return a
 
 
+def carry_lattice(lat):
+    """A lattice model in this format from pine_tpu's group dict (host arrays
+    and Python scalars; its ``_latf``, ``_slot`` and ``_max_seg`` kernel
+    inputs are dropped), or None."""
+    if lat is None:
+        return None
+    return {k: v if isinstance(v, (int, float)) else np.asarray(v)
+            for k, v in lat.items() if not k.startswith("_")}
+
+
 def upload_group(g: dict, device) -> dict:
     """One prim group as the traversal reads it: the host group of
     ``build_packet_accel`` (tid, kind, base, rows, prim_aabbs, lattice) with
-    ``rows`` and the group box ``gbox`` (6,) as float32 tensors on ``device``,
-    and for a group that takes the grid traversal its tables ``grid``
+    ``rows`` and the group box ``gbox`` (6,) as float32 tensors on ``device``;
+    for a lattice group the lattice kernel's table ``lat``
+    (accel/lattice_traverse.lattice_layout), built for any size, so that the
+    march can be forced on a group the dense sweep takes by default; for a
+    group that takes the grid traversal its tables ``grid``
     (accel/grid_traverse.grid_layout).  Everything is uploaded here, once,
     never per query."""
     pa = np.asarray(g["prim_aabbs"], np.float32)
     gbox = (np.concatenate([pa[:, 0:3].min(0), pa[:, 3:6].max(0)]) if len(pa)
             else np.array([-BIG] * 3 + [BIG] * 3))
+    rows = np.array(g["rows"], np.float32)
     out = dict(
         tid=int(g["tid"]), kind=str(g["kind"]), base=int(g["base"]),
-        rows=torch.as_tensor(np.array(g["rows"], np.float32), device=device),
+        rows=torch.as_tensor(rows, device=device),
         prim_aabbs=pa, gbox=torch.as_tensor(gbox.astype(np.float32), device=device),
-        lattice=bool(g["lattice"]),
+        lattice=g["lattice"],
     )
+    if g["lattice"]:
+        out["lat"] = lattice_layout(g["lattice"], rows.shape[1], device)
     if group_variant(out) == "grid":
         out["grid"] = upload_layout(grid_layout(pa), device)
     return out

@@ -5,9 +5,13 @@ Counterpart of pine_tpu/core/rng.py: every lane derives its randomness from
 the reference; ``torch.uint32`` lacks multiply and shift on many builds, so
 the hash runs in int64 and masks to 32 bits after every multiply, add and
 left shift.  Values are bit-equal to pine_tpu's.
+
+``RNG`` is the sequential host generator of PRL scripts (``RNG``, ``srand``,
+``randf``...), numpy's PCG64 as in pine_tpu.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _M32 = 0xFFFFFFFF
@@ -45,3 +49,23 @@ def u32_to_uniform(bits):
 
 def uniform(*keys):
     return u32_to_uniform(hash_combine(*keys))
+
+
+class RNG:
+    """Sequential RNG for host-side PRL scripts (PRL ``RNG``); not used on the
+    device path."""
+
+    def __init__(self, seed: int = 0):
+        self._g = np.random.Generator(np.random.PCG64(seed))
+
+    def seed(self, s: int):
+        self._g = np.random.Generator(np.random.PCG64(s))
+
+    def uniformf(self):
+        return np.float32(self._g.random())
+
+    def uniform2f(self):
+        return self._g.random(2).astype(np.float32)
+
+    def uniform3f(self):
+        return self._g.random(3).astype(np.float32)

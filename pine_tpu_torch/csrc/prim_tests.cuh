@@ -1,9 +1,15 @@
 // Per-type ray tests on one prim row, shared by the traversal kernels
-// (dense_traverse.cu, grid_traverse.cu).  Counterpart of PRIM_TESTS in
+// (dense_traverse.cu, grid_traverse.cu, inst_traverse.cu,
+// lattice_traverse.cu).  Counterpart of PRIM_TESTS in
 // pine_tpu/accel/pallas_traverse.py and pine_tpu_torch/accel/dense_traverse.py:
 // the same rounded sequence of operations as the plain PyTorch versions when
-// built without fast math and with -fmad=false.  prim_test returns t, or BIG
-// on a miss or outside (tmin, tmax).
+// built without fast math and with -fmad=false.  A test returns t, or BIG on a
+// miss or outside (tmin, tmax).
+//
+// The tests read the row through an accessor ``r(c)`` -> column c, as the TPU
+// kernels pass ``fetch`` to PRIM_TESTS: ``prim_test<TID>(const float* row)``
+// reads a row of a table in global memory (GlobalRow, through the read-only
+// cache); the lattice kernel passes a row it rebuilds in registers.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -36,16 +42,19 @@ __device__ __forceinline__ float finish(float t, bool ok, float tmin, float tmax
 
 __device__ __forceinline__ float ld(const float* r, int c) { return __ldg(r + c); }
 
-template <int TID>
-__device__ float prim_test(const float* r, V3 o, V3 d, float tmin, float tmax);
+// A prim row of a table in global memory.
+struct GlobalRow {
+  const float* p;
+  __device__ __forceinline__ float operator()(int c) const { return __ldg(p + c); }
+};
 
-template <>
-__device__ __forceinline__ float prim_test<RECT>(const float* r, V3 o, V3 d, float tmin, float tmax) {
-  float px = ld(r, 0), py = ld(r, 1), pz = ld(r, 2);
-  float exx = ld(r, 3), exy = ld(r, 4), exz = ld(r, 5);
-  float eyx = ld(r, 6), eyy = ld(r, 7), eyz = ld(r, 8);
-  float nx = ld(r, 9), ny = ld(r, 10), nz = ld(r, 11);
-  float lx = ld(r, 12), ly = ld(r, 13);
+template <class R>
+__device__ __forceinline__ float test_rect(const R& r, V3 o, V3 d, float tmin, float tmax) {
+  float px = r(0), py = r(1), pz = r(2);
+  float exx = r(3), exy = r(4), exz = r(5);
+  float eyx = r(6), eyy = r(7), eyz = r(8);
+  float nx = r(9), ny = r(10), nz = r(11);
+  float lx = r(12), ly = r(13);
   float denom = d.x * nx + d.y * ny + d.z * nz;
   denom = denom == 0.0f ? 1e-12f : denom;
   float t = ((px - o.x) * nx + (py - o.y) * ny + (pz - o.z) * nz) / denom;
@@ -58,9 +67,9 @@ __device__ __forceinline__ float prim_test<RECT>(const float* r, V3 o, V3 d, flo
   return finish(t, ok, tmin, tmax);
 }
 
-template <>
-__device__ __forceinline__ float prim_test<SPHERE>(const float* r, V3 o, V3 d, float tmin, float tmax) {
-  float cx = ld(r, 0), cy = ld(r, 1), cz = ld(r, 2), rad = ld(r, 3);
+template <class R>
+__device__ __forceinline__ float test_sphere(const R& r, V3 o, V3 d, float tmin, float tmax) {
+  float cx = r(0), cy = r(1), cz = r(2), rad = r(3);
   float rx = o.x - cx, ry = o.y - cy, rz = o.z - cz;
   float b = rx * d.x + ry * d.y + rz * d.z;
   float cc = rx * rx + ry * ry + rz * rz - rad * rad;
@@ -71,11 +80,11 @@ __device__ __forceinline__ float prim_test<SPHERE>(const float* r, V3 o, V3 d, f
   return finish(t, disc > 0.0f, tmin, tmax);
 }
 
-template <>
-__device__ __forceinline__ float prim_test<TRIANGLE>(const float* r, V3 o, V3 d, float tmin, float tmax) {
-  float v0x = ld(r, 0), v0y = ld(r, 1), v0z = ld(r, 2);
-  float e1x = ld(r, 3) - v0x, e1y = ld(r, 4) - v0y, e1z = ld(r, 5) - v0z;
-  float e2x = ld(r, 6) - v0x, e2y = ld(r, 7) - v0y, e2z = ld(r, 8) - v0z;
+template <class R>
+__device__ __forceinline__ float test_triangle(const R& r, V3 o, V3 d, float tmin, float tmax) {
+  float v0x = r(0), v0y = r(1), v0z = r(2);
+  float e1x = r(3) - v0x, e1y = r(4) - v0y, e1z = r(5) - v0z;
+  float e2x = r(6) - v0x, e2y = r(7) - v0y, e2z = r(8) - v0z;
   float tx = o.x - v0x, ty = o.y - v0y, tz = o.z - v0z;
   float px = d.y * e2z - d.z * e2y;
   float py = d.z * e2x - d.x * e2z;
@@ -92,11 +101,11 @@ __device__ __forceinline__ float prim_test<TRIANGLE>(const float* r, V3 o, V3 d,
   return finish(t, ok, tmin, tmax);
 }
 
-template <>
-__device__ __forceinline__ float prim_test<CONE>(const float* r, V3 o, V3 d, float tmin, float tmax) {
-  float ax = ld(r, 0), ay = ld(r, 1), az = ld(r, 2);
-  float nx = ld(r, 3), ny = ld(r, 4), nz = ld(r, 5);
-  float A2 = ld(r, 6), h = ld(r, 10);
+template <class R>
+__device__ __forceinline__ float test_cone(const R& r, V3 o, V3 d, float tmin, float tmax) {
+  float ax = r(0), ay = r(1), az = r(2);
+  float nx = r(3), ny = r(4), nz = r(5);
+  float A2 = r(6), h = r(10);
   float ox = o.x - ax, oy = o.y - ay, oz = o.z - az;
   float dn = d.x * nx + d.y * ny + d.z * nz;
   float on = ox * nx + oy * ny + oz * nz;
@@ -116,11 +125,11 @@ __device__ __forceinline__ float prim_test<CONE>(const float* r, V3 o, V3 d, flo
   return finish(t, ok, tmin, tmax);
 }
 
-template <>
-__device__ __forceinline__ float prim_test<BOX_AABB>(const float* r, V3 o, V3 d, float tmin, float tmax) {
+template <class R>
+__device__ __forceinline__ float test_aabb(const R& r, V3 o, V3 d, float tmin, float tmax) {
   float inv0 = safe_inv(d.x), inv1 = safe_inv(d.y), inv2 = safe_inv(d.z);
-  float lx = ld(r, 0), ly = ld(r, 1), lz = ld(r, 2);
-  float ux = ld(r, 3), uy = ld(r, 4), uz = ld(r, 5);
+  float lx = r(0), ly = r(1), lz = r(2);
+  float ux = r(3), uy = r(4), uz = r(5);
   float t0x = (lx - o.x) * inv0, t1x = (ux - o.x) * inv0;
   float t0y = (ly - o.y) * inv1, t1y = (uy - o.y) * inv1;
   float t0z = (lz - o.z) * inv2, t1z = (uz - o.z) * inv2;
@@ -131,18 +140,18 @@ __device__ __forceinline__ float prim_test<BOX_AABB>(const float* r, V3 o, V3 d,
   return finish(t, ok, tmin, tmax);
 }
 
-template <>
-__device__ __forceinline__ float prim_test<BOX_OBB>(const float* r, V3 o, V3 d, float tmin, float tmax) {
-  float lx = ld(r, 0), ly = ld(r, 1), lz = ld(r, 2);
-  float ux = ld(r, 3), uy = ld(r, 4), uz = ld(r, 5);
-  const float* m = r + 6;    // world <- local, 3x4 row-major
-  const float* mi = r + 18;  // local <- world
-  float olx = ld(mi, 0) * o.x + ld(mi, 1) * o.y + ld(mi, 2) * o.z + ld(mi, 3);
-  float oly = ld(mi, 4) * o.x + ld(mi, 5) * o.y + ld(mi, 6) * o.z + ld(mi, 7);
-  float olz = ld(mi, 8) * o.x + ld(mi, 9) * o.y + ld(mi, 10) * o.z + ld(mi, 11);
-  float dlx = ld(mi, 0) * d.x + ld(mi, 1) * d.y + ld(mi, 2) * d.z;
-  float dly = ld(mi, 4) * d.x + ld(mi, 5) * d.y + ld(mi, 6) * d.z;
-  float dlz = ld(mi, 8) * d.x + ld(mi, 9) * d.y + ld(mi, 10) * d.z;
+template <class R>
+__device__ __forceinline__ float test_obb(const R& r, V3 o, V3 d, float tmin, float tmax) {
+  float lx = r(0), ly = r(1), lz = r(2);
+  float ux = r(3), uy = r(4), uz = r(5);
+  auto m = [&](int c) { return r(6 + c); };    // world <- local, 3x4 row-major
+  auto mi = [&](int c) { return r(18 + c); };  // local <- world
+  float olx = mi(0) * o.x + mi(1) * o.y + mi(2) * o.z + mi(3);
+  float oly = mi(4) * o.x + mi(5) * o.y + mi(6) * o.z + mi(7);
+  float olz = mi(8) * o.x + mi(9) * o.y + mi(10) * o.z + mi(11);
+  float dlx = mi(0) * d.x + mi(1) * d.y + mi(2) * d.z;
+  float dly = mi(4) * d.x + mi(5) * d.y + mi(6) * d.z;
+  float dlz = mi(8) * d.x + mi(9) * d.y + mi(10) * d.z;
   float dn = sqrtf(dlx * dlx + dly * dly + dlz * dlz);
   dn = vmax(dn, 1e-20f);
   dlx = dlx / dn; dly = dly / dn; dlz = dlz / dn;
@@ -155,19 +164,19 @@ __device__ __forceinline__ float prim_test<BOX_OBB>(const float* r, V3 o, V3 d, 
   bool ok = near <= far;
   float t_l = near > 0.0f ? near : far;
   float plx = olx + t_l * dlx, ply = oly + t_l * dly, plz = olz + t_l * dlz;
-  float pwx = ld(m, 0) * plx + ld(m, 1) * ply + ld(m, 2) * plz + ld(m, 3);
-  float pwy = ld(m, 4) * plx + ld(m, 5) * ply + ld(m, 6) * plz + ld(m, 7);
-  float pwz = ld(m, 8) * plx + ld(m, 9) * ply + ld(m, 10) * plz + ld(m, 11);
+  float pwx = m(0) * plx + m(1) * ply + m(2) * plz + m(3);
+  float pwy = m(4) * plx + m(5) * ply + m(6) * plz + m(7);
+  float pwz = m(8) * plx + m(9) * ply + m(10) * plz + m(11);
   float ex = pwx - o.x, ey = pwy - o.y, ez = pwz - o.z;
   float t = sqrtf(ex * ex + ey * ey + ez * ez);
   return finish(t, ok, tmin, tmax);
 }
 
-template <>
-__device__ __forceinline__ float prim_test<DISK>(const float* r, V3 o, V3 d, float tmin, float tmax) {
-  float px = ld(r, 0), py = ld(r, 1), pz = ld(r, 2);
-  float nx = ld(r, 3), ny = ld(r, 4), nz = ld(r, 5);
-  float rad = ld(r, 12);
+template <class R>
+__device__ __forceinline__ float test_disk(const R& r, V3 o, V3 d, float tmin, float tmax) {
+  float px = r(0), py = r(1), pz = r(2);
+  float nx = r(3), ny = r(4), nz = r(5);
+  float rad = r(12);
   float denom = d.x * nx + d.y * ny + d.z * nz;
   denom = denom == 0.0f ? 1e-12f : denom;
   float t = ((px - o.x) * nx + (py - o.y) * ny + (pz - o.z) * nz) / denom;
@@ -178,22 +187,22 @@ __device__ __forceinline__ float prim_test<DISK>(const float* r, V3 o, V3 d, flo
   return finish(t, ok, tmin, tmax);
 }
 
-template <>
-__device__ __forceinline__ float prim_test<PLANE>(const float* r, V3 o, V3 d, float tmin, float tmax) {
-  float px = ld(r, 0), py = ld(r, 1), pz = ld(r, 2);
-  float nx = ld(r, 3), ny = ld(r, 4), nz = ld(r, 5);
+template <class R>
+__device__ __forceinline__ float test_plane(const R& r, V3 o, V3 d, float tmin, float tmax) {
+  float px = r(0), py = r(1), pz = r(2);
+  float nx = r(3), ny = r(4), nz = r(5);
   float denom = d.x * nx + d.y * ny + d.z * nz;
   denom = denom == 0.0f ? 1e-12f : denom;
   float t = ((px - o.x) * nx + (py - o.y) * ny + (pz - o.z) * nz) / denom;
   return finish(t, true, tmin, tmax);
 }
 
-template <>
-__device__ __forceinline__ float prim_test<CYLINDER>(const float* r, V3 o, V3 d, float tmin, float tmax) {
-  float px = ld(r, 0), py = ld(r, 1), pz = ld(r, 2);
-  float qx = ld(r, 3), qy = ld(r, 4), qz = ld(r, 5);
-  float nx = ld(r, 6), ny = ld(r, 7), nz = ld(r, 8);
-  float rad = ld(r, 9);
+template <class R>
+__device__ __forceinline__ float test_cylinder(const R& r, V3 o, V3 d, float tmin, float tmax) {
+  float px = r(0), py = r(1), pz = r(2);
+  float qx = r(3), qy = r(4), qz = r(5);
+  float nx = r(6), ny = r(7), nz = r(8);
+  float rad = r(9);
   float mx = o.x - px, my = o.y - py, mz = o.z - pz;
   float dn = d.x * nx + d.y * ny + d.z * nz;
   float vx = d.x - dn * nx, vy = d.y - dn * ny, vz = d.z - dn * nz;
@@ -211,6 +220,26 @@ __device__ __forceinline__ float prim_test<CYLINDER>(const float* r, V3 o, V3 d,
   float len_ax = (qx - px) * nx + (qy - py) * ny + (qz - pz) * nz;
   bool ok = disc >= 0.0f && axial >= 0.0f && axial <= len_ax;
   return finish(t, ok, tmin, tmax);
+}
+
+// The test of shape type TID on the row behind accessor r.
+template <int TID, class R>
+__device__ __forceinline__ float prim_test_row(const R& r, V3 o, V3 d, float tmin, float tmax) {
+  if constexpr (TID == SPHERE) return test_sphere(r, o, d, tmin, tmax);
+  else if constexpr (TID == RECT) return test_rect(r, o, d, tmin, tmax);
+  else if constexpr (TID == DISK) return test_disk(r, o, d, tmin, tmax);
+  else if constexpr (TID == PLANE) return test_plane(r, o, d, tmin, tmax);
+  else if constexpr (TID == BOX_AABB) return test_aabb(r, o, d, tmin, tmax);
+  else if constexpr (TID == BOX_OBB) return test_obb(r, o, d, tmin, tmax);
+  else if constexpr (TID == TRIANGLE) return test_triangle(r, o, d, tmin, tmax);
+  else if constexpr (TID == CONE) return test_cone(r, o, d, tmin, tmax);
+  else return test_cylinder(r, o, d, tmin, tmax);
+}
+
+// The test of shape type TID on a row of a table in global memory.
+template <int TID>
+__device__ __forceinline__ float prim_test(const float* row, V3 o, V3 d, float tmin, float tmax) {
+  return prim_test_row<TID>(GlobalRow{row}, o, d, tmin, tmax);
 }
 
 // Slab test of one box (lo xyz, hi xyz) against a ray with inverse direction

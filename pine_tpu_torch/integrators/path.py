@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from pine_tpu_torch.core import camera as camera_mod
+from pine_tpu_torch.core import progress
 from pine_tpu_torch.core.ray import offset_ray_origin
 from pine_tpu_torch.core.sampling import balance_heuristic
 from pine_tpu_torch.core.vecmath import dot, face_forward, to_local, to_world
@@ -78,7 +79,7 @@ def render_wavefront(cscene, cam, W, H, sampler, spp, max_depth, nee=True, chunk
     """Render and return the (H,W,3) mean radiance on the scene's device.
 
     The film runs in chunks of ``chunk`` lanes (default: the whole film) in
-    tile-major pixel order.  With return_stats=True also returns
+    tile-major pixel order; core/progress gets the share done after each.  With return_stats=True also returns
     {"traced_rays": n}: extension rays of lanes alive at each depth plus the
     NEE shadow rays actually cast."""
     dev = cscene.device
@@ -99,6 +100,7 @@ def render_wavefront(cscene, cam, W, H, sampler, spp, max_depth, nee=True, chunk
             acc = acc + L
             total = total + r
         flat[c0:c0 + chunk] = acc / spp
+        progress.set_progress(min(c0 + chunk, n) / n)
     img = flat[torch.as_tensor(np.argsort(perm), device=dev)].reshape(H, W, 3)
     if return_stats:
         return img, {"traced_rays": int(total)}

@@ -7,7 +7,10 @@ pine_tpu_torch/convert.py and uploads them once; the renderer then queries
 the CompiledScene.  Scenes with 24 or fewer analytic prims, no mesh and no
 lazy instancing keep the brute-force per-type product (no accel, no
 kernel); the others go through the prim groups of accel/packet.py, whose
-traversal runs the dense, grid or instanced kernel on CUDA.
+traversal runs on CUDA the dense kernel (groups of up to 512 prims), the
+lattice kernel (larger groups that form a regular lattice, fields a script
+builds in loops), the grid kernel (other larger groups) or the instanced
+kernel (lazy instancings).
 
 ``Scene.add(InstancedShape)`` flattens an instancing into transformed meshes
 when its shape is not a Mesh, when an instance is emissive (area-light

@@ -19,6 +19,13 @@ and one small emissive rect, seen by a ThinLenCamera.  The cone loops follow
 the script's ``for x in a ~ step ~ b`` semantics (double-precision
 accumulation, the bound inclusive), so the shapes match the script's to the
 bit.
+
+``CBOX_PRL`` is that script itself, character for character, and
+``CONE_FOREST_PRL`` the same box with its cone floor at twice the density
+(``cone_forest_prl``): 40 x 40 = 1,600 cones of half the size over the same
+extent, one lattice group of more than 512 prims, so it takes the lattice
+traversal.  ``prl_scene`` runs such a script through the port's PRL
+interpreter and returns its ``scene``.
 """
 from __future__ import annotations
 
@@ -34,6 +41,72 @@ from pine_tpu_torch.scene.scene import Scene
 # the benchmark's cone field, as (begin, step, end) of its two loops
 CONES_X = (-1.0, 0.1, 1.0)
 CONES_Z = (0.0, 0.1, 2.0)
+
+CBOX_PRL = """
+scene := Scene();
+image_size := [640, 640];
+
+scene.add("floor", Diffuse([0.9, 0.9, 0.9]));
+scene.add("red", Diffuse([0.9, 0.1, 0.05]));
+scene.add("green", Diffuse([0.2, 0.9, 0.05]));
+scene.add("metal", Metal([1, 1, 1], 0.0));
+scene.add("glossy", Glossy([1, 1, 1] / 4.0, 0.05));
+scene.add("skin", Subsurface([1, 1, 1], 0.0, 40.0));
+
+scene.add(Rect([0, 0, 1], [2, 0, 0], [0, 0, 2]), "floor");
+scene.add(Rect([0, 2, 1], [2, 0, 0], [0, 0, 2]), "floor");
+scene.add(Rect([-1, 1, 1], [0, 0, 2], [0, 2, 0]), "red");
+scene.add(Rect([1, 1, 1], [0, 0, 2], [0, 2, 0]), "green");
+scene.add(Rect([0, 1, 2], [2, 0, 0], [0, 2, 0]), "floor");
+
+for x in -1.0 ~ 0.1 ~ 1.0 {
+    for z in 0.0 ~ 0.1 ~ 2.0 {
+        scene.add(Cone([x, 0, z], Y, 0.05, 0.05), "floor");
+    }
+}
+scene.add(Box(AABB([0, 0, 0], [1, 1, 1]), translate([0.0, 0.0, 0.6]) * rotate_y(0.4) * scale([0.6, 0.6, 0.6])), "floor");
+scene.add(Box(AABB([0, 0, 0], [1, 1, 1]), translate([-0.6, 0.0, 1.0]) * rotate_y(-0.4) * scale([0.6, 1.3, 0.6])), "metal");
+
+scene.add(Rect([0.0, 1.9, 0.5], [0.1, 0, 0], [0, 0, 0.1]), Emissive(600 * [1.0, 0.64, 0.185]));
+
+scene.set(ThinLenCamera(Film(image_size, Uncharted2()), [0, 1, -4], [0, 1, 0], 0.25));
+"""
+
+# the cone forest: the benchmark box's floor at twice the density
+FOREST_X = (-1.0, 0.05, 1.0)
+FOREST_Z = (0.0, 0.05, 2.0)
+# cut to 24 x 24 = 576 cones in the middle of the floor (as the reduced box's
+# field): still over 512, so still the lattice traversal
+REDUCED_FOREST = ((-0.6, 0.05, 0.56), (0.5, 0.05, 1.66))
+
+
+def cone_forest_prl(forest_x=FOREST_X, forest_z=FOREST_Z, size=640):
+    """CBOX_PRL with the cone loops over ``forest_x`` and ``forest_z``
+    (begin, step, end), cones of radius 0.025 and height 0.05, and the film
+    ``size`` pixels square."""
+    (x0, dx, x1), (z0, dz, z1) = forest_x, forest_z
+    src = CBOX_PRL
+    for old, new in (("-1.0 ~ 0.1 ~ 1.0", f"{x0} ~ {dx} ~ {x1}"),
+                     ("0.0 ~ 0.1 ~ 2.0", f"{z0} ~ {dz} ~ {z1}"),
+                     ("Cone([x, 0, z], Y, 0.05, 0.05)", "Cone([x, 0, z], Y, 0.025, 0.05)"),
+                     ("image_size := [640, 640];", f"image_size := [{size}, {size}];")):
+        assert old in src, old
+        src = src.replace(old, new)
+    return src
+
+
+CONE_FOREST_PRL = cone_forest_prl()
+
+
+def prl_scene(src, name="<script>"):
+    """The ``scene`` a PRL scene script builds, through the port's interpreter.
+    Building runs on the host; a script that also renders does so where
+    ``core.options.device`` says, the card unless the caller set "cpu"."""
+    from pine_tpu_torch.prl.interp import Interpreter
+
+    itp = Interpreter()
+    itp.run(src, name)
+    return itp.get_var("scene")
 
 
 def prl_range(begin, step, end):

@@ -116,7 +116,7 @@ def test_packet_accel_mesh_branch_matches_pine_tpu():
         assert (pg["tid"], pg["kind"], pg["base"]) == (jg["tid"], jg["kind"], jg["base"])
         np.testing.assert_array_equal(pg["rows"], jg["rows_np"])
         np.testing.assert_array_equal(pg["prim_aabbs"], jg["_prim_aabbs"])
-        assert pg["lattice"] == (jg.get("lattice") is not None)
+        assert (pg["lattice"] is None) == (jg.get("lattice") is None)
     for k in ("ent_gidx", "ent_param", "geom_n", "tri_n", "tri_t", "tri_has_n", "tri_has_t"):
         np.testing.assert_array_equal(pacc[k], np.asarray(jacc[k]), err_msg=k)
     assert pacc["tri_has_n"].any() and pacc["tri_has_t"].any() and not pacc["tri_has_n"].all()
