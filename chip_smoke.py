@@ -25,16 +25,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
       benchmark box's 21x20 cone group with the lattice march forced (the
       JAX package's cbox-lattice A/B), on a 1-D field of 600 cones and on a
       24x24 field of spheres, rays aimed at the field and grazing it; beside
-      it, not gated, the dense kernel on the same groups and rays.
-   In b and c lanes may differ where a cull decides at a box face; at most
-   GRID_MISMATCH_SHARE of them, and the counts are printed.  In a and d no
-   lane may differ.
+      it, not gated, the dense kernel on the same groups and rays;
+   e. the scdense sweep on the benchmark box's three groups, the cone
+      forest's group and a 3,000-triangle soup; beside it the dense kernel;
+   f. the supercell-tree walk on soups of 3,000 and 20,000 triangles and the
+      terrain's group; beside it the grid kernel;
+   g. the BVH walk on the same soups, the terrain's group and the terrain
+      grown to 2,004,002 triangles; beside it the grid kernel.
+   In b, c, f and g lanes may differ where a cull decides at a box face; at
+   most GRID_MISMATCH_SHARE of them, and the counts are printed.  In a, d
+   and e no lane may differ.
 3. Render parity, card (kernels) against CPU (plain versions): the reduced
    Cornell box (36 cones), the reduced terrain (grid 40, 3,042 triangles,
    the card also with the coherence sort forced on), a reduced rock field
    (3x3 instances of a 242-triangle rock, the card with its origin sort)
    and a reduced cone forest (24x24 cones, still the lattice traversal),
-   64x64, 4 spp, depth 4.
+   64x64, 4 spp, depth 4; and the reduced box with ``small_kernel``
+   "scdense" and the reduced terrain with ``mesh_kernel`` "sctree" and
+   "bvh" (its triangles made mesh-scale by a lower GRID_MAX_PRIMS).
 4. The main paths at full width through ``Scene.compile`` and
    ``render_wavefront`` on the card: the benchmark Cornell box (420 cones;
    built from bench.py's script through the port's PRL interpreter, as
@@ -43,16 +51,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    cones in one lattice group, from its script) and the mesh benchmark's
    terrain (99,458 triangles, one rect light) at 640x640, BlueSampler(16),
    depth 4; the instancing benchmark's field (1,024 rocks, a plane, one rect
-   light) at 512x512, BlueSampler(4), depth 3.  For each, the launch counts
-   are zeroed just before one render and read just after, and every kernel
-   of that path must have run; then a profile of a 2-spp render.  The
-   ``lattice_ab`` record times the box's cone group on one 1-spp render's
-   launches through the dense kernel and through the lattice march forced.  The kernel line times each kernel form on
-   every launch the main path gives it in a 1-spp render.  The
+   light) at 512x512, BlueSampler(4), depth 3; then, at 640x640x16 spp,
+   depth 4, the terrain grown to 2,004,002 triangles (the BVH walk, its
+   default), the terrain with ``mesh_kernel="sctree"`` and the box with
+   ``small_kernel="scdense"``.  For each, the launch counts are zeroed just
+   before one render and read just after, and every kernel of that path
+   must have run; then a profile of a 2-spp render.  The ``kernel_ab``
+   records time one group on every launch it gets in one 1-spp render
+   through several kernels: the box's cone group through the dense kernel
+   (its default), the lattice march and the scdense sweep; the terrain's
+   group through the grid kernel (its default), the supercell tree and the
+   BVH walk.  The kernel line times each kernel form on every launch the
+   main path gives it in a 1-spp render (the plain version, over the 2 M
+   group seconds a call, on the first launch of each form only).  The
    ``coherence_sort`` record times the launches of a 1-spp render with the
-   sort on (terrain: the octant key, on by default; rock field: the origin
-   key, off by default and forced on here) and with its permutation undone,
-   beside the device time of the sort itself.
+   sort on (the terrains: the octant key, on by default; rock field: the
+   origin key, off by default and forced on here) and with its permutation
+   undone, beside the device time of the sort itself.
 5. The CLI: the benchmark box's script plus a render and a save, run as
    ``python -m pine_tpu_torch cbox.pine`` in a subprocess on the card; its
    image must equal phase 4's in-process render of the box (same sampler,
@@ -93,24 +108,34 @@ MAIN_SIZE, MAIN_SPP, MAIN_DEPTH = 640, 16, 4  # bench.py's and bench_mesh.py's c
 INST_SIZE, INST_SPP, INST_DEPTH = 512, 4, 3  # bench_instanced.py's configuration
 GRID_MISMATCH_SHARE = 1e-4  # lanes where a culling kernel may differ from its plain version
 
-# kind -> (module under pine_tpu_torch.accel, kernel wrapper, plain version,
-# the group's table for it, kernel source, the TPU kernel it replaces).  The
-# dense and grid wrappers take (tid, rows, table, rays...); with no table
-# (None) a wrapper takes the whole group (g, rays...).
+# kind -> (module under pine_tpu_torch.accel, kernel wrapper in it, plain
+# version as module.function, the group's table for it, kernel source, the
+# TPU kernel it replaces).  The wrappers with a table take (tid, rows,
+# table, rays...); with no table (None) a wrapper takes the whole group (g,
+# rays...).
 KERNELS = {
-    "dense": ("dense_traverse", "dense_cuda", "dense_plain", "gbox",
+    "dense": ("dense_traverse", "dense_cuda", "dense_traverse.dense_plain", "gbox",
               "pine_tpu_torch/csrc/dense_traverse.cu", "pine_tpu/accel/pallas_traverse.py:389"),
-    "grid": ("grid_traverse", "grid_cuda", "grid_plain", "grid",
+    "grid": ("grid_traverse", "grid_cuda", "grid_traverse.grid_plain", "grid",
              "pine_tpu_torch/csrc/grid_traverse.cu", "pine_tpu/accel/pallas_traverse.py:791"),
-    "inst": ("inst_traverse", "inst_cuda", "inst_plain", None,
+    "inst": ("inst_traverse", "inst_cuda", "inst_traverse.inst_plain", None,
              "pine_tpu_torch/csrc/inst_traverse.cu", "pine_tpu/accel/instanced_kernel.py:56"),
-    "lattice": ("lattice_traverse", "lattice_cuda", "lattice_plain", None,
+    "lattice": ("lattice_traverse", "lattice_cuda", "lattice_traverse.lattice_plain", None,
                 "pine_tpu_torch/csrc/lattice_traverse.cu", "pine_tpu/accel/pallas_traverse.py:592"),
+    "scdense": ("scdense_traverse", "scdense_cuda", "scdense_traverse.scdense_plain", "scd",
+                "pine_tpu_torch/csrc/scdense_traverse.cu", "pine_tpu/accel/pallas_traverse.py:459"),
+    "sctree": ("sctree_traverse", "sctree_cuda", "grid_traverse.supercell_plain", "sctree",
+               "pine_tpu_torch/csrc/sctree_traverse.cu", "pine_tpu/accel/pallas_traverse.py:1152"),
+    "bvh": ("bvh_traverse", "bvh_cuda", "grid_traverse.supercell_plain", "bvh",
+            "pine_tpu_torch/csrc/bvh_traverse.cu", "pine_tpu/accel/pallas_traverse.py:269"),
 }
-# lanes that may differ (the lattice march has no cull whose outcome depends
-# on the visit order, so every lane must agree)
+# lanes that may differ: the lattice march has no cull whose outcome depends
+# on the visit order, and the scdense sweep makes the same culls in the same
+# order as its plain version, so every lane must agree bit for bit; the
+# culling kernels that visit in another order may differ at a box face
 ALLOWED_SHARE = {"dense": 0.0, "grid": GRID_MISMATCH_SHARE, "inst": GRID_MISMATCH_SHARE,
-                 "lattice": 0.0}
+                 "lattice": 0.0, "scdense": 0.0, "sctree": GRID_MISMATCH_SHARE,
+                 "bvh": GRID_MISMATCH_SHARE}
 
 
 def emit(obj):
@@ -149,8 +174,11 @@ def group_args(kind, g):
 
 def launch(kind, g, args, any_hit, plain=False, **kw):
     """One group's query through the kernel (or its plain version)."""
-    _, wrapper, plain_fn = KERNELS[kind][:3]
-    fn = getattr(module(kind), plain_fn if plain else wrapper)
+    if plain:
+        name, _, fn = KERNELS[kind][2].partition(".")
+        fn = getattr(importlib.import_module("pine_tpu_torch.accel." + name), fn)
+    else:
+        fn = getattr(module(kind), KERNELS[kind][1])
     return fn(*group_args(kind, g), *args, any_hit, **kw)
 
 
@@ -159,14 +187,14 @@ def all_groups(cs):
 
 
 def group_sig(g):
-    """(kernel kind, prim type, prims, rows or instances) of one compiled group."""
-    from pine_tpu_torch.accel.dense_traverse import group_variant
-
+    """(kernel kind, prim type, rows, prims or instances) of one compiled
+    group: rows for the row sweeps (dense, scdense, lattice), prims for the
+    culled traversals."""
     if g["kind"] == "instanced":
         return ("inst", g["tid"], g["n_inst"])
-    if "grid" in g:
-        return ("grid", g["tid"], g["grid"]["n_prims"])
-    return (group_variant(g), g["tid"], int(g["rows"].shape[0]))
+    v = g["variant"]
+    return (v, g["tid"], int(g["rows"].shape[0]) if v in ("dense", "scdense", "lattice")
+            else len(g["prim_aabbs"]))
 
 
 def group_desc(g):
@@ -175,17 +203,29 @@ def group_desc(g):
     return f"{TYPE_NAMES[g['tid']]}[{group_sig(g)[2]}]"
 
 
-def check_outputs(kind, out_k, out_p):
-    """Kernel vs plain outputs -> (max |t error|, t mismatches, id mismatches,
-    lanes that differ, lanes allowed to differ)."""
+def check_outputs(kind, out_k, out_p, any_hit):
+    """Kernel vs plain outputs -> (max |t error| on the lanes compared, t
+    mismatches, id mismatches, lanes that differ, lanes allowed to differ).
+    The tree walks (sctree, bvh) test other prims than their plain version,
+    the row-order sweep: a closest-hit lane that both leave without a hit
+    below the miss sentinel BIG carries, where its window ended above BIG,
+    BIG and the id of a prim each tested first, or its incoming state where
+    one tested none; such lanes read as misses to every caller
+    (packet_intersect) and are not compared."""
     import torch
 
     (t_k, e_k), (t_p, e_p) = out_k, out_p
     close = torch.isclose(t_k, t_p, rtol=T_RTOL, atol=T_ATOL) | (t_k == t_p)
-    if kind == "lattice":  # the same rounded arithmetic: held bit for bit
+    if kind in ("lattice", "scdense"):  # the same rounded arithmetic: held bit for bit
         close = t_k.view(torch.int32) == t_p.view(torch.int32)
-    return (float((t_k - t_p).abs().max()), int((~close).sum()), int((e_k != e_p).sum()),
-            int((~close | (e_k != e_p)).sum()), ALLOWED_SHARE[kind] * t_k.shape[0])
+    same_e = e_k == e_p
+    if kind in ("sctree", "bvh") and not any_hit:
+        miss = (t_k >= 1e30) & (t_p >= 1e30)
+        close, same_e = close | miss, same_e | miss
+        t_k, t_p = t_k[~miss], t_p[~miss]
+    err = float((t_k - t_p).abs().max()) if t_k.numel() else 0.0
+    return (err, int((~close).sum()), int((~same_e).sum()), int((~close | ~same_e).sum()),
+            ALLOWED_SHARE[kind] * out_k[0].shape[0])
 
 
 def timed_plain(kind, g, args, any_hit, counts=None):
@@ -268,7 +308,7 @@ def compare(kind, g, args, any_hit, time_it, what):
     """Kernel vs plain on one group and one set of inputs -> record."""
     out_k = launch(kind, g, args, any_hit)
     out_p, plain_ms = timed_plain(kind, g, args, any_hit)
-    err, t_bad, e_bad, differ, allowed = check_outputs(kind, out_k, out_p)
+    err, t_bad, e_bad, differ, allowed = check_outputs(kind, out_k, out_p, any_hit)
     t_k, e_k = out_k
     rec = dict(
         group=what, type=TYPE_NAMES[g["tid"]], rows=int(g["rows"].shape[0]),
@@ -282,6 +322,8 @@ def compare(kind, g, args, any_hit, time_it, what):
         rec["instances"] = g["n_inst"]
     if kind == "lattice":
         rec["lattice"] = f"{g['lat']['ni']}x{g['lat']['nj']}, max_seg {g['lat']['max_seg']}"
+    if kind in ("sctree", "bvh"):
+        rec["depth"] = g[KERNELS[kind][3]]["depth"]
     if time_it:
         rec["ms"] = cuda_ms(lambda: launch(kind, g, args, any_hit), 20)
         rec["plain_ms"] = plain_ms
@@ -344,28 +386,17 @@ def triangle_soup(n_tri, seed):
 def phase_grid_vs_plain(dev):
     import numpy as np
 
-    from pine_tpu_torch import scenes
-    from pine_tpu_torch.accel import grid_traverse as GT
-    from pine_tpu_torch.accel.packet import build_packet_accel
-    from pine_tpu_torch.convert import upload_group
+    from pine_tpu_torch.accel.dense_traverse import prepare
 
     cases = []
     for n_tri in (300, 3000, 20000):
-        (g,) = build_packet_accel([], [(triangle_soup(n_tri, n_tri), 0)])["groups"]
-        g = upload_group(g, dev)
-        # a soup of 300 takes the dense kernel in a scene; test the grid anyway
-        g["grid"] = GT.upload_layout(GT.grid_layout(g["prim_aabbs"]), dev)
-        cases.append((f"soup{n_tri}", g, np.random.default_rng(n_tri + 1), None))
-    cs = scenes.terrain().compile(dev)
-    (g,) = [g for g in cs.unified["groups"] if "grid" in g]
-    # rays around the terrain's box: x in [-4, 4], y about [-2, 2], z in [0, 8]
-    cases.append(("terrain", g, np.random.default_rng(5), ((1.3, 0.6, 1.3), (0.0, 0.5, 4.0))))
+        g = soup_group(n_tri, dev)
+        prepare(g, "grid")  # a soup of 300 takes the dense kernel in a scene; test the grid anyway
+        cases.append((f"soup{n_tri}", g, random_rays(np.random.default_rng(n_tri + 1), dev, n_tri)))
+    g = terrain_group(dev)
+    cases.append(("terrain", g, terrain_rays(np.random.default_rng(5), dev, g)))
     recs = []
-    for what, g, rng, remap in cases:
-        r = random_rays(rng, dev, g["grid"]["n_prims"])
-        if remap:
-            r["ro"] = (r["ro"] * r["ro"].new_tensor(remap[0]) + r["ro"].new_tensor(remap[1]))
-            r["ro"] = r["ro"].contiguous()
+    for what, g, r in cases:
         for any_hit in (False, True):
             recs.append(compare("grid", g, ray_args(r, any_hit), any_hit,
                                 time_it=what in ("soup20000", "terrain"), what=what))
@@ -513,6 +544,108 @@ def phase_lattice_vs_plain(dev):
     return recs
 
 
+def hits_differ(out_a, out_b, any_hit):
+    """Lanes where two kernels' results differ as a caller reads them:
+    any-hit, the flag; closest-hit, whether t is a hit (below the miss
+    sentinel BIG), and on lanes both hit, t beyond the kernel-vs-plain
+    tolerance or the id.  (A lane whose window ends above BIG gets BIG and
+    the id of the first prim a kernel tested, which no caller reads.)"""
+    import torch
+
+    (t_a, e_a), (t_b, e_b) = out_a, out_b
+    if any_hit:
+        return int((e_a != e_b).sum())
+    hit_a, hit_b = t_a < 1e30, t_b < 1e30
+    close = torch.isclose(t_a, t_b, rtol=T_RTOL, atol=T_ATOL) | (t_a == t_b)
+    return int(((hit_a != hit_b) | (hit_a & hit_b & (~close | (e_a != e_b)))).sum())
+
+
+def compare_beside(kind, other, g, r, what, time_it=True):
+    """compare() of ``kind`` on group ``g`` and rays ``r``, closest-hit and
+    any-hit, and beside it, not gated, kernel ``other`` on the same group and
+    rays: its ms and the lanes where the two differ (``hits_differ``)."""
+    from pine_tpu_torch.accel.dense_traverse import prepare
+
+    prepare(g, kind)
+    prepare(g, other)
+    recs = []
+    for any_hit in (False, True):
+        args = ray_args(r, any_hit)
+        rec = compare(kind, g, args, any_hit, time_it, what)
+        rec[f"vs_{other}_lanes_differ"] = hits_differ(
+            launch(kind, g, args, any_hit), launch(other, g, args, any_hit), any_hit)
+        if time_it:
+            rec[f"{other}_ms"] = cuda_ms(lambda: launch(other, g, args, any_hit), 10)
+        recs.append(rec)
+    return recs
+
+
+def soup_group(n_tri, dev):
+    from pine_tpu_torch.accel.packet import build_packet_accel
+    from pine_tpu_torch.convert import upload_group
+
+    (g,) = build_packet_accel([], [(triangle_soup(n_tri, n_tri), 0)])["groups"]
+    return upload_group(g, dev)
+
+
+def terrain_rays(rng, dev, g):
+    """random_rays' lanes moved around the terrain's box (x in [-4, 4], y about
+    [-2, 2], z in [0, 8])."""
+    r = random_rays(rng, dev, len(g["prim_aabbs"]))
+    r["ro"] = (r["ro"] * r["ro"].new_tensor((1.3, 0.6, 1.3)) + r["ro"].new_tensor((0.0, 0.5, 4.0)))
+    r["ro"] = r["ro"].contiguous()
+    return r
+
+
+def phase_scdense_vs_plain(dev):
+    """scdense against its plain version (bit for bit) on the benchmark box's
+    three groups, the cone forest's 1,604-row group and a 3,000-triangle
+    soup; beside it the dense kernel."""
+    import numpy as np
+
+    from pine_tpu_torch import scenes
+
+    recs = []
+    rng = np.random.default_rng(70)
+    for i, g in enumerate(scenes.cbox().compile(dev).unified["groups"]):
+        r = random_rays(rng, dev, int(g["rows"].shape[0]))
+        r["ro"] = (r["ro"] * 0.3 + r["ro"].new_tensor([0.0, 1.0, 1.0])).contiguous()
+        recs += compare_beside("scdense", "dense", g, r, f"cbox.{i}")
+    forest = scenes.prl_scene(scenes.CONE_FOREST_PRL).compile(dev).unified["groups"][2]
+    recs += compare_beside("scdense", "dense", forest, lattice_rays(rng, dev, forest),
+                           "cone forest 40x40")
+    g = soup_group(3000, dev)
+    recs += compare_beside("scdense", "dense", g, random_rays(rng, dev, 3000), "soup3000")
+    return recs
+
+
+def phase_tree_vs_plain(dev, kind, big):
+    """sctree or bvh against its plain version on soups of 3,000 and 20,000
+    triangles and on the terrain's group (and, for bvh, the 2,004,002-triangle
+    group ``big``); beside it the grid kernel."""
+    import numpy as np
+
+    recs = []
+    rng = np.random.default_rng(80)
+    for n_tri in (3000, 20000):
+        g = soup_group(n_tri, dev)
+        recs += compare_beside(kind, "grid", g, random_rays(rng, dev, n_tri), f"soup{n_tri}",
+                               time_it=n_tri == 20000)
+    groups = [("terrain", terrain_group(dev))] + ([("terrain 2M", big)] if big else [])
+    for what, g in groups:
+        recs += compare_beside(kind, "grid", g, terrain_rays(rng, dev, g), what)
+    return recs
+
+
+def terrain_group(dev, grid=None):
+    """The triangle group of the mesh benchmark's terrain (``grid`` cuts or
+    grows it), compiled on ``dev``."""
+    from pine_tpu_torch import scenes
+
+    scene = scenes.terrain() if grid is None else scenes.terrain(grid=grid)
+    return scene.compile(dev).unified["groups"][1]
+
+
 # ---------------------------------------------------------------- phase 3 ----
 
 def force_sort(cs, mode):
@@ -523,10 +656,11 @@ def force_sort(cs, mode):
         cs.origin_sort = True
 
 
-def render_parity(what, make_scene, sort=None):
+def render_parity(what, make_scene, sort=None, kernels=None):
     """Render ``make_scene()`` at 64x64x4spp depth 4 on the card (with the
-    coherence sort forced on with key ``sort``) and on the CPU and hold them
-    to the port's render criteria."""
+    coherence sort forced on with key ``sort``) and on the CPU, both routed
+    under the forced-kernel settings ``kernels``, and hold them to the port's
+    render criteria."""
     import numpy as np
 
     from pine_tpu_torch.core.samplers import BlueSampler
@@ -535,7 +669,7 @@ def render_parity(what, make_scene, sort=None):
     out = {}
     for dev in ("cuda", "cpu"):
         sc = make_scene()
-        cs = sc.compile(dev)
+        cs = sc.compile(dev, **(kernels or {}))
         if dev == "cuda":
             force_sort(cs, sort)
             if cs.sort_mode(64 * 64, True) != sort:
@@ -545,7 +679,7 @@ def render_parity(what, make_scene, sort=None):
     (g, rg), (c, rc) = out["cuda"], out["cpu"]
     d = np.abs(g - c)
     agree = ((d <= 1e-3 * np.abs(c)) | (d <= 1e-4)).all(-1).mean()
-    rec = dict(phase="render_parity", scene=what, sort=sort,
+    rec = dict(phase="render_parity", scene=what, sort=sort, kernels=kernels,
                size="64x64x4spp depth 4", pixels_agree=float(agree),
                mean_cuda=float(g.mean()), mean_cpu=float(c.mean()),
                rays_cuda=int(rg), rays_cpu=int(rc), finite=bool(np.isfinite(g).all()))
@@ -578,6 +712,21 @@ def phase_render_parity():
                   "origin")
     render_parity("reduced cone forest, 24x24 cones",
                   lambda: scenes.prl_scene(scenes.cone_forest_prl(*scenes.REDUCED_FOREST, size=64)))
+    render_parity("reduced cbox, 36 cones, scdense",
+                  lambda: scenes.cbox((64, 64), (-0.3, 0.1, 0.3), (0.5, 0.1, 1.0)),
+                  kernels=dict(small_kernel="scdense"))
+    # the reduced terrain's 3,042 triangles made mesh-scale, so that mesh_kernel
+    # routes them (and the card sorts its rays, as on the full terrain)
+    from pine_tpu_torch.accel import dense_traverse as DT
+
+    limit, DT.GRID_MAX_PRIMS = DT.GRID_MAX_PRIMS, 1024
+    try:
+        for kernel in ("sctree", "bvh"):
+            render_parity(f"reduced terrain, grid 40, {kernel}",
+                          lambda: scenes.terrain((64, 64), 40), "octant",
+                          dict(mesh_kernel=kernel))
+    finally:
+        DT.GRID_MAX_PRIMS = limit
 
 
 # ---------------------------------------------------------------- phase 4 ----
@@ -688,31 +837,154 @@ def lattice_work(g, args, any_hit, out_p, counts):
                              min_prim_tests=need["tests"])
 
 
-def kernel_line_entry(kind, form, calls, launches):
+def scdense_work(g, args, any_hit, out_p, counts):
+    """(FP32 operations, bytes, counts) of one scdense call on these inputs.
+    ``counts`` are scdense_plain's (slab and prim tests, in row order, which
+    is the kernel's order).  Closest-hit: the sweep rerun with each lane's
+    final t as its window, the culls and tests no sweep can skip; any-hit:
+    the work up to each lane's first hit."""
+    SD = module("scdense")
+    n = args[0].shape[0]
+    need = counts
+    if not any_hit:
+        need = {}
+        SD.scdense_plain(g["tid"], g["rows"], g["scd"], *args[:4], *out_p, False, counts=need)
+    ops = n * 3 + need["slabs"] * module("grid").SLAB_OPS + need["tests"] * TEST_OPS[g["tid"]]
+    nbytes = n * ((10 if any_hit else 9) + 2) * 4 + 4 * (
+        g["rows"].numel() + g["scd"]["sc_boxes"].numel() + g["scd"]["cell_boxes"].numel())
+    return ops, nbytes, dict(slab_tests=counts["slabs"], prim_tests=counts["tests"],
+                             min_slab_tests=need["slabs"], min_prim_tests=need["tests"])
+
+
+def tree_work(kind, g, args, any_hit, out_k):
+    """(FP32 operations, bytes, counts) of one sctree or bvh call on these
+    inputs, order-free: the walk of every node whose child boxes a lane's
+    window reaches (two slab tests each), as any order of the walk must make
+    it, with the window ending at the lane's final t (closest-hit, from the
+    kernel's output) or at tmax (any-hit, lanes the kernel left unoccluded);
+    then, for the supercell tree, the box of each supercell of a reached leaf
+    and the cells of each reached supercell, and the prim tests of every
+    reached leaf (bvh) or cell (sctree).  An occluded any-hit lane counts one
+    slab and one prim test.  The bytes are the ray state and each distinct
+    table entry that this walk reads, once: the nodes visited (two child
+    boxes and three index pairs each), the rows of the reached leaves (bvh)
+    or cells, and for the supercell tree the order slots of the reached
+    leaves, the boxes of their supercells and those supercells' cell boxes."""
+    import torch
+
+    GT = module("grid")
+    t = g[KERNELS[kind][3]]
+    ro, rd, tmin, tmax, bt, be = args
+    n = ro.shape[0]
+    dev = ro.device
+    n_prims, width = t["n_prims"], g["rows"].shape[1]
+    inv = [module("dense")._safe_inv(rd[:, a]) for a in range(3)]
+    if any_hit:
+        occluded = (out_k[1] != 0) & (be == 0) & (tmax > tmin)
+        live, lim = (be == 0) & (tmax > tmin) & ~occluded, tmax
+    else:
+        lim = out_k[0]
+        live = lim > tmin
+
+    def reach(boxes, lanes):  # (k,6) boxes, (k,) lanes -> (k,) bool
+        return GT._slab(boxes, [ro[lanes, a] for a in range(3)], [inv[a][lanes] for a in range(3)],
+                        tmin[lanes], lim[lanes])
+
+    def marks(size):
+        return torch.zeros(size, dtype=torch.bool, device=dev)
+
+    lanes = torch.nonzero(live).squeeze(1)
+    nodes = torch.zeros_like(lanes)
+    slabs = tests = nodes_read = 0
+    if kind == "bvh":
+        rows_read = marks(n_prims)
+    else:  # order slots, supercell boxes, cell boxes read; cells whose rows are read
+        n_cells = t["cell_boxes"].shape[0]
+        slot_read, sc_read = marks(t["sc_order"].shape[0]), marks(t["sc_boxes"].shape[0])
+        cell_read, cell_rows = marks(n_cells), marks(n_cells)
+    while lanes.numel():
+        nodes_read += int(torch.unique(nodes).numel())  # one tree level: distinct from the others
+        slabs += 2 * lanes.numel()
+        both = torch.stack([reach(t["boxes"][nodes, k], lanes) for k in range(2)], 1)
+        child = t["cnode"][nodes]
+        leaf = both & (child < 0)
+        start, cnt = t["cstart"][nodes][leaf].long(), t["ccount"][nodes][leaf]
+        ll = lanes[:, None].expand(-1, 2)[leaf]
+        for j in range(int(cnt.max()) if cnt.numel() else 0):
+            sel = cnt > j
+            if kind == "bvh":  # a leaf's rows
+                tests += int(sel.sum())
+                rows_read[start[sel] + j] = True
+                continue
+            # a leaf's supercells, their boxes, their cells' boxes, their prims
+            lj = ll[sel]
+            slot_read[start[sel] + j] = True
+            si = t["sc_order"][start[sel] + j].long()
+            sc_read[si] = True
+            slabs += lj.numel()
+            ok = reach(t["sc_boxes"][si], lj)
+            lj, si = lj[ok], si[ok]
+            for kc in range(GT.SUPER // GT.CELL):
+                cell = si * (GT.SUPER // GT.CELL) + kc
+                real = cell * GT.CELL < n_prims
+                slabs += int(real.sum())
+                cell_read[cell[real]] = True
+                hit = real & reach(t["cell_boxes"][cell], lj)
+                cell_rows[cell[hit]] = True
+                tests += int(torch.clamp(n_prims - cell[hit] * GT.CELL, max=GT.CELL).sum())
+        inner = both & (child >= 0)
+        lanes = lanes[:, None].expand(-1, 2)[inner]
+        nodes = child[inner]
+    if any_hit:
+        slabs, tests = slabs + int(occluded.sum()), tests + int(occluded.sum())
+    ops = n * 3 + slabs * GT.SLAB_OPS + tests * TEST_OPS[g["tid"]]
+    if kind == "bvh":
+        n_rows = int(rows_read.sum())
+        table_words = nodes_read * 18 + n_rows * width
+    else:
+        first = torch.nonzero(cell_rows).squeeze(1) * GT.CELL
+        n_rows = int(torch.clamp(n_prims - first, max=GT.CELL).sum())
+        table_words = (nodes_read * 18 + n_rows * width + int(slot_read.sum())
+                       + 6 * int(sc_read.sum()) + 6 * int(cell_read.sum()))
+    nbytes = n * ((10 if any_hit else 9) + 2) * 4 + 4 * table_words
+    return ops, nbytes, dict(min_slab_tests=slabs, min_prim_tests=tests, nodes_read=nodes_read,
+                             rows_read=n_rows, table_bytes_read=4 * table_words)
+
+
+def kernel_line_entry(kind, form, calls, launches, checked=None):
     """Time one kernel form on the recorded main-path launches (every launch
-    of one 1-spp render).  ms, plain_ms and bound_ms are means per launch;
-    the work counts are sums over the launches."""
+    of one 1-spp render).  ms and bound_ms are means per launch and the work
+    counts sums over the launches; the plain version runs, and the kernel is
+    held to it, on every launch, or on the first ``checked`` of them, and
+    plain_ms is the mean over those."""
     any_hit = form == "any_hit"
-    ms_each = []
-    plain_ms = bound = err = 0.0
+    ms_each, plain_each = [], []
+    bound = err = 0.0
     ops = nbytes = differ = 0
     sums = {}
-    for g, args, _ in calls:
+    for i, (g, args, _) in enumerate(calls):
         ms_each.append(cuda_ms(lambda: launch(kind, g, args, any_hit), 10))
-        counts = None if kind == "dense" else {}
-        out_p, p_ms = timed_plain(kind, g, args, any_hit, counts)
-        plain_ms += p_ms
-        c_err, _, _, c_differ, allowed = check_outputs(kind, launch(kind, g, args, any_hit), out_p)
-        if c_differ > allowed:
-            fail(f"{kind}.{form}: {c_differ} lanes disagree with the plain version "
-                 "on main-path inputs")
-        err, differ = max(err, c_err), differ + c_differ
+        out_k = launch(kind, g, args, any_hit)
+        counts = out_p = None
+        if checked is None or i < checked:
+            counts = None if kind == "dense" else {}
+            out_p, p_ms = timed_plain(kind, g, args, any_hit, counts)
+            plain_each.append(p_ms)
+            c_err, _, _, c_differ, allowed = check_outputs(kind, out_k, out_p, any_hit)
+            if c_differ > allowed:
+                fail(f"{kind}.{form}: {c_differ} lanes disagree with the plain version "
+                     "on main-path inputs")
+            err, differ = max(err, c_err), differ + c_differ
         if kind == "grid":
             c_ops, c_bytes, c = grid_work(g, args, any_hit, out_p, counts)
         elif kind == "inst":
             c_ops, c_bytes, c = inst_work(g, args, any_hit, out_p, counts)
         elif kind == "lattice":
             c_ops, c_bytes, c = lattice_work(g, args, any_hit, out_p, counts)
+        elif kind == "scdense":
+            c_ops, c_bytes, c = scdense_work(g, args, any_hit, out_p, counts)
+        elif kind in ("sctree", "bvh"):
+            c_ops, c_bytes, c = tree_work(kind, g, args, any_hit, out_k)
         else:
             c_ops, c_bytes, c = dense_work(g, args, any_hit)
         for key, v in c.items():
@@ -725,12 +997,13 @@ def kernel_line_entry(kind, form, calls, launches):
     entry = dict(
         name=f"{KERNELS[kind][0]}.{form}", route="cuda", source=KERNELS[kind][4],
         replaces=KERNELS[kind][5], launches=launches, max_abs_err=err,
-        ms=sum(ms_each) / k, plain_ms=plain_ms / k, bound_ms=bound / k,
+        ms=sum(ms_each) / k, plain_ms=sum(plain_each) / len(plain_each), bound_ms=bound / k,
         bound_by="operations" if ops / FP32_OPS_PER_S > nbytes / HBM_BYTES_PER_S else "bytes",
         library_ms=None,
         inputs=" + ".join(groups)
         + f" x {calls[0][1][0].shape[0]} rays; means per launch over the {k} launches "
-          "of one 1-spp render, work counts summed over them",
+          "of one 1-spp render, work counts summed over them; the plain version on "
+          + (f"the first {len(plain_each)} of them" if len(plain_each) < k else "each"),
         ms_each=ms_each, lanes_differ=differ, **{f"{key}_sum": v for key, v in sums.items()},
     )
     return entry
@@ -787,8 +1060,9 @@ def profile_render(what, render):
         wall_ms=wall * 1e3, device_busy_ms=busy_ms,
         device_busy_share=busy_ms / (wall * 1e3) if busy_ms else "not measured",
         launches=sum(e.count for e in kernels),
-        **{f"{k}_ms": sum(e.self_device_time_total for e in kernels if k in e.key) / 1e3
-           for k in ("dense_kernel", "grid_kernel", "inst_kernel", "lattice_kernel")},
+        **{f"{k}_ms": sum(e.self_device_time_total for e in kernels if f"::{k}<" in e.key) / 1e3
+           for k in ("dense_kernel", "scdense_kernel", "grid_kernel", "sctree_kernel",
+                     "bvh_kernel", "inst_kernel", "lattice_kernel")},
         top=[dict(name=e.key[:90], ms=e.self_device_time_total / 1e3, count=e.count)
              for e in top],
     ))
@@ -838,11 +1112,13 @@ def record_launches(cs, kinds, render):
 
 
 def phase_main_path(dev_name, tag, what, scene, groups_want, heavy_want, kinds,
-                    size=MAIN_SIZE, spp=MAIN_SPP, depth=MAIN_DEPTH):
-    """One main path at full width: compile on the card, record the kernels'
-    inputs, warm up, three timed renders (launch counts zeroed just before the
-    first, read just after), the image checked and saved, a profile, and the
-    kernel line's entries for ``kinds``."""
+                    size=MAIN_SIZE, spp=MAIN_SPP, depth=MAIN_DEPTH, kernels=None, checked=None):
+    """One main path at full width: compile on the card (routed under the
+    forced-kernel settings ``kernels``), record the kernels' inputs, warm up,
+    three timed renders (launch counts zeroed just before the first, read
+    just after), the image checked and saved, a profile, and the kernel
+    line's entries for ``kinds`` (the plain version on the first ``checked``
+    launches of each form, or on all).  -> (entries, compiled scene)."""
     import numpy as np
     import torch
 
@@ -852,7 +1128,7 @@ def phase_main_path(dev_name, tag, what, scene, groups_want, heavy_want, kinds,
 
     W = H = size
     t0 = time.perf_counter()
-    cs = scene.compile()  # the card, by default; the C++ SAH builder
+    cs = scene.compile(**(kernels or {}))  # the card, by default; the C++ SAH builder
     compile_s = time.perf_counter() - t0
     groups = [group_sig(g) for g in all_groups(cs)]
     if groups != groups_want or cs.heavy_traversal != heavy_want:
@@ -884,7 +1160,8 @@ def phase_main_path(dev_name, tag, what, scene, groups_want, heavy_want, kinds,
     finite = bool(np.isfinite(img).all())
     rays = int(stats["traced_rays"])
     rec = dict(phase="main_path", scene=what, size=f"{W}x{H}", spp=spp, depth=depth,
-               device=dev_name, compile_s=compile_s, wall_s=min(walls), walls_s=walls,
+               device=dev_name, kernels=kernels, groups=groups, compile_s=compile_s,
+               wall_s=min(walls), walls_s=walls,
                traced_rays=rays, mrays_per_s=rays / min(walls) / 1e6, finite=finite,
                mean=float(img.mean()), launches=launches)
     emit(rec)
@@ -897,43 +1174,39 @@ def phase_main_path(dev_name, tag, what, scene, groups_want, heavy_want, kinds,
     profile_render(tag, lambda: render(2))
 
     entries = [kernel_line_entry(kind, form, recorded[(kind, any_hit)],
-                                 launches[f"{kind}.{form}"])
+                                 launches[f"{kind}.{form}"], checked)
                for kind in kinds for form, any_hit in (("closest", False), ("any_hit", True))]
-    if cs.heavy_traversal or cs.inst_traversal:
+    if (cs.heavy_traversal or cs.inst_traversal) and not kernels:
         emit(coherence_sort_record(cs, tag, kinds, lambda: render(1), W * H))
-    return entries
+    return entries, cs
 
 
-def lattice_ab_record(scene):
-    """The JAX package's cbox-lattice A/B on the card: the bench box's
-    424-row cone group through the dense kernel (its default at this size)
-    and through the lattice march forced, on every launch the group gets in
-    one 1-spp render; device time summed per form, and the lanes where the
-    two disagree (recorded, not gated): t, and the id where t is a hit (on
-    a lane whose window ends above the miss sentinel BIG, both return BIG
-    with the id of the first prim each tested, which no caller reads)."""
-    import torch
-
+def kernel_ab_record(cs, scene, what, tid, kinds):
+    """One group of a compiled main-path scene (the group of prim type
+    ``tid``) through each of ``kinds`` on every launch it gets in one 1-spp
+    render on its own route (the first of ``kinds``): device time summed per
+    form, and the lanes where each other kernel disagrees with the first
+    (recorded, not gated; ``hits_differ``)."""
+    from pine_tpu_torch.accel.dense_traverse import prepare
     from pine_tpu_torch.core.samplers import BlueSampler
     from pine_tpu_torch.integrators.path import render_wavefront
 
-    cs = scene.compile()
-    (cones,) = [g for g in cs.unified["groups"] if g["tid"] == 7]
-    recorded, _ = record_launches(cs, ["dense"], lambda: render_wavefront(
+    (g,) = [g for g in cs.unified["groups"] if g["tid"] == tid]
+    for kind in kinds:
+        prepare(g, kind)
+    recorded, _ = record_launches(cs, kinds[:1], lambda: render_wavefront(
         cs, scene.camera, MAIN_SIZE, MAIN_SIZE, BlueSampler(MAIN_SPP), 1, MAIN_DEPTH))
-    rec = dict(phase="lattice_ab", scene="bench cbox, 424-row cone group", per="one 1-spp render")
+    rec = dict(phase="kernel_ab", scene=what, group=group_desc(g), per="one 1-spp render")
     for any_hit, form in ((False, "closest"), (True, "any_hit")):
-        calls = [args for g, args, _ in recorded[("dense", any_hit)] if g is cones]
-        dense_ms = sum(cuda_ms(lambda: launch("dense", cones, a, any_hit), 10) for a in calls)
-        lattice_ms = sum(cuda_ms(lambda: launch("lattice", cones, a, any_hit), 10) for a in calls)
-        t_differ = e_differ = 0
-        for a in calls:
-            (t_d, e_d), (t_l, e_l) = launch("dense", cones, a, any_hit), launch("lattice", cones, a,
-                                                                                any_hit)
-            t_differ += int((t_d.view(torch.int32) != t_l.view(torch.int32)).sum())
-            e_differ += int(((e_d != e_l) & (any_hit | (t_d < 1e30))).sum())
-        rec[form] = dict(launches=len(calls), dense_ms=dense_ms, lattice_ms=lattice_ms,
-                         t_bits_differ=t_differ, ids_differ=e_differ)
+        calls = [args for h, args, _ in recorded[(kinds[0], any_hit)] if h is g]
+        rec[form] = dict(launches=len(calls))
+        for kind in kinds:
+            rec[form][f"{kind}_ms"] = sum(cuda_ms(lambda: launch(kind, g, a, any_hit), 10)
+                                          for a in calls)
+        for kind in kinds[1:]:
+            rec[form][f"{kind}_lanes_differ"] = sum(hits_differ(
+                launch(kinds[0], g, a, any_hit), launch(kind, g, a, any_hit), any_hit)
+                for a in calls)
     emit(rec)
 
 
@@ -1063,39 +1336,65 @@ def main():
 
     dev = torch.device("cuda")
     os.makedirs(OUT_DIR, exist_ok=True)
-    for kind, phase in (("dense", phase_dense_vs_plain), ("grid", phase_grid_vs_plain),
-                        ("inst", phase_inst_vs_plain), ("lattice", phase_lattice_vs_plain)):
+    phases = (("dense", phase_dense_vs_plain), ("grid", phase_grid_vs_plain),
+              ("inst", phase_inst_vs_plain), ("lattice", phase_lattice_vs_plain),
+              ("scdense", phase_scdense_vs_plain),
+              ("sctree", lambda dev: phase_tree_vs_plain(dev, "sctree", None)),
+              ("bvh", lambda dev: phase_tree_vs_plain(dev, "bvh", terrain_group(dev, 1002))))
+    for kind, phase in phases:
         recs = phase(dev)
         with open(os.path.join(OUT_DIR, f"chip_smoke_{kind}.json"), "w") as f:
             json.dump(recs, f, indent=1)
         emit(dict(phase="kernel_vs_plain", kernel=kind, cases=len(recs),
                   max_abs_err=max(r["max_abs_err"] for r in recs),
                   lanes_differ=sum(r["lanes_differ"] for r in recs),
-                  timed=[{k: r[k] for k in ("group", "form", "ms", "plain_ms", "dense_ms")
-                          if k in r} for r in recs if "ms" in r],
+                  timed=[{k: v for k, v in r.items() if k in ("group", "form", "depth") or
+                          k.endswith("_ms") or k == "ms" or k.startswith("vs_")}
+                         for r in recs if "ms" in r],
                   **({"vs_dense": [dict(group=r["group"], form=r["form"], **r["vs_dense"])
                                    for r in recs]} if kind == "lattice" else {})))
+        torch.cuda.empty_cache()
 
     phase_render_parity()
     name = torch.cuda.get_device_name(0)
     W = H = MAIN_SIZE
     box = prl_box_checked()
-    kernels = phase_main_path(
+    kernels, cs = phase_main_path(
         name, "cbox", "bench cbox, 420 cones, from CBOX_PRL", box,
         [("dense", 1, 6), ("dense", 5, 2), ("dense", 7, 424)], False, ["dense"])
-    lattice_ab_record(box)
+    kernel_ab_record(cs, box, "bench cbox", 7, ["dense", "lattice", "scdense"])
     kernels += phase_main_path(
         name, "forest", "cone forest, 1,600 cones, from CONE_FOREST_PRL",
         scenes.prl_scene(scenes.CONE_FOREST_PRL, "<cone forest>"),
-        [("dense", 1, 6), ("dense", 5, 2), ("lattice", 7, 1604)], False, ["lattice"])
-    kernels += phase_main_path(
-        name, "terrain", "bench_mesh terrain, 99,458 triangles + 1 rect", scenes.terrain((W, H)),
+        [("dense", 1, 6), ("dense", 5, 2), ("lattice", 7, 1604)], False, ["lattice"])[0]
+    terrain = scenes.terrain((W, H))
+    entries, cs = phase_main_path(
+        name, "terrain", "bench_mesh terrain, 99,458 triangles + 1 rect", terrain,
         [("dense", 1, 1), ("grid", 6, 99458)], True, ["grid"])
+    kernels += entries
+    kernel_ab_record(cs, terrain, "bench_mesh terrain", 6, ["grid", "sctree", "bvh"])
     kernels += phase_main_path(
         name, "instanced", "bench_instanced rock field, 1,024 x 4,802 triangles + plane + rect",
         scenes.instanced((INST_SIZE, INST_SIZE)),
         [("dense", 1, 1), ("dense", 3, 1), ("inst", 6, 1024)], False, ["inst"],
-        INST_SIZE, INST_SPP, INST_DEPTH)
+        INST_SIZE, INST_SPP, INST_DEPTH)[0]
+    del cs, entries
+    torch.cuda.empty_cache()
+    # the slice's three paths: the BVH walk by default on a mesh over 2,000,000
+    # triangles, the supercell tree and the scdense sweep forced
+    kernels += phase_main_path(
+        name, "terrain2m", "bench_mesh terrain at grid 1002, 2,004,002 triangles + 1 rect",
+        scenes.terrain((W, H), 1002), [("dense", 1, 1), ("bvh", 6, 2004002)], True, ["bvh"],
+        checked=1)[0]
+    torch.cuda.empty_cache()
+    kernels += phase_main_path(
+        name, "terrain_sctree", "bench_mesh terrain, 99,458 triangles + 1 rect, "
+        "mesh_kernel sctree", scenes.terrain((W, H)), [("dense", 1, 1), ("sctree", 6, 99458)],
+        True, ["sctree"], kernels=dict(mesh_kernel="sctree"))[0]
+    kernels += phase_main_path(
+        name, "cbox_scdense", "bench cbox, 420 cones, from CBOX_PRL, small_kernel scdense", box,
+        [("scdense", 1, 6), ("scdense", 5, 2), ("scdense", 7, 424)], False, ["scdense"],
+        kernels=dict(small_kernel="scdense"))[0]
     phase_cli()
     emit(dict(phase="done", seconds=time.perf_counter() - t_start))
     emit({"kernels": kernels})

@@ -1,9 +1,10 @@
-"""Dense traversal of one prim group: the kernel wrapper and its plain version.
+"""Dense traversal of one prim group, and the dispatch of every group to its
+traversal kernel.
 
 Counterpart of the dense path of pine_tpu/accel/pallas_traverse.py:
 ``PRIM_TESTS`` (the per-type ray tests on one prim row), ``_group_variant``
-(which kernel a group needs) and ``pallas_group_query`` (here
-``group_query``), whose contract this keeps:
+(which kernel a group takes, here ``group_variant``) and
+``pallas_group_query`` (here ``group_query``), whose contract this keeps:
 
 - closest-hit: ``(best_t, best_e)`` in and out; a prim replaces the running
   best only on a strict ``t < best_t`` (ties keep the lowest row) and
@@ -14,17 +15,32 @@ Counterpart of the dense path of pine_tpu/accel/pallas_traverse.py:
   ``(tmin, best_t)``; any-hit: ``(tmin, tmax)``, empty once occluded) passes
   both through bit for bit.
 
-``group_query`` runs the kernel a group needs (``group_variant``, pine_tpu's
-defaults): groups of 512 or fewer rows take the dense sweep; larger groups
-that form a lattice (``packet._detect_lattice``) the lattice march
-(accel/lattice_traverse.py), other groups the grid traversal
-(accel/grid_traverse.py), or above GRID_MAX_PRIMS_HBM prims the BVH walk.
-On CUDA tensors it launches the hand-written kernel (csrc/dense_traverse.cu,
-csrc/lattice_traverse.cu, csrc/grid_traverse.cu) or raises; on CPU tensors
-it runs the plain version (``dense_plain``, the same arithmetic as a sweep
-over the rows in order with ``torch.where``, ``lattice_plain`` or
-``grid_plain``).  The BVH walk (kernel 2) is not ported yet (ROADMAP.md, TPU
-kernels): a group that needs it raises on CUDA.
+The six routes, each a hand-written CUDA kernel on CUDA tensors (or a raise)
+and its plain PyTorch version on CPU tensors:
+
+- "dense": every row of the group (csrc/dense_traverse.cu, ``dense_plain``);
+- "scdense": the rows in order, culled by 128-prim supercells and 16-prim
+  cells (accel/scdense_traverse.py);
+- "lattice": the march over a regular lattice's rows rebuilt by arithmetic
+  (accel/lattice_traverse.py);
+- "grid": coarse boxes, supercells and 32-prim cells, near-first per
+  direction octant (accel/grid_traverse.py);
+- "sctree": a SAH tree over the supercells (accel/sctree_traverse.py);
+- "bvh": the group's own SAH tree of leaves of up to four prims
+  (accel/bvh_traverse.py).
+
+``group_variant`` picks the route as ``pine_tpu``'s defaults do: groups of
+512 or fewer rows take the dense sweep; larger groups that form a lattice
+(``packet._detect_lattice``) the lattice march; other groups the grid
+traversal, or above GRID_MAX_PRIMS_HBM prims the BVH walk.  Two settings of
+``CompiledScene`` force a route, as ``PINE_SMALL_KERNEL`` and
+``PINE_MESH_KERNEL`` do for ``pine_tpu``: ``mesh_kernel`` for groups of more
+than GRID_MAX_PRIMS prims and at most GRID_MAX_PRIMS_HBM, ``small_kernel``
+for the other groups of at most GRID_MAX_PRIMS_HBM prims (a lattice group by
+the same rule); groups above GRID_MAX_PRIMS_HBM keep their default.  ``route``
+resolves a group's route under the settings, builds and uploads the tables
+it needs (once, never per query) and records it as ``g["variant"]``, which
+``group_query`` follows.
 """
 from __future__ import annotations
 
@@ -36,11 +52,13 @@ from pine_tpu_torch.scene import shapes as S
 
 BIG = 1e30
 DENSE_DEFAULT_MAX = 512  # groups of up to this many rows take the dense kernel
-GRID_MAX_PRIMS_HBM = 2_000_000
+GRID_MAX_PRIMS = 8192  # groups over this many prims are mesh-scale (mesh_kernel)
+GRID_MAX_PRIMS_HBM = 2_000_000  # groups over this many prims take the BVH walk
+VARIANTS = ("dense", "scdense", "lattice", "grid", "sctree", "bvh")
 
 # kernel launches, counted where a wrapper launches its CUDA kernel
-LAUNCHES = {"dense.closest": 0, "dense.any_hit": 0, "grid.closest": 0, "grid.any_hit": 0,
-            "inst.closest": 0, "inst.any_hit": 0, "lattice.closest": 0, "lattice.any_hit": 0}
+LAUNCHES = {f"{k}.{form}": 0 for k in ("dense", "scdense", "grid", "sctree", "bvh", "inst",
+                                       "lattice") for form in ("closest", "any_hit")}
 
 
 def reset_launches():
@@ -296,6 +314,13 @@ def _check(x, dtype, shape, device, name):
         raise ValueError(f"{name} must be contiguous")
 
 
+def check_stack(need, cap, what):
+    """Refuse a walk that may need more stack entries than its kernel has."""
+    if need > cap:
+        raise NotImplementedError(
+            f"{what} needs a traversal stack of {need} entries; the kernel has {cap}")
+
+
 def dense_cuda(tid, rows, gbox, ro, rd, tmin, tmax, best_t, best_e, any_hit):
     """Launch csrc/dense_traverse.cu on the current stream."""
     n = ro.shape[0]
@@ -326,24 +351,74 @@ def dense_cuda(tid, rows, gbox, ro, rd, tmin, tmax, best_t, best_e, any_hit):
 # dispatch
 # --------------------------------------------------------------------------
 
-def group_variant(g):
-    """The traversal kernel a group needs (pine_tpu's defaults)."""
-    n = g["rows"].shape[0]
-    if n <= DENSE_DEFAULT_MAX:
+def group_variant(g, small_kernel=None, mesh_kernel=None):
+    """The traversal route of a group under the settings (module docstring),
+    as pine_tpu's ``_group_variant`` under PINE_SMALL_KERNEL and
+    PINE_MESH_KERNEL.  A forced "lattice" on a group that is no lattice falls
+    back to the size default, as there; "bvh" needs a SAH-ordered ("bvh"
+    kind) group; the MXU forms are not ported."""
+    n_prims, n_rows = len(g["prim_aabbs"]), g["rows"].shape[0]
+    lattice = bool(g.get("lattice"))
+    eligible = n_prims <= GRID_MAX_PRIMS_HBM
+    mesh = eligible and n_prims > GRID_MAX_PRIMS
+    forced = mesh_kernel if mesh else small_kernel if eligible or lattice else None
+    if forced in ("mxu", "mxup"):
+        raise NotImplementedError(
+            f"the {forced} route is TPU kernel 7 (mxu_sweep._make_fused_kernel), which is "
+            "not ported yet (ROADMAP.md, TPU kernels)")
+    if forced is not None and forced not in VARIANTS:
+        raise ValueError(f"unknown traversal route {forced!r}: one of {VARIANTS}")
+    if forced == "bvh" and g.get("kind") != "bvh":
+        raise ValueError(f"the bvh route needs a SAH-ordered group; this {g.get('kind')} "
+                         f"group of {n_prims} prims has no node arrays")
+    if forced is not None and (forced != "lattice" or lattice):
+        return forced
+    if n_rows <= DENSE_DEFAULT_MAX:
         return "dense"
-    if g.get("lattice"):
+    if lattice:
         return "lattice"
-    return "grid" if len(g["prim_aabbs"]) <= GRID_MAX_PRIMS_HBM else "bvh"
+    return "grid" if eligible else "bvh"
+
+
+def prepare(g, variant):
+    """Build and upload the tables route ``variant`` reads, if the group does
+    not hold them yet: ``grid``, ``scd``, ``sctree`` or ``bvh``; the dense
+    sweep reads ``gbox`` and the lattice march ``lat``, which every such
+    group holds."""
+    from pine_tpu_torch.accel import bvh_traverse, grid_traverse, scdense_traverse, sctree
+
+    dev, pa = g["rows"].device, g["prim_aabbs"]
+    if variant == "grid" and "grid" not in g:
+        g["grid"] = grid_traverse.upload_layout(grid_traverse.grid_layout(pa), dev)
+    elif variant == "scdense" and "scd" not in g:
+        g["scd"] = scdense_traverse.scdense_layout(pa, dev)
+    elif variant == "sctree" and "sctree" not in g:
+        g["sctree"] = grid_traverse.upload_layout(sctree.sc_tree_layout(pa), dev)
+    elif variant == "bvh" and "bvh" not in g:
+        if g.get("nodes") is None:
+            raise ValueError("the bvh route needs the group's SAH node arrays")
+        g["bvh"] = bvh_traverse.bvh_layout(g["nodes"], pa, dev)
+
+
+def route(groups, small_kernel=None, mesh_kernel=None):
+    """Resolve every group's route under the settings, build the tables each
+    needs and then record it as ``g["variant"]``, so that a refused setting
+    changes no route."""
+    variants = [group_variant(g, small_kernel, mesh_kernel) for g in groups]
+    for g, v in zip(groups, variants):
+        prepare(g, v)
+    for g, v in zip(groups, variants):
+        g["variant"] = v
 
 
 def group_query(g, ro, rd, tmin, tmax, best_t, best_e, any_hit=False, variant=None):
-    """One group's traversal over a flat wavefront (see module docstring).
-    ``variant`` forces a kernel, as pine_tpu's ``pallas_group_query`` does
-    for A/B runs: "dense" on any group, "lattice" on a lattice group (on
-    another it falls back to the size default, as there), "grid" on a group
-    that has its tables."""
+    """One group's traversal over a flat wavefront (see module docstring), by
+    its route ``g["variant"]`` (``route``), or by ``variant`` for an A/B run,
+    as pine_tpu's ``pallas_group_query`` forces one: the group must hold that
+    route's tables (``prepare``); "lattice" on a group that is no lattice
+    takes the size default, as there."""
     if variant is None:
-        variant = group_variant(g)
+        variant = g["variant"]
     elif variant == "lattice" and not g.get("lattice"):
         variant = "dense" if g["rows"].shape[0] <= DENSE_DEFAULT_MAX else "grid"
     if variant == "lattice":
@@ -351,15 +426,16 @@ def group_query(g, ro, rd, tmin, tmax, best_t, best_e, any_hit=False, variant=No
 
         fn = lattice_cuda if ro.is_cuda else lattice_plain
         return fn(g, ro, rd, tmin, tmax, best_t, best_e, any_hit)
-    if variant == "grid":
-        from pine_tpu_torch.accel.grid_traverse import grid_cuda, grid_plain
+    if variant == "dense":
+        fn = dense_cuda if ro.is_cuda else dense_plain
+        return fn(g["tid"], g["rows"], g["gbox"], ro, rd, tmin, tmax, best_t, best_e, any_hit)
+    from pine_tpu_torch.accel import bvh_traverse, grid_traverse, scdense_traverse
+    from pine_tpu_torch.accel import sctree_traverse
 
-        fn = grid_cuda if ro.is_cuda else grid_plain
-        return fn(g["tid"], g["rows"], g["grid"], ro, rd, tmin, tmax, best_t, best_e, any_hit)
-    if variant != "dense" and ro.is_cuda:  # on the CPU the dense sweep computes the BVH walk
-        raise NotImplementedError(
-            f"group of {g['rows'].shape[0]} prims needs the {variant} traversal "
-            "kernel, which is not ported yet (ROADMAP.md, TPU kernels)"
-        )
-    fn = dense_cuda if ro.is_cuda else dense_plain
-    return fn(g["tid"], g["rows"], g["gbox"], ro, rd, tmin, tmax, best_t, best_e, any_hit)
+    table, kernel, plain = {
+        "grid": ("grid", grid_traverse.grid_cuda, grid_traverse.grid_plain),
+        "scdense": ("scd", scdense_traverse.scdense_cuda, scdense_traverse.scdense_plain),
+        "sctree": ("sctree", sctree_traverse.sctree_cuda, grid_traverse.supercell_plain),
+        "bvh": ("bvh", bvh_traverse.bvh_cuda, grid_traverse.supercell_plain)}[variant]
+    fn = kernel if ro.is_cuda else plain
+    return fn(g["tid"], g["rows"], g[table], ro, rd, tmin, tmax, best_t, best_e, any_hit)

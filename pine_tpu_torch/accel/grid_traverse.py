@@ -21,7 +21,8 @@ lowest t and, among equal t, the lowest row; the kernel keeps that rule
 whatever its visit order.  The two can still differ on a rare lane where a
 cull decides at a box face: the running best at the moment of a cull
 depends on the visit order, and a hit on a box face can round outside the
-slab (PERF.md, Findings).
+slab (PERF.md, Findings).  ``supercell_plain``, the same sweep with no coarse
+level, is the plain version of the supercell-tree and BVH routes.
 """
 from __future__ import annotations
 
@@ -44,11 +45,11 @@ def _boxes(aabbs, size, n_out):
     out = np.zeros((n_out, 6), np.float32)
     out[:, 0:3] = 1.0
     out[:, 3:6] = -1.0
-    E = len(aabbs)
-    for i in range((E + size - 1) // size):
-        seg = aabbs[i * size : min((i + 1) * size, E)]
-        out[i, 0:3] = seg[:, 0:3].min(0)
-        out[i, 3:6] = seg[:, 3:6].max(0)
+    aabbs = np.asarray(aabbs, np.float32)
+    if len(aabbs):
+        starts = np.arange(0, len(aabbs), size)
+        out[: len(starts), 0:3] = np.minimum.reduceat(aabbs[:, 0:3], starts)
+        out[: len(starts), 3:6] = np.maximum.reduceat(aabbs[:, 3:6], starts)
     return out
 
 
@@ -191,6 +192,31 @@ def grid_plain(tid, rows, grid, ro, rd, tmin, tmax, best_t, best_e, any_hit, cou
     if any_hit:
         return best_t, occ
     return cur_t, cur_e
+
+
+def supercell_plain(tid, rows, tables, ro, rd, tmin, tmax, best_t, best_e, any_hit,
+                    counts=None):
+    """The function of the supercell-tree and BVH routes in plain PyTorch:
+    ``grid_plain``'s sweep in row order, culled by the group's 128-prim
+    supercell and 32-prim cell boxes, with no coarse level (a Python loop
+    over the supercells, so that it stays within seconds on a group of
+    millions of prims on the card).  ``tables`` holds ``n_prims`` and either
+    those boxes (``sc_boxes``, ``cell_boxes``: the supercell tree's tables)
+    or the group's leaf-order ``prim_aabbs`` on the host (the BVH's), from
+    which the boxes are built for this call: only the plain version reads
+    them.  ``counts`` as ``grid_plain``'s."""
+    n_prims = tables["n_prims"]
+    n_super = (n_prims + SUPER - 1) // SUPER
+    if "sc_boxes" in tables:
+        sc, cells = tables["sc_boxes"], tables["cell_boxes"]
+    else:
+        pa = tables["prim_aabbs"]
+        sc, cells = (torch.as_tensor(_boxes(pa, size, n), device=rows.device) for size, n in (
+            (SUPER, n_super), (CELL, n_super * (SUPER // CELL))))
+    grid = dict(n_prims=n_prims, n_super=n_super, n_coarse=(n_super + COARSE - 1) // COARSE,
+                use_coarse=False, coarse_boxes=None, sc_boxes=sc, cell_boxes=cells)
+    return grid_plain(tid, rows, grid, ro, rd, tmin, tmax, best_t, best_e, any_hit,
+                      counts=counts)
 
 
 # --------------------------------------------------------------------------

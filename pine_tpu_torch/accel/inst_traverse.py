@@ -3,7 +3,7 @@ plain version.
 
 Counterpart of pine_tpu/accel/instanced_kernel.py: ``inst_layout`` (here
 ``upload_inst_group``), ``_stack_need`` (here ``stack_need``),
-``kernel_supports`` (here ``check_stack``, which raises) and
+``kernel_supports`` (here ``dense_traverse.check_stack``, which raises) and
 ``_make_inst_kernel`` / ``_compiled_inst_call`` (here
 csrc/inst_traverse.cu through ``inst_cuda``).  An instanced group
 (accel/packet._instanced_group) holds one triangle mesh in its SAH leaf
@@ -45,7 +45,7 @@ import ctypes
 import numpy as np
 import torch
 
-from pine_tpu_torch.accel.dense_traverse import BIG, LAUNCHES, _check, _safe_inv
+from pine_tpu_torch.accel.dense_traverse import BIG, LAUNCHES, _check, _safe_inv, check_stack
 from pine_tpu_torch.accel.grid_traverse import (
     CELL, SUPER, grid_layout, grid_plain, upload_layout,
 )
@@ -222,18 +222,10 @@ def _library():
     return fn
 
 
-def check_stack(g):
-    """Refuse a group whose walk may need more stack than the kernel has."""
-    if g["need"] > STACK_DEPTH:
-        raise NotImplementedError(
-            f"instanced group needs a traversal stack of {g['need']} entries (top tree depth "
-            f"{g['d_top']}, mesh tree depth {g['d_mesh']}); the kernel has {STACK_DEPTH}"
-        )
-
-
 def inst_cuda(g, ro, rd, tmin, tmax, best_t, best_e, any_hit):
     """Launch csrc/inst_traverse.cu on the current stream."""
-    check_stack(g)
+    check_stack(g["need"], STACK_DEPTH, f"instanced group (top tree depth {g['d_top']}, "
+                f"mesh tree depth {g['d_mesh']})")
     n = ro.shape[0]
     dev = ro.device
     f32, i32 = torch.float32, torch.int32

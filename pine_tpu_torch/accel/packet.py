@@ -4,7 +4,8 @@ Counterpart of pine_tpu/accel/packet.py for analytic shapes and meshes:
 
 - ``build_packet_accel`` groups the prims by shape type.  A type with
   DENSE_MAX or fewer prims keeps insertion order ("dense"); a larger one is
-  put in SAH leaf order ("bvh", plus LEAF_MAX zero pad rows that never hit).
+  put in SAH leaf order ("bvh", plus LEAF_MAX zero pad rows that never hit)
+  and keeps its SAH node arrays, which the BVH walk reads.
   A group that forms a regular 1-D/2-D lattice (script loops) has its rows
   snapped to the affine model, so every traversal path sees the same
   geometry, and keeps the model, which the lattice traversal reads.  The triangles of all meshes form one more group, with their
@@ -14,9 +15,11 @@ Counterpart of pine_tpu/accel/packet.py for analytic shapes and meshes:
   SAH tree over the instances' world boxes, whose order the per-instance
   transforms and geometry ids follow.
 - ``packet_intersect`` / ``packet_any_hit`` run each regular group through
-  accel/dense_traverse.group_query (the dense, grid or lattice traversal)
-  and then each instanced group through accel/inst_traverse.inst_query, the
-  kernel routes on CUDA tensors.
+  accel/dense_traverse.group_query, by the group's route (one of the six
+  of that module: "dense", "scdense", "lattice", "grid", "sctree", "bvh";
+  pine_tpu's defaults, or as ``CompiledScene.small_kernel`` and
+  ``mesh_kernel`` force them), and then each instanced group through
+  accel/inst_traverse.inst_query, the kernel routes on CUDA tensors.
 
 Entity ids concatenate the groups' rows: a group-local row plus the group's
 ``base`` is the entity, and ``ent_gidx`` maps an entity to its scene
@@ -200,7 +203,9 @@ def build_packet_accel(analytic_prims, meshes=(), instanced=()):
 
     -> host accel dict: ``groups`` (each: tid, kind, base, rows, prim_aabbs,
     and ``lattice``: None, or ``_detect_lattice``'s model without ``snapped``
-    and with ``slot_of_k``, the inverse of the SAH order), ``inst_groups`` (``_instanced_group``'s dicts) and
+    and with ``slot_of_k``, the inverse of the SAH order; a "bvh" group also
+    its SAH tree ``c_lower``, ``c_upper``, ``c_node``, ``c_start``,
+    ``c_count``), ``inst_groups`` (``_instanced_group``'s dicts) and
     ``ent_gidx``; with meshes also the entity-order tables ``ent_param``
     (E, 32), ``geom_n``, ``tri_n``, ``tri_t``, ``tri_has_n``, ``tri_has_t``
     that mesh shading reads (accel/unified.py).  The triangles of all meshes
@@ -231,12 +236,14 @@ def build_packet_accel(analytic_prims, meshes=(), instanced=()):
             lattice = _detect_lattice(params, lo, hi)
             if lattice is not None:
                 params = lattice.pop("snapped")
+        nodes = {}
         if n <= DENSE_MAX:
             order = np.arange(n)
             rows = params
             kind = "dense"
         else:
-            order = sah_arrays(lo, hi)[0]
+            order, *tree = sah_arrays(lo, hi)
+            nodes = dict(zip(("c_lower", "c_upper", "c_node", "c_start", "c_count"), tree))
             rows = np.concatenate([params[order], np.zeros((LEAF_MAX, params.shape[1]), np.float32)])
             kind = "bvh"
             if lattice is not None:  # lattice index k -> the group's row (SAH slot)
@@ -245,7 +252,7 @@ def build_packet_accel(analytic_prims, meshes=(), instanced=()):
         groups.append(dict(
             tid=tid, kind=kind, base=base, rows=rows,
             prim_aabbs=np.concatenate([lo, hi], axis=1)[order],
-            lattice=lattice,
+            lattice=lattice, **nodes,
         ))
         ent_gidx.append(gidxs[order])
         padded = np.zeros((n, ENT_PARAM_WIDTH), np.float32)

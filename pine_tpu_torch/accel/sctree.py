@@ -7,8 +7,9 @@ second SAH tree, built by the C++ builder over the supercell boxes, orders
 the supercells.  A walk descends that tree near-first, gates each supercell
 of a leaf it reaches by its box, then each of its four cells, and tests the
 prims of the cells that pass.  The walk is ``sctree_walk`` in
-csrc/inst_traverse.cu; the two-level instanced kernel runs it over the shared
-mesh of an instanced group in each instance's frame.
+csrc/sctree_walk.cuh: the supercell-tree kernel (accel/sctree_traverse.py)
+runs it once per ray over a group, the two-level instanced kernel over the
+shared mesh of an instanced group in each instance's frame.
 
 Tables (``sc_tree_layout``), all uploaded once at compile():
 
@@ -20,7 +21,8 @@ Tables (``sc_tree_layout``), all uploaded once at compile():
   supercells are ``sc_order[cstart : cstart + ccount]``;
 - ``sc_order`` int32 (n_super + TREE_LEAF,): the supercells in tree-leaf
   order, then TREE_LEAF zero pad entries (as pine_tpu pads it);
-- ``depth``: the tree's node levels (the root alone is depth 1).
+- ``depth``: the tree's node levels (the root alone is depth 1); the walk
+  needs at most that many stack entries.
 """
 from __future__ import annotations
 
@@ -35,10 +37,11 @@ TREE_LEAF = LEAF_MAX  # supercells per tree leaf
 def tree_depth(cnode):
     """Node levels of a (M, 2) child-index tree (< 0: a leaf child)."""
     cnode = np.asarray(cnode).reshape(-1, 2)
-    depth, frontier = 0, [0]
-    while frontier:
+    depth, frontier = 0, np.zeros(1, np.int64)
+    while frontier.size:
         depth += 1
-        frontier = [int(c) for n in frontier for c in cnode[n] if c >= 0]
+        frontier = cnode[frontier].ravel()
+        frontier = frontier[frontier >= 0]
     return depth
 
 

@@ -25,6 +25,9 @@ Keys (``i`` counts from 0):
   ``nj``, ``K``, ``base``, ``dU``, ``dV``, ``gu``, ``gv``, ``u0``, ``v0``,
   ``r_u``, ``r_v``, ``cap_u``, ``cap_v``, and ``slot_of_k`` int32 (n,), the
   group's row of each lattice index; ``carry_lattice`` takes pine_tpu's);
+  a "bvh" group also its SAH tree from the C++ builder, ``.c_lower``,
+  ``.c_upper`` float32 (M, 2, 3), ``.c_node``, ``.c_start``, ``.c_count``
+  int32 (M, 2) (pine_tpu's ``nodes_np``), which the BVH walk reads;
   ``ent_gidx`` int32: entity -> geometry.  No groups for 24 or fewer
   analytic prims, no mesh and no lazy instancing.  The triangles of all
   meshes form one group of ``tid`` 6 (triangle rows [v0, v1, v2, geometric
@@ -61,8 +64,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pine_tpu_torch.accel.dense_traverse import group_variant
-from pine_tpu_torch.accel.grid_traverse import grid_layout, upload_layout
+from pine_tpu_torch.accel.dense_traverse import route
 from pine_tpu_torch.accel.inst_traverse import upload_inst_group
 from pine_tpu_torch.accel.lattice_traverse import lattice_layout
 from pine_tpu_torch.accel.packet import box_corners, build_packet_accel, instancing_record
@@ -74,6 +76,7 @@ from pine_tpu_torch.scene.scene import BIG, CompiledScene, check_ported
 
 DENSE_SCENE_MAX = 24  # scenes with more prims than this (or a mesh) use the prim groups
 GROUP_KEYS = ("tid", "kind", "base", "rows", "prim_aabbs", "lattice")
+NODE_KEYS = ("c_lower", "c_upper", "c_node", "c_start", "c_count")  # "bvh" groups
 MESH_KEYS = ("ent_param", "geom_n", "tri_n", "tri_t", "tri_has_n", "tri_has_t")
 INST_KEYS = ("tid", "vbase", "stride", "n_tris", "n_inst", "rows", "prim_aabbs", "tri_n",
              "tri_t", "tri_has_n", "tri_has_t", "ic_lower", "ic_upper", "ic_node", "ic_start",
@@ -147,7 +150,7 @@ def scene_arrays(scene) -> dict:
     groups = accel["groups"] if accel else []
     a["n_groups"] = np.asarray(len(groups))
     for i, g in enumerate(groups):
-        for k in GROUP_KEYS:
+        for k in GROUP_KEYS + (NODE_KEYS if g["kind"] == "bvh" else ()):
             a[f"group.{i}.{k}"] = g[k] if k == "lattice" else np.asarray(g[k])
     inst_groups = accel["inst_groups"] if accel else []
     a["n_inst_groups"] = np.asarray(len(inst_groups))
@@ -196,16 +199,17 @@ def carry_lattice(lat):
             for k, v in lat.items() if not k.startswith("_")}
 
 
-def upload_group(g: dict, device) -> dict:
+def upload_group(g: dict, device, small_kernel=None, mesh_kernel=None) -> dict:
     """One prim group as the traversal reads it: the host group of
-    ``build_packet_accel`` (tid, kind, base, rows, prim_aabbs, lattice) with
-    ``rows`` and the group box ``gbox`` (6,) as float32 tensors on ``device``;
-    for a lattice group the lattice kernel's table ``lat``
+    ``build_packet_accel`` (tid, kind, base, rows, prim_aabbs, lattice, and
+    for a "bvh" group its node arrays, kept on the host as ``nodes``) with
+    ``rows`` and the group box ``gbox`` (6,) as float32 tensors on
+    ``device``; for a lattice group the lattice kernel's table ``lat``
     (accel/lattice_traverse.lattice_layout), built for any size, so that the
-    march can be forced on a group the dense sweep takes by default; for a
-    group that takes the grid traversal its tables ``grid``
-    (accel/grid_traverse.grid_layout).  Everything is uploaded here, once,
-    never per query."""
+    march can be forced on a group the dense sweep takes by default; and the
+    tables of the group's route under the settings
+    (accel/dense_traverse.route).  Everything is uploaded here, once, never
+    per query."""
     pa = np.asarray(g["prim_aabbs"], np.float32)
     gbox = (np.concatenate([pa[:, 0:3].min(0), pa[:, 3:6].max(0)]) if len(pa)
             else np.array([-BIG] * 3 + [BIG] * 3))
@@ -215,17 +219,19 @@ def upload_group(g: dict, device) -> dict:
         rows=torch.as_tensor(rows, device=device),
         prim_aabbs=pa, gbox=torch.as_tensor(gbox.astype(np.float32), device=device),
         lattice=g["lattice"],
+        nodes={k: g[k] for k in NODE_KEYS} if all(k in g for k in NODE_KEYS) else None,
     )
     if g["lattice"]:
         out["lat"] = lattice_layout(g["lattice"], rows.shape[1], device)
-    if group_variant(out) == "grid":
-        out["grid"] = upload_layout(grid_layout(pa), device)
+    route([out], small_kernel, mesh_kernel)
     return out
 
 
-def compiled_scene_from_arrays(arrays: dict, device=None) -> CompiledScene:
+def compiled_scene_from_arrays(arrays: dict, device=None, small_kernel=None,
+                               mesh_kernel=None) -> CompiledScene:
     """Upload the arrays of ``scene_arrays``'s format to ``device`` (default:
-    the card) and return the CompiledScene."""
+    the card) and return the CompiledScene, its groups routed under the
+    settings ``small_kernel`` and ``mesh_kernel`` (CompiledScene)."""
     dev = resolve_device(device)
 
     def t(x, dtype=None):
@@ -239,8 +245,9 @@ def compiled_scene_from_arrays(arrays: dict, device=None) -> CompiledScene:
     n_groups = int(arrays["n_groups"])
     n_inst = int(arrays.get("n_inst_groups", 0))
     if n_groups or n_inst:
-        groups = [upload_group({k: arrays[f"group.{i}.{k}"] for k in GROUP_KEYS}, dev)
-                  for i in range(n_groups)]
+        groups = [upload_group({k: arrays[k2] for k in GROUP_KEYS + NODE_KEYS
+                                if (k2 := f"group.{i}.{k}") in arrays}, dev, small_kernel,
+                               mesh_kernel) for i in range(n_groups)]
         inst_groups = [upload_inst_group({k: arrays[f"inst.{i}.{k}"] for k in INST_KEYS}, dev)
                        for i in range(n_inst)]
         unified = dict(groups=groups, inst_groups=inst_groups,
@@ -284,4 +291,5 @@ def compiled_scene_from_arrays(arrays: dict, device=None) -> CompiledScene:
         dev, t(arrays["g_type"], torch.int32), t(arrays["g_local"], torch.int32),
         t(arrays["g_mat"], torch.int32), tables, type_global, unified, materials,
         lights, camera, t(arrays["world_lo"], torch.float32), float(arrays["world_span"]),
+        (small_kernel, mesh_kernel),
     )

@@ -29,8 +29,9 @@
 // pops.  An instance entry is re-culled against the running best when it
 // pops, then the ray goes into its frame with the 3x4 inverse in the order
 // ((m0*x + m1*y) + m2*z) + m3 (directions unnormalized, so local t is world
-// t), and sctree_walk, the mesh-level walk, runs on the same stack above the
-// pending entries: supercell-tree nodes near-first, each leaf's supercells
+// t), and sctree_walk (csrc/sctree_walk.cuh, shared with the one-level
+// supercell-tree kernel), the mesh-level walk, runs on the same stack above
+// the pending entries: supercell-tree nodes near-first, each leaf's supercells
 // gated by their box, then their four 32-prim cells, then the triangle tests
 // of csrc/prim_tests.cuh.  Ties: the running best (t, virtual id) is compared
 // lexicographically, so the result is the lowest id among equal t whatever
@@ -42,28 +43,13 @@
 // subtree is ever dropped.  Built without fast math and with -fmad=false,
 // the arithmetic rounds as the plain PyTorch version's does.
 
-#include "prim_tests.cuh"
+#include "sctree_walk.cuh"
 
 namespace {
 
 using namespace pine;
 
-constexpr int SUPER = 128;       // prims per supercell
-constexpr int CELL = 32;         // prims per cull cell
 constexpr int STACK_DEPTH = 128; // accel/inst_traverse.STACK_DEPTH
-
-// The supercell tree of a triangle group (accel/sctree.sc_tree_layout).
-struct SCTree {
-  const float* rows;        // (>= n_prims, 12) triangle rows in leaf order
-  int n_prims, n_super;
-  const float* sc_boxes;    // (n_super, 6) lo xyz, hi xyz
-  const float* cell_boxes;  // (n_super * 4, 6)
-  const float* boxes;       // (M, 2, 6) child boxes of each node
-  const int* cnode;         // (M, 2) child node, < 0 for a leaf child
-  const int* cstart;        // (M, 2) a leaf child's first entry in sc_order
-  const int* ccount;        // (M, 2) and its number of supercells
-  const int* sc_order;      // supercells in leaf order
-};
 
 // The instance level of an instanced group (accel/inst_traverse).
 struct TopTree {
@@ -75,84 +61,6 @@ struct TopTree {
   const float* minv;    // (>= n_inst, 12) world -> local 3x4, tree order
   int vbase, stride;
 };
-
-// slab_hit (prim_tests.cuh) that also returns the entry distance.
-__device__ __forceinline__ bool slab_near(const float* __restrict__ box, V3 o, V3 inv,
-                                          float tmin, float lim, float& near) {
-  float t0x = (__ldg(box + 0) - o.x) * inv.x, t1x = (__ldg(box + 3) - o.x) * inv.x;
-  float t0y = (__ldg(box + 1) - o.y) * inv.y, t1y = (__ldg(box + 4) - o.y) * inv.y;
-  float t0z = (__ldg(box + 2) - o.z) * inv.z, t1z = (__ldg(box + 5) - o.z) * inv.z;
-  near = vmax(vmax(vmin(t0x, t1x), vmin(t0y, t1y)), vmax(vmin(t0z, t1z), tmin));
-  float far = vmin(vmin(vmax(t0x, t1x), vmax(t0y, t1y)), vmin(vmax(t0z, t1z), lim));
-  return near <= far;
-}
-
-__device__ __forceinline__ void push(int* stack, int& sp, int v) {
-  if (sp >= STACK_DEPTH) __trap();  // unreachable: the wrapper checks the need
-  stack[sp++] = v;
-}
-
-// One supercell: its box, then its cells, then the triangles of the cells that
-// pass.  Closest-hit updates (cur_t, cur_e); any-hit returns true at a hit.
-template <bool ANY>
-__device__ __forceinline__ bool sctree_super(const SCTree& m, int si, V3 o, V3 d, V3 inv,
-                                             float tmin, float tmax, float& cur_t, int& cur_e,
-                                             int ent_base) {
-  if (!slab_hit(m.sc_boxes + 6 * si, o, inv, tmin, ANY ? tmax : cur_t)) return false;
-  for (int kc = 0; kc < SUPER / CELL; ++kc) {
-    int cell = si * (SUPER / CELL) + kc;
-    int p0 = cell * CELL;
-    if (p0 >= m.n_prims) break;
-    if (!slab_hit(m.cell_boxes + 6 * cell, o, inv, tmin, ANY ? tmax : cur_t)) continue;
-    int p1 = min(p0 + CELL, m.n_prims);
-    for (int e = p0; e < p1; ++e) {
-      float t = prim_test<TRIANGLE>(m.rows + (size_t)e * 12, o, d, tmin, tmax);
-      if (ANY) {
-        if (t < BIG) return true;
-      } else {
-        int vid = ent_base + e;
-        if (t < cur_t || (t == cur_t && vid < cur_e)) {
-          cur_t = t;
-          cur_e = vid;
-        }
-      }
-    }
-  }
-  return false;
-}
-
-// The mesh-level walk: the supercell tree of m, near-first, for one ray
-// (o, d, inv) with triangle-test limit tmax and running best (cur_t, cur_e);
-// hit ids are ent_base + row.  Uses stack[sp0:] and leaves it as it found it.
-// Any-hit returns true at the first hit.
-template <bool ANY>
-__device__ bool sctree_walk(const SCTree& m, V3 o, V3 d, V3 inv, float tmin, float tmax,
-                            float& cur_t, int& cur_e, int ent_base, int* stack, int sp0) {
-  int sp = sp0;
-  push(stack, sp, 0);
-  while (sp > sp0) {
-    int node = stack[--sp];
-    float lim = ANY ? tmax : cur_t;
-    float n0, n1;
-    bool h0 = slab_near(m.boxes + 12 * node, o, inv, tmin, lim, n0);
-    bool h1 = slab_near(m.boxes + 12 * node + 6, o, inv, tmin, lim, n1);
-    int c0 = __ldg(m.cnode + 2 * node), c1 = __ldg(m.cnode + 2 * node + 1);
-    int nr = n0 <= n1 ? 0 : 1;  // the nearer child
-    for (int k = 0; k < 2; ++k) {  // leaf children now, the nearer first
-      int ch = k == 0 ? nr : 1 - nr;
-      if (!(ch == 0 ? h0 : h1) || (ch == 0 ? c0 : c1) >= 0) continue;
-      int start = __ldg(m.cstart + 2 * node + ch), cnt = __ldg(m.ccount + 2 * node + ch);
-      for (int j = 0; j < cnt; ++j)
-        if (sctree_super<ANY>(m, __ldg(m.sc_order + start + j), o, d, inv, tmin, tmax,
-                              cur_t, cur_e, ent_base))
-          return true;
-    }
-    // inner children, the farther first so that the nearer pops next
-    if ((nr == 0 ? h1 : h0) && (nr == 0 ? c1 : c0) >= 0) push(stack, sp, nr == 0 ? c1 : c0);
-    if ((nr == 0 ? h0 : h1) && (nr == 0 ? c0 : c1) >= 0) push(stack, sp, nr == 0 ? c0 : c1);
-  }
-  return false;
-}
 
 template <bool ANY>
 __global__ void __launch_bounds__(128)
@@ -182,7 +90,7 @@ inst_kernel(TopTree top, SCTree mesh, const float* __restrict__ ro,
   bool occluded = false;
   int stack[STACK_DEPTH];
   int sp = 0;
-  push(stack, sp, 0);  // the top tree's root, kind 0
+  push<STACK_DEPTH>(stack, sp, 0);  // the top tree's root, kind 0
   while (sp > 0) {
     int ent = stack[--sp];
     int id = ent >> 2;
@@ -193,15 +101,15 @@ inst_kernel(TopTree top, SCTree mesh, const float* __restrict__ ro,
       int c[2] = {__ldg(top.cnode + 2 * id), __ldg(top.cnode + 2 * id + 1)};
       bool h[2] = {h0, h1};
       int nr = n0 <= n1 ? 0 : 1;
-      if (h[1 - nr] && c[1 - nr] >= 0) push(stack, sp, c[1 - nr] << 2);
-      if (h[nr] && c[nr] >= 0) push(stack, sp, c[nr] << 2);
+      if (h[1 - nr] && c[1 - nr] >= 0) push<STACK_DEPTH>(stack, sp, c[1 - nr] << 2);
+      if (h[nr] && c[nr] >= 0) push<STACK_DEPTH>(stack, sp, c[nr] << 2);
       for (int k = 0; k < 2; ++k) {  // leaf instances, the nearer child's last
         int ch = k == 0 ? 1 - nr : nr;
         if (!h[ch] || c[ch] >= 0) continue;
         int start = __ldg(top.cstart + 2 * id + ch), cnt = __ldg(top.ccount + 2 * id + ch);
         for (int j = 0; j < cnt; ++j)
           if (slab_hit(top.iboxes + 6 * (start + j), o, inv, tmin, cur_t))
-            push(stack, sp, ((start + j) << 2) | 1);
+            push<STACK_DEPTH>(stack, sp, ((start + j) << 2) | 1);
       }
     } else {  // instance entry: re-cull against the running best, then its mesh
       if (!slab_hit(top.iboxes + 6 * id, o, inv, tmin, cur_t)) continue;
@@ -213,8 +121,9 @@ inst_kernel(TopTree top, SCTree mesh, const float* __restrict__ ro,
                  ld(mv, 4) * d.x + ld(mv, 5) * d.y + ld(mv, 6) * d.z,
                  ld(mv, 8) * d.x + ld(mv, 9) * d.y + ld(mv, 10) * d.z};
       V3 linv = {safe_inv(ldir.x), safe_inv(ldir.y), safe_inv(ldir.z)};
-      if (sctree_walk<ANY>(mesh, lo, ldir, linv, tmin, tmax, cur_t, cur_e,
-                           top.vbase + id * top.stride, stack, sp)) {
+      if (sctree_walk<TRIANGLE, ANY, STACK_DEPTH>(mesh, lo, ldir, linv, tmin, tmax, cur_t,
+                                                  cur_e, top.vbase + id * top.stride, stack,
+                                                  sp)) {
         occluded = true;
         break;
       }

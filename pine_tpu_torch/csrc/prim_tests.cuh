@@ -1,6 +1,8 @@
 // Per-type ray tests on one prim row, shared by the traversal kernels
-// (dense_traverse.cu, grid_traverse.cu, inst_traverse.cu,
-// lattice_traverse.cu).  Counterpart of PRIM_TESTS in
+// (dense_traverse.cu, scdense_traverse.cu, grid_traverse.cu,
+// sctree_traverse.cu, bvh_traverse.cu, inst_traverse.cu,
+// lattice_traverse.cu), and the slab tests and stack push of their culls.
+// Counterpart of PRIM_TESTS in
 // pine_tpu/accel/pallas_traverse.py and pine_tpu_torch/accel/dense_traverse.py:
 // the same rounded sequence of operations as the plain PyTorch versions when
 // built without fast math and with -fmad=false.  A test returns t, or BIG on a
@@ -22,6 +24,14 @@ enum { SPHERE = 0, RECT = 1, DISK = 2, PLANE = 3, BOX_AABB = 4, BOX_OBB = 5,
        TRIANGLE = 6, CONE = 7, CYLINDER = 8 };
 
 struct V3 { float x, y, z; };
+
+// Floats in one prim row of shape type TID (scene/shapes.PARAM_WIDTH).
+template <int TID>
+__host__ __device__ constexpr int prim_width() {
+  return TID == SPHERE ? 4 : TID == RECT ? 15 : TID == DISK ? 13 : TID == PLANE ? 12
+       : TID == BOX_AABB ? 6 : TID == BOX_OBB ? 30 : TID == TRIANGLE ? 12 : TID == CONE ? 12
+       : 10;
+}
 
 // jnp.maximum / torch.maximum propagate NaN; fmaxf does not.
 __device__ __forceinline__ float vmax(float a, float b) {
@@ -253,6 +263,26 @@ __device__ __forceinline__ bool slab_hit(const float* __restrict__ box, V3 o, V3
   float near = vmax(vmax(vmin(t0x, t1x), vmin(t0y, t1y)), vmax(vmin(t0z, t1z), tmin));
   float far = vmin(vmin(vmax(t0x, t1x), vmax(t0y, t1y)), vmin(vmax(t0z, t1z), lim));
   return near <= far;
+}
+
+// slab_hit that also returns the entry distance.
+__device__ __forceinline__ bool slab_near(const float* __restrict__ box, V3 o, V3 inv,
+                                          float tmin, float lim, float& near) {
+  float t0x = (__ldg(box + 0) - o.x) * inv.x, t1x = (__ldg(box + 3) - o.x) * inv.x;
+  float t0y = (__ldg(box + 1) - o.y) * inv.y, t1y = (__ldg(box + 4) - o.y) * inv.y;
+  float t0z = (__ldg(box + 2) - o.z) * inv.z, t1z = (__ldg(box + 5) - o.z) * inv.z;
+  near = vmax(vmax(vmin(t0x, t1x), vmin(t0y, t1y)), vmax(vmin(t0z, t1z), tmin));
+  float far = vmin(vmin(vmax(t0x, t1x), vmax(t0y, t1y)), vmin(vmax(t0z, t1z), lim));
+  return near <= far;
+}
+
+// Push onto a per-thread stack of CAP entries.  Each wrapper checks the
+// tree's need against CAP before it launches, so the trap is unreachable:
+// no subtree is ever dropped.
+template <int CAP>
+__device__ __forceinline__ void push(int* stack, int& sp, int v) {
+  if (sp >= CAP) __trap();
+  stack[sp++] = v;
 }
 
 }  // namespace pine

@@ -9,8 +9,17 @@ lazy instancing keep the brute-force per-type product (no accel, no
 kernel); the others go through the prim groups of accel/packet.py, whose
 traversal runs on CUDA the dense kernel (groups of up to 512 prims), the
 lattice kernel (larger groups that form a regular lattice, fields a script
-builds in loops), the grid kernel (other larger groups) or the instanced
-kernel (lazy instancings).
+builds in loops), the grid kernel (other larger groups), the BVH walk (groups
+of more than 2,000,000 prims) or the instanced kernel (lazy instancings).
+
+Forced kernels: ``CompiledScene.small_kernel`` and ``mesh_kernel`` (or the
+same arguments of ``Scene.compile``) are the counterparts of pine_tpu's
+PINE_SMALL_KERNEL and PINE_MESH_KERNEL: one of "dense", "scdense",
+"lattice", "grid", "sctree" or "bvh" for the groups of at most
+GRID_MAX_PRIMS prims (small) or of more and at most 2,000,000 (mesh), None
+(the default) for pine_tpu's choice (accel/dense_traverse.group_variant).
+Setting one resolves every group's route and builds the tables it needs,
+once; a route a group cannot take raises and changes nothing.
 
 ``Scene.add(InstancedShape)`` flattens an instancing into transformed meshes
 when its shape is not a Mesh, when an instance is emissive (area-light
@@ -37,12 +46,12 @@ from __future__ import annotations
 
 import torch
 
+from pine_tpu_torch.accel import dense_traverse as DT
 from pine_tpu_torch.scene import intersect as I
 from pine_tpu_torch.scene import lights as L
 from pine_tpu_torch.scene import shapes as S
 
 BIG = I.BIG
-GRID_MAX_PRIMS = 8192  # pine_tpu's threshold for heavy-traversal scenes
 SORT_MIN_LANES = 4096  # smaller wavefronts are not sorted
 # instancings that realize more triangle rows than this stay lazy
 FLATTEN_LIMIT = 200_000
@@ -139,17 +148,20 @@ class Scene:
         self.camera = x
         return x
 
-    def compile(self, device=None):
+    def compile(self, device=None, small_kernel=None, mesh_kernel=None):
+        """The CompiledScene on ``device`` (default: the card), its groups
+        routed under the forced-kernel settings (module docstring)."""
         from pine_tpu_torch.convert import compiled_scene_from_arrays, scene_arrays
 
-        return compiled_scene_from_arrays(scene_arrays(self), device)
+        return compiled_scene_from_arrays(scene_arrays(self), device, small_kernel, mesh_kernel)
 
 
 class CompiledScene:
     """Device tables of one scene.  Built by convert.compiled_scene_from_arrays."""
 
     def __init__(self, device, g_type, g_local, g_mat, tables, type_global, unified,
-                 materials, lights, camera=None, world_lo=None, world_span=1.0):
+                 materials, lights, camera=None, world_lo=None, world_span=1.0,
+                 kernels=(None, None)):
         self.device = device
         self.n_global = int(g_type.shape[0])
         self.g_type, self.g_local, self.g_mat = g_type, g_local, g_mat
@@ -166,11 +178,36 @@ class CompiledScene:
         # instanced groups are kept apart (unified["inst_groups"]): a large
         # shared mesh does not make a scene heavy
         self.heavy_traversal = unified is not None and any(
-            len(g["prim_aabbs"]) > GRID_MAX_PRIMS for g in unified["groups"])
+            len(g["prim_aabbs"]) > DT.GRID_MAX_PRIMS for g in unified["groups"])
+        self._kernels = tuple(kernels)  # (small_kernel, mesh_kernel), as routed
         self.inst_traversal = unified is not None and bool(unified.get("inst_groups"))
         self.origin_sort = False  # the origin-major sort for instanced scenes (module docstring)
         self.world_lo = torch.zeros(3, device=device) if world_lo is None else world_lo
         self.world_span = float(world_span)
+
+    @property
+    def small_kernel(self):
+        """The forced route of groups of at most GRID_MAX_PRIMS prims, or None."""
+        return self._kernels[0]
+
+    @small_kernel.setter
+    def small_kernel(self, value):
+        self._route(value, self._kernels[1])
+
+    @property
+    def mesh_kernel(self):
+        """The forced route of groups of more than GRID_MAX_PRIMS prims and at
+        most 2,000,000, or None."""
+        return self._kernels[1]
+
+    @mesh_kernel.setter
+    def mesh_kernel(self, value):
+        self._route(self._kernels[0], value)
+
+    def _route(self, small_kernel, mesh_kernel):
+        if self.unified is not None:
+            DT.route(self.unified["groups"], small_kernel, mesh_kernel)
+        self._kernels = (small_kernel, mesh_kernel)
 
     def sort_mode(self, n, on_card):
         """The coherence sort's key for a wavefront of ``n`` lanes: "octant"

@@ -80,11 +80,11 @@ def rays(n, seed):
     return ro, rd, tmin, tmax
 
 
-def assert_closest_agree(t_p, e_p, t_j, e_j):
+def assert_closest_agree(t_p, e_p, t_j, e_j, rtol=2e-5):
     hit_j, hit_p = t_j < 1e29, t_p < 1e29
     np.testing.assert_array_equal(hit_p, hit_j)
     assert hit_j.sum() > 100, "the soup must actually be hit"
-    np.testing.assert_allclose(t_p[hit_j], t_j[hit_j], rtol=2e-5, atol=1e-6)
+    np.testing.assert_allclose(t_p[hit_j], t_j[hit_j], rtol=rtol, atol=1e-6)
     assert ((e_p == e_j) | ~hit_j).mean() > 0.99
 
 

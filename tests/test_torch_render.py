@@ -109,6 +109,8 @@ def jax_scene_arrays(cs, cam):
             f"group.{i}.prim_aabbs": g["_prim_aabbs"],
             f"group.{i}.lattice": carry_lattice(g.get("lattice")),
         })
+        if g["kind"] == "bvh":  # the SAH tree, which the BVH walk reads
+            a.update({f"group.{i}.{k}": np.asarray(v) for k, v in g["nodes_np"].items()})
     inst_groups = cs.unified.get("inst_groups", []) if cs.unified else []
     a["n_inst_groups"] = np.asarray(len(inst_groups))
     for i, g in enumerate(inst_groups):
@@ -232,6 +234,28 @@ def test_reduced_terrain_matches_pine_tpu(jax_terrain):
     assert_renders_agree(got.numpy(), want, pstats["traced_rays"], rays_want)
 
 
+def test_reduced_terrain_forced_bvh_matches_pine_tpu(jax_terrain, monkeypatch):
+    """pine_tpu's compiled terrain carried across by convert, rows and SAH
+    tree, its triangle group forced onto the BVH walk (``mesh_kernel``, with
+    GRID_MAX_PRIMS cut so that its 3,042 triangles are mesh-scale) and
+    rendered by the port on the CPU (supercell_plain) against pine_tpu's
+    render."""
+    from pine_tpu_torch.accel import dense_traverse as DT
+    from pine_tpu_torch.convert import compiled_scene_from_arrays
+    from pine_tpu_torch.core.samplers import BlueSampler
+    from pine_tpu_torch.integrators.path import render_wavefront
+
+    scene, jcs, want, rays_want = jax_terrain
+    monkeypatch.setattr(DT, "GRID_MAX_PRIMS", 1024)
+    pcs = compiled_scene_from_arrays(jax_scene_arrays(jcs, scene.camera), "cpu",
+                                     mesh_kernel="bvh")
+    assert [g["variant"] for g in pcs.unified["groups"]] == ["dense", "bvh"]
+    nodes = jcs.unified["groups"][1]["nodes_np"]
+    assert pcs.unified["groups"][1]["bvh"]["boxes"].shape[0] == len(nodes["c_node"])
+    got, pstats = render_wavefront(pcs, None, 32, 32, BlueSampler(4), 4, 4, return_stats=True)
+    assert_renders_agree(got.numpy(), want, pstats["traced_rays"], rays_want)
+
+
 def test_terrain_scene_api_matches_pine_tpu(jax_terrain):
     """The same terrain through the port's own Scene API (scenes.terrain, the
     port's SAH builder) against pine_tpu's render."""
@@ -283,9 +307,7 @@ def forest_renders(field, offset=0, size=48):
 
 
 def group_variants(cs):
-    from pine_tpu_torch.accel.dense_traverse import group_variant
-
-    return [(g["tid"], g["rows"].shape[0], group_variant(g)) for g in cs.unified["groups"]]
+    return [(g["tid"], g["rows"].shape[0], g["variant"]) for g in cs.unified["groups"]]
 
 
 def test_reduced_cone_forest_matches_pine_tpu():
@@ -305,7 +327,7 @@ FRONT_EDGE_DENSE = ((-0.5, 0.05, 0.56), (0.0, 0.05, 1.06))
 
 
 @pytest.mark.parametrize("offset", [0, 4])
-def test_front_edge_differences_are_not_the_lattice(offset, monkeypatch):
+def test_front_edge_differences_are_not_the_lattice(offset):
     """At the floor's front edge the port and pine_tpu agree on fewer pixels
     than the 97 % gate of the cases above, and not because of the lattice
     traversal.  The port's lattice and dense routes give the same image, so
@@ -320,14 +342,12 @@ def test_front_edge_differences_are_not_the_lattice(offset, monkeypatch):
     Held to: the two routes agree on every pixel with equal traced rays,
     differ from pine_tpu on the same pixels, the two fields' shares within 1 %
     of each other and over 95 %, means to 1 %, traced rays to 0.5 %."""
-    from pine_tpu_torch.accel import dense_traverse as DT
-
     want, rays_want, cs, render = forest_renders(FRONT_EDGE, offset)
     assert group_variants(cs) == [(1, 6, "dense"), (5, 2, "dense"), (7, 580, "lattice")]
     lat, lat_stats = render()
-    with monkeypatch.context() as m:
-        m.setattr(DT, "group_variant", lambda g: "dense")
-        dense, dense_stats = render()
+    cs.small_kernel = "dense"  # pine_tpu's PINE_SMALL_KERNEL=dense
+    assert group_variants(cs) == [(1, 6, "dense"), (5, 2, "dense"), (7, 580, "dense")]
+    dense, dense_stats = render()
     assert agreement(lat, dense) == 1.0 and lat_stats == dense_stats
     np.testing.assert_array_equal(differing(lat, want), differing(dense, want))
     assert abs(lat.mean() - want.mean()) <= 0.01 * abs(want.mean())
