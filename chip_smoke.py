@@ -31,18 +31,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    f. the supercell-tree walk on soups of 3,000 and 20,000 triangles and the
       terrain's group; beside it the grid kernel;
    g. the BVH walk on the same soups, the terrain's group and the terrain
-      grown to 2,004,002 triangles; beside it the grid kernel.
-   In b, c, f and g lanes may differ where a cull decides at a box face; at
-   most GRID_MISMATCH_SHARE of them, and the counts are printed.  In a, d
-   and e no lane may differ.
+      grown to 2,004,002 triangles; beside it the grid kernel;
+   h. the fused coefficient-table sweep (kernel 7, "mxup") against
+      mxup_plain on groups of 1, 16, 300 (a partial last tile) and 424
+      prims of each type with a table (sphere, rect, disk, plane, triangle,
+      cone) and on the benchmark box's rect and cone groups; beside it, not
+      gated, the dense kernel and the "mxu" route (torch.matmul and the
+      epilogue), their agreement by tests/test_mxu_sweep.py's tolerance;
+   i. the grid kernel's MXU form against its plain version on soups of
+      3,000 and 20,000 triangles and the terrain's group; beside it the grid
+      kernel;
+   j. the instanced kernel's MXU leaf form against its plain version on the
+      rock fields of 2x2 and 32x32; beside it the instanced kernel.
+   In b, c, f, g, i and j lanes may differ where a cull decides at a box
+   face; at most GRID_MISMATCH_SHARE of them, and the counts are printed.
+   In a, d, e and h no lane may differ.
 3. Render parity, card (kernels) against CPU (plain versions): the reduced
    Cornell box (36 cones), the reduced terrain (grid 40, 3,042 triangles,
    the card also with the coherence sort forced on), a reduced rock field
    (3x3 instances of a 242-triangle rock, the card with its origin sort)
    and a reduced cone forest (24x24 cones, still the lattice traversal),
    64x64, 4 spp, depth 4; and the reduced box with ``small_kernel``
-   "scdense" and the reduced terrain with ``mesh_kernel`` "sctree" and
-   "bvh" (its triangles made mesh-scale by a lower GRID_MAX_PRIMS).
+   "scdense" and "mxup", the reduced terrain with ``mesh_kernel`` "sctree",
+   "bvh" and "mxu" (its triangles made mesh-scale by a lower
+   GRID_MAX_PRIMS) and the reduced rock field with ``inst_kernel`` "mxu".
 4. The main paths at full width through ``Scene.compile`` and
    ``render_wavefront`` on the card: the benchmark Cornell box (420 cones;
    built from bench.py's script through the port's PRL interpreter, as
@@ -54,16 +66,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    light) at 512x512, BlueSampler(4), depth 3; then, at 640x640x16 spp,
    depth 4, the terrain grown to 2,004,002 triangles (the BVH walk, its
    default), the terrain with ``mesh_kernel="sctree"`` and the box with
-   ``small_kernel="scdense"``.  For each, the launch counts are zeroed just
+   ``small_kernel="scdense"``; then the coefficient-table paths at full
+   width: the box with ``small_kernel="mxup"`` (kernel 7 on its rect and
+   cone groups) and the terrain with ``mesh_kernel="mxu"`` (the grid
+   kernel's MXU form, the JAX package's default route for it), 640x640x16
+   spp, depth 4, and the rock field with ``inst_kernel="mxu"`` (the
+   instanced kernel's MXU leaf form), 512x512x4 spp, depth 3.  For each, the launch counts are zeroed just
    before one render and read just after, and every kernel of that path
    must have run; then a profile of a 2-spp render.  The ``kernel_ab``
    records time one group on every launch it gets in one 1-spp render
    through several kernels: the box's cone group through the dense kernel
-   (its default), the lattice march and the scdense sweep; the terrain's
-   group through the grid kernel (its default), the supercell tree and the
-   BVH walk.  The kernel line times each kernel form on every launch the
-   main path gives it in a 1-spp render (the plain version, over the 2 M
-   group seconds a call, on the first launch of each form only).  The
+   (its default), the lattice march, the scdense sweep, kernel 7 and the
+   "mxu" route; the terrain's group through the grid kernel (its default),
+   the supercell tree, the BVH walk and the grid kernel's MXU form; the rock
+   field's instanced group through the instanced kernel and its MXU leaf
+   form.  The kernel line times each kernel form on every launch the main
+   path gives it in a 1-spp render (the plain version, over the 2 M group
+   seconds a call, on the first launch of each form only); kernel 7's
+   library column is the "mxu" route on the same launches.  The
    ``coherence_sort`` record times the launches of a 1-spp render with the
    sort on (the terrains: the octant key, on by default; rock field: the
    origin key, off by default and forced on here) and with its permutation
@@ -71,7 +91,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 5. The CLI: the benchmark box's script plus a render and a save, run as
    ``python -m pine_tpu_torch cbox.pine`` in a subprocess on the card; its
    image must equal phase 4's in-process render of the box (same sampler,
-   spp and seed) on 97 % of the pixels.
+   spp and seed) on 97 % of the pixels; then ``python -m
+   pine_tpu_torch.bench`` (bench.py's counterpart) in a subprocess: its
+   JSON line finite, its traced rays within 0.5 % of phase 4's box.
 
 Per-case records and the full-width images go to build/chip_smoke/.  The
 last line is ``{"ok": true, "device": {...}}``.  Without a GPU, or
@@ -107,6 +129,7 @@ N_RAYS = 65536
 MAIN_SIZE, MAIN_SPP, MAIN_DEPTH = 640, 16, 4  # bench.py's and bench_mesh.py's configuration
 INST_SIZE, INST_SPP, INST_DEPTH = 512, 4, 3  # bench_instanced.py's configuration
 GRID_MISMATCH_SHARE = 1e-4  # lanes where a culling kernel may differ from its plain version
+MAIN_RAYS = {}  # traced rays of each main path's render, by tag
 
 # kind -> (module under pine_tpu_torch.accel, kernel wrapper in it, plain
 # version as module.function, the group's table for it, kernel source, the
@@ -128,6 +151,16 @@ KERNELS = {
                "pine_tpu_torch/csrc/sctree_traverse.cu", "pine_tpu/accel/pallas_traverse.py:1152"),
     "bvh": ("bvh_traverse", "bvh_cuda", "grid_traverse.supercell_plain", "bvh",
             "pine_tpu_torch/csrc/bvh_traverse.cu", "pine_tpu/accel/pallas_traverse.py:269"),
+    "mxup": ("mxu_sweep", "mxup_cuda", "mxu_sweep.mxup_plain", "mxut",
+             "pine_tpu_torch/csrc/mxu_sweep.cu", "pine_tpu/accel/mxu_sweep.py:324"),
+    "grid_mxu": ("grid_traverse", "grid_cuda", "grid_traverse.grid_plain", "grid_mxu",
+                 "pine_tpu_torch/csrc/grid_traverse.cu", "pine_tpu/accel/pallas_traverse.py:968"),
+    "inst_mxu": ("inst_traverse", "inst_cuda", "inst_traverse.inst_plain", None,
+                 "pine_tpu_torch/csrc/inst_traverse.cu", "pine_tpu/accel/instanced_kernel.py:238"),
+    # not a kernel: torch.matmul and the epilogue in PyTorch (the library call
+    # beside kernel 7), timed, never in the kernel line
+    "mxu": ("mxu_sweep", "mxu_query", "mxu_sweep.mxu_query", "mxu",
+            "pine_tpu_torch/accel/mxu_sweep.py", "pine_tpu/accel/mxu_sweep.py:465"),
 }
 # lanes that may differ: the lattice march has no cull whose outcome depends
 # on the visit order, and the scdense sweep makes the same culls in the same
@@ -135,7 +168,21 @@ KERNELS = {
 # culling kernels that visit in another order may differ at a box face
 ALLOWED_SHARE = {"dense": 0.0, "grid": GRID_MISMATCH_SHARE, "inst": GRID_MISMATCH_SHARE,
                  "lattice": 0.0, "scdense": 0.0, "sctree": GRID_MISMATCH_SHARE,
-                 "bvh": GRID_MISMATCH_SHARE}
+                 "bvh": GRID_MISMATCH_SHARE, "mxup": 0.0, "grid_mxu": GRID_MISMATCH_SHARE,
+                 "inst_mxu": GRID_MISMATCH_SHARE}
+# the MXU form against the VPU tests (tests/test_mxu_sweep.py:84-91): t of
+# lanes both hit to rtol 3e-4 / atol 3e-5, hit sets equal on 99.5 % of lanes
+MXU_RTOL, MXU_ATOL, MXU_HIT_SHARE = 3e-4, 3e-5, 0.995
+# the MXU leaf forms: the grid and instanced kernels' wrappers with mxu=True
+MXU_FORMS = ("grid_mxu", "inst_mxu")
+# FP32 operations of kernel 7's coefficient-table test: 12 per pair value
+# (six products and six sums, the last adding the constant column; the
+# kernel's ordered sum also takes 1*w6 and 0*w7, 15 in all), the epilogue of
+# csrc/mxu_epilogue.cuh (add, sub, mul, div, sqrt, max, abs) by prim type,
+# and a ray's features o.d, o.o and d.d
+VALUE_OPS = 12
+EPI_OPS = {0: 10, 1: 7, 2: 9, 3: 1, 6: 6, 7: 24}
+FEAT_OPS = 15
 
 
 def emit(obj):
@@ -174,6 +221,8 @@ def group_args(kind, g):
 
 def launch(kind, g, args, any_hit, plain=False, **kw):
     """One group's query through the kernel (or its plain version)."""
+    if kind in MXU_FORMS:
+        kw["mxu"] = True
     if plain:
         name, _, fn = KERNELS[kind][2].partition(".")
         fn = getattr(importlib.import_module("pine_tpu_torch.accel." + name), fn)
@@ -191,9 +240,10 @@ def group_sig(g):
     group: rows for the row sweeps (dense, scdense, lattice), prims for the
     culled traversals."""
     if g["kind"] == "instanced":
-        return ("inst", g["tid"], g["n_inst"])
+        return (g.get("variant", "inst"), g["tid"], g["n_inst"])
     v = g["variant"]
-    return (v, g["tid"], int(g["rows"].shape[0]) if v in ("dense", "scdense", "lattice")
+    return (v, g["tid"], int(g["rows"].shape[0]) if v in ("dense", "scdense", "lattice", "mxup",
+                                                          "mxu")
             else len(g["prim_aabbs"]))
 
 
@@ -216,7 +266,7 @@ def check_outputs(kind, out_k, out_p, any_hit):
 
     (t_k, e_k), (t_p, e_p) = out_k, out_p
     close = torch.isclose(t_k, t_p, rtol=T_RTOL, atol=T_ATOL) | (t_k == t_p)
-    if kind in ("lattice", "scdense"):  # the same rounded arithmetic: held bit for bit
+    if kind in ("lattice", "scdense", "mxup"):  # the same rounded arithmetic: bit for bit
         close = t_k.view(torch.int32) == t_p.view(torch.int32)
     same_e = e_k == e_p
     if kind in ("sctree", "bvh") and not any_hit:
@@ -646,6 +696,140 @@ def terrain_group(dev, grid=None):
     return scene.compile(dev).unified["groups"][1]
 
 
+def mxu_lanes_differ(out_a, out_b, any_hit):
+    """Lanes where two results of one group differ beyond the MXU tolerance
+    (MXU_RTOL / MXU_ATOL): any-hit, the flag; closest-hit, whether t is a
+    hit (below the miss sentinel BIG), and on lanes both hit, t or the id."""
+    import torch
+
+    (t_a, e_a), (t_b, e_b) = out_a, out_b
+    if any_hit:
+        return int((e_a != e_b).sum())
+    hit_a, hit_b = t_a < 1e30, t_b < 1e30
+    close = torch.isclose(t_a, t_b, rtol=MXU_RTOL, atol=MXU_ATOL) | (t_a == t_b)
+    return int(((hit_a != hit_b) | (hit_a & hit_b & (~close | (e_a != e_b)))).sum())
+
+
+def mxu_agree(out_a, out_b, any_hit):
+    """tests/test_mxu_sweep.py's criteria for two results of one group: the
+    share of lanes whose hit (closest: t below BIG; any-hit: the flag) is
+    the same, the lanes both hit whose t differs beyond rtol 3e-4 / atol
+    3e-5, the share of lanes whose id agrees where both hit, and whether
+    all hold (hit sets on 99.5 %, no t beyond, ids on 99 %)."""
+    import torch
+
+    (t_a, e_a), (t_b, e_b) = out_a, out_b
+    if any_hit:
+        share = float((e_a == e_b).float().mean())
+        return dict(hit_share=share, within=share >= MXU_HIT_SHARE)
+    hit_a, hit_b = t_a < 1e30, t_b < 1e30
+    share = float((hit_a == hit_b).float().mean())
+    both = hit_a & hit_b
+    beyond = int((~torch.isclose(t_a[both], t_b[both], rtol=MXU_RTOL, atol=MXU_ATOL)).sum())
+    ids = float(((e_a == e_b) | ~both).float().mean())
+    return dict(hit_share=share, t_beyond=beyond, id_share=ids,
+                within=share >= MXU_HIT_SHARE and beyond == 0 and ids > 0.99)
+
+
+def prep(g, kind):
+    """Build the tables route ``kind`` reads on group ``g`` (a prim group, or
+    an instanced group for "inst" / "inst_mxu")."""
+    from pine_tpu_torch.accel import mxu_sweep
+    from pine_tpu_torch.accel.dense_traverse import prepare
+
+    if kind == "inst_mxu":
+        mxu_sweep.prepare_tables(g, "mxum")
+    elif kind != "inst":
+        prepare(g, kind)
+
+
+def compare_mxu(kind, others, g, r, what, time_it):
+    """compare() of an MXU form ``kind`` on group ``g`` and rays ``r``,
+    closest-hit and any-hit, and beside it, not gated, each kernel of
+    ``others`` on the same inputs: its agreement by tests/test_mxu_sweep.py's
+    criteria (``mxu_agree``) and, when ``time_it``, its ms."""
+    for k in (kind, *others):
+        prep(g, k)
+    recs = []
+    for any_hit in (False, True):
+        args = ray_args(r, any_hit)
+        rec = compare(kind, g, args, any_hit, time_it, what)
+        out_k = launch(kind, g, args, any_hit)
+        for other in others:
+            rec[f"vs_{other}"] = mxu_agree(launch(other, g, args, any_hit), out_k, any_hit)
+            if time_it:
+                rec[f"{other}_ms"] = cuda_ms(lambda: launch(other, g, args, any_hit), 10)
+        recs.append(rec)
+    return recs
+
+
+def phase_mxup_vs_plain(dev):
+    """Kernel 7 against mxup_plain, bit for bit, on groups of 1, 16, 300 (a
+    partial last tile) and 424 prims of each type with a table and on the
+    benchmark box's rect and cone groups; beside it the dense kernel and
+    the mxu route (torch.matmul)."""
+    import numpy as np
+
+    from pine_tpu_torch import scenes
+    from pine_tpu_torch.accel.packet import build_packet_accel
+    from pine_tpu_torch.convert import GROUP_KEYS, scene_arrays, upload_group
+    from pine_tpu_torch.core import vecmath as V
+    from pine_tpu_torch.scene import shapes as S
+
+    from pine_tpu_torch.accel.mxu_tables import MXU_M
+
+    recs = []
+    for tid in sorted(MXU_M):
+        for n in (1, 16, 300, 424):
+            rng = np.random.default_rng(2000 + 1000 * tid + n)
+            prims = []
+            for i in range(n):
+                s = random_shape(S, V, tid, rng)
+                prims.append((tid, s.params(), i, s.get_aabb()))
+            (g,) = build_packet_accel(prims)["groups"]
+            g = upload_group(g, dev)
+            recs += compare_mxu("mxup", ("dense", "mxu"), g, random_rays(rng, dev, n),
+                                f"{TYPE_NAMES[tid]}[{n}]", time_it=n == 424)
+    a = scene_arrays(scenes.cbox())
+    rng = np.random.default_rng(8)
+    r = random_rays(rng, dev, 424)
+    r["ro"] = (r["ro"] * 0.3 + r["ro"].new_tensor([0.0, 1.0, 1.0])).contiguous()
+    for i in (0, 2):  # the rect and cone groups (the OBB boxes have no table)
+        g = upload_group({k: a[f"group.{i}.{k}"] for k in GROUP_KEYS}, dev)
+        recs += compare_mxu("mxup", ("dense", "mxu"), g, r, f"cbox.{i}", time_it=True)
+    return recs
+
+
+def phase_grid_mxu_vs_plain(dev):
+    """The grid kernel's MXU form against its plain version on soups of 3,000
+    and 20,000 triangles and on the terrain's group; beside it the grid
+    kernel."""
+    import numpy as np
+
+    recs = []
+    rng = np.random.default_rng(90)
+    for n_tri in (3000, 20000):
+        recs += compare_mxu("grid_mxu", ("grid",), soup_group(n_tri, dev),
+                            random_rays(rng, dev, n_tri), f"soup{n_tri}", n_tri == 20000)
+    g = terrain_group(dev)
+    recs += compare_mxu("grid_mxu", ("grid",), g, terrain_rays(rng, dev, g), "terrain", True)
+    return recs
+
+
+def phase_inst_mxu_vs_plain(dev):
+    """The instanced kernel's MXU leaf form against its plain version on the
+    rock fields of 2x2 and 32x32; beside it the instanced kernel."""
+    import numpy as np
+
+    recs = []
+    for n_side in (2, 32):
+        g = inst_group(n_side, dev)
+        r = field_rays(np.random.default_rng(100 + n_side), dev, n_side, g["vbase"])
+        recs += compare_mxu("inst_mxu", ("inst",), g, r, f"rock field {n_side}x{n_side}",
+                            n_side == 32)
+    return recs
+
+
 # ---------------------------------------------------------------- phase 3 ----
 
 def force_sort(cs, mode):
@@ -712,16 +896,19 @@ def phase_render_parity():
                   "origin")
     render_parity("reduced cone forest, 24x24 cones",
                   lambda: scenes.prl_scene(scenes.cone_forest_prl(*scenes.REDUCED_FOREST, size=64)))
-    render_parity("reduced cbox, 36 cones, scdense",
-                  lambda: scenes.cbox((64, 64), (-0.3, 0.1, 0.3), (0.5, 0.1, 1.0)),
-                  kernels=dict(small_kernel="scdense"))
+    for kernel in ("scdense", "mxup"):
+        render_parity(f"reduced cbox, 36 cones, {kernel}",
+                      lambda: scenes.cbox((64, 64), (-0.3, 0.1, 0.3), (0.5, 0.1, 1.0)),
+                      kernels=dict(small_kernel=kernel))
+    render_parity("reduced rock field, 3x3 x 242 triangles, inst mxu",
+                  lambda: lazy_field((64, 64), 3, 12), "origin", dict(inst_kernel="mxu"))
     # the reduced terrain's 3,042 triangles made mesh-scale, so that mesh_kernel
     # routes them (and the card sorts its rays, as on the full terrain)
     from pine_tpu_torch.accel import dense_traverse as DT
 
     limit, DT.GRID_MAX_PRIMS = DT.GRID_MAX_PRIMS, 1024
     try:
-        for kernel in ("sctree", "bvh"):
+        for kernel in ("sctree", "bvh", "mxu"):
             render_parity(f"reduced terrain, grid 40, {kernel}",
                           lambda: scenes.terrain((64, 64), 40), "octant",
                           dict(mesh_kernel=kernel))
@@ -766,7 +953,9 @@ def grid_work(g, args, any_hit, out_p, counts):
     ``counts`` are grid_plain's, in row order.  Closest-hit: the bound takes
     the order-free minimum instead, the culls rerun with each lane's final t
     as the window, which no visit order can undercut.  Any-hit: the tests up
-    to each lane's first hit in row order."""
+    to each lane's first hit in row order.  The MXU form computes the same
+    function and gets the same bound: the prim test and the rows, not its
+    coefficient-table test and table, which the function does not need."""
     GT = module("grid")
     grid = g["grid"]
     n = args[0].shape[0]
@@ -775,8 +964,9 @@ def grid_work(g, args, any_hit, out_p, counts):
         need = {}
         GT.grid_plain(g["tid"], g["rows"], grid, *args[:4], *out_p, False, counts=need)
     ops = n * 3 + need["slabs"] * GT.SLAB_OPS + need["tests"] * TEST_OPS[g["tid"]]
-    table_bytes = g["rows"].numel() * 4 + sum(grid[k].numel() * 4 for k in (
-        "coarse_boxes", "sc_boxes", "cell_boxes", "c_order8", "s_order8"))
+    table_bytes = g["rows"].numel() * 4 + sum(
+        grid[k].numel() * 4 for k in ("coarse_boxes", "sc_boxes", "cell_boxes", "c_order8",
+                                       "s_order8"))
     nbytes = n * ((10 if any_hit else 9) + 2) * 4 + table_bytes
     return ops, nbytes, dict(slab_tests=counts["slabs"], prim_tests=counts["tests"],
                              min_slab_tests=need["slabs"], min_prim_tests=need["tests"])
@@ -792,7 +982,8 @@ def inst_work(g, args, any_hit, out_p, counts):
     supercell-tree and supercell-box slabs are not counted.  Closest-hit:
     the window is each lane's final t (inst_plain rerun), which no visit
     order can undercut; any-hit: the work up to each lane's first hit in
-    inst_plain's order."""
+    inst_plain's order.  The MXU leaf form computes the same function and
+    gets the same bound (grid_work)."""
     IT = module("inst")
     sct = g["sctree"]
     n = args[0].shape[0]
@@ -854,6 +1045,45 @@ def scdense_work(g, args, any_hit, out_p, counts):
         g["rows"].numel() + g["scd"]["sc_boxes"].numel() + g["scd"]["cell_boxes"].numel())
     return ops, nbytes, dict(slab_tests=counts["slabs"], prim_tests=counts["tests"],
                              min_slab_tests=need["slabs"], min_prim_tests=need["tests"])
+
+
+def mxup_work(g, args, any_hit):
+    """(FP32 operations, bytes, counts) of one kernel-7 call on these inputs:
+    every pair of a live lane (its window (tmin, limit) not empty; any-hit:
+    not yet occluded) and a row of the group, each VALUE_OPS per pair value
+    and the epilogue's, plus each lane's features; any-hit: the
+    pairs up to each lane's first hit, where the kernel stops.  The bytes
+    are the ray state and the tile-major table, each read once."""
+    import torch
+
+    MS = module("mxup")
+    ro, rd, tmin, tmax, bt, be = args
+    n, tab = ro.shape[0], g["mxut"]
+    C = tab["C"]
+    limit = tmax if any_hit else bt
+    live = (limit > tmin) & ((be < 1) if any_hit else True)
+    if any_hit:  # pairs up to the first hit, in row order
+        pairs = 0
+        F, odr, oor, ddr = MS.features(ro, rd)
+        W = tab["W"]
+        m = tab["m"]
+        for c0 in range(0, n, 8192):
+            sl = slice(c0, c0 + 8192)
+            hit = []
+            for ct in range(tab["n_tiles"]):
+                width = min(MS.TILE, C - ct * MS.TILE)
+                P = MS.ordered_values(F[sl], W[:, ct * m * MS.TILE:(ct + 1) * m * MS.TILE])
+                hit.append(MS.pair_t_vals(g["tid"], lambda v: P[:, v * MS.TILE:v * MS.TILE + width],
+                                          odr[sl], oor[sl], ddr[sl], tmin[sl, None],
+                                          limit[sl, None]) < MS.BIG)
+            hit = torch.cat(hit, 1)
+            first = torch.where(hit.any(1), hit.to(torch.int8).argmax(1) + 1, C)
+            pairs += int(first[live[sl]].sum())
+    else:
+        pairs = int(live.sum()) * C
+    ops = n * FEAT_OPS + pairs * (VALUE_OPS * tab["m"] + EPI_OPS[g["tid"]])
+    nbytes = n * ((10 if any_hit else 9) + 2) * 4 + tab["W"].numel() * 4
+    return ops, nbytes, dict(live_rays=int(live.sum()), pairs=pairs)
 
 
 def tree_work(kind, g, args, any_hit, out_k):
@@ -958,7 +1188,7 @@ def kernel_line_entry(kind, form, calls, launches, checked=None):
     held to it, on every launch, or on the first ``checked`` of them, and
     plain_ms is the mean over those."""
     any_hit = form == "any_hit"
-    ms_each, plain_each = [], []
+    ms_each, plain_each, lib_each = [], [], []
     bound = err = 0.0
     ops = nbytes = differ = 0
     sums = {}
@@ -967,7 +1197,7 @@ def kernel_line_entry(kind, form, calls, launches, checked=None):
         out_k = launch(kind, g, args, any_hit)
         counts = out_p = None
         if checked is None or i < checked:
-            counts = None if kind == "dense" else {}
+            counts = None if kind in ("dense", "mxup") else {}
             out_p, p_ms = timed_plain(kind, g, args, any_hit, counts)
             plain_each.append(p_ms)
             c_err, _, _, c_differ, allowed = check_outputs(kind, out_k, out_p, any_hit)
@@ -975,10 +1205,14 @@ def kernel_line_entry(kind, form, calls, launches, checked=None):
                 fail(f"{kind}.{form}: {c_differ} lanes disagree with the plain version "
                      "on main-path inputs")
             err, differ = max(err, c_err), differ + c_differ
-        if kind == "grid":
+        if kind in ("grid", "grid_mxu"):
             c_ops, c_bytes, c = grid_work(g, args, any_hit, out_p, counts)
-        elif kind == "inst":
+        elif kind in ("inst", "inst_mxu"):
             c_ops, c_bytes, c = inst_work(g, args, any_hit, out_p, counts)
+        elif kind == "mxup":
+            c_ops, c_bytes, c = mxup_work(g, args, any_hit)
+            prep(g, "mxu")
+            lib_each.append(cuda_ms(lambda: launch("mxu", g, args, any_hit), 10))
         elif kind == "lattice":
             c_ops, c_bytes, c = lattice_work(g, args, any_hit, out_p, counts)
         elif kind == "scdense":
@@ -994,12 +1228,15 @@ def kernel_line_entry(kind, form, calls, launches, checked=None):
         bound += max(c_bytes / HBM_BYTES_PER_S, c_ops / FP32_OPS_PER_S) * 1e3
     k = len(calls)
     groups = sorted({group_desc(g) for g, _, _ in calls})
+    base = {"grid_mxu": "grid_traverse.mxu", "inst_mxu": "inst_traverse.mxu"}.get(
+        kind, KERNELS[kind][0])
     entry = dict(
-        name=f"{KERNELS[kind][0]}.{form}", route="cuda", source=KERNELS[kind][4],
+        name=f"{base}.{form}", route="cuda", source=KERNELS[kind][4],
         replaces=KERNELS[kind][5], launches=launches, max_abs_err=err,
         ms=sum(ms_each) / k, plain_ms=sum(plain_each) / len(plain_each), bound_ms=bound / k,
         bound_by="operations" if ops / FP32_OPS_PER_S > nbytes / HBM_BYTES_PER_S else "bytes",
-        library_ms=None,
+        # kernel 7's library call: torch.matmul + the epilogue in PyTorch (mxu_route)
+        library_ms=sum(lib_each) / k if lib_each else None,
         inputs=" + ".join(groups)
         + f" x {calls[0][1][0].shape[0]} rays; means per launch over the {k} launches "
           "of one 1-spp render, work counts summed over them; the plain version on "
@@ -1062,7 +1299,7 @@ def profile_render(what, render):
         launches=sum(e.count for e in kernels),
         **{f"{k}_ms": sum(e.self_device_time_total for e in kernels if f"::{k}<" in e.key) / 1e3
            for k in ("dense_kernel", "scdense_kernel", "grid_kernel", "sctree_kernel",
-                     "bvh_kernel", "inst_kernel", "lattice_kernel")},
+                     "bvh_kernel", "inst_kernel", "lattice_kernel", "mxu_sweep_kernel")},
         top=[dict(name=e.key[:90], ms=e.self_device_time_total / 1e3, count=e.count)
              for e in top],
     ))
@@ -1086,27 +1323,34 @@ def record_launches(cs, kinds, render):
         current["inv"] = None if perm is None else perm[1]
         return perm
 
-    reals = {kind: getattr(module(kind), KERNELS[kind][1]) for kind in kinds}
+    # a wrapper and the kinds it launches (the grid and instanced wrappers
+    # launch their MXU form with mxu=True)
+    wrappers = {}
+    for kind in kinds:
+        wrappers.setdefault(KERNELS[kind][:2], []).append(kind)
+    reals = {w: getattr(module(ks[0]), w[1]) for w, ks in wrappers.items()}
 
-    def recorder(kind):
-        n_lead = 3 if KERNELS[kind][3] else 1
-
-        def rec(*a):
-            lead, rays, any_hit = a[:n_lead], a[n_lead:n_lead + 6], a[n_lead + 6]
-            g = lead[0] if n_lead == 1 else next(g for g in groups if g["rows"] is lead[1])
-            recorded[(kind, any_hit)].append(
-                (g, tuple(x.clone() for x in rays), current["inv"]))
-            return reals[kind](*a)
+    def recorder(w):
+        def rec(*a, **kw):
+            kind = next((k for k in wrappers[w] if (k in MXU_FORMS) == bool(kw.get("mxu"))),
+                        None)
+            if kind is not None:
+                n_lead = 3 if KERNELS[kind][3] else 1
+                lead, rays, any_hit = a[:n_lead], a[n_lead:n_lead + 6], a[n_lead + 6]
+                g = lead[0] if n_lead == 1 else next(g for g in groups if g["rows"] is lead[1])
+                recorded[(kind, any_hit)].append(
+                    (g, tuple(x.clone() for x in rays), current["inv"]))
+            return reals[w](*a, **kw)
         return rec
 
     cs.sort_perm = sort_recorder
-    for kind in kinds:
-        setattr(module(kind), KERNELS[kind][1], recorder(kind))
+    for w in wrappers:
+        setattr(module(wrappers[w][0]), w[1], recorder(w))
     try:
         render()
     finally:
-        for kind in kinds:
-            setattr(module(kind), KERNELS[kind][1], reals[kind])
+        for w in wrappers:
+            setattr(module(wrappers[w][0]), w[1], reals[w])
         del cs.sort_perm
     return recorded, sorts
 
@@ -1159,6 +1403,7 @@ def phase_main_path(dev_name, tag, what, scene, groups_want, heavy_want, kinds,
     img = img.cpu().numpy()
     finite = bool(np.isfinite(img).all())
     rays = int(stats["traced_rays"])
+    MAIN_RAYS[tag] = rays
     rec = dict(phase="main_path", scene=what, size=f"{W}x{H}", spp=spp, depth=depth,
                device=dev_name, kernels=kernels, groups=groups, compile_s=compile_s,
                wall_s=min(walls), walls_s=walls,
@@ -1181,21 +1426,23 @@ def phase_main_path(dev_name, tag, what, scene, groups_want, heavy_want, kinds,
     return entries, cs
 
 
-def kernel_ab_record(cs, scene, what, tid, kinds):
+def kernel_ab_record(cs, scene, what, tid, kinds, size=MAIN_SIZE, depth=MAIN_DEPTH):
     """One group of a compiled main-path scene (the group of prim type
-    ``tid``) through each of ``kinds`` on every launch it gets in one 1-spp
-    render on its own route (the first of ``kinds``): device time summed per
-    form, and the lanes where each other kernel disagrees with the first
-    (recorded, not gated; ``hits_differ``)."""
-    from pine_tpu_torch.accel.dense_traverse import prepare
+    ``tid``; the instanced group for "inst" kinds) through each of ``kinds``
+    on every launch it gets in one 1-spp render on its own route (the first
+    of ``kinds``): device time summed per form, and the lanes where each
+    other kernel disagrees with the first (recorded, not gated;
+    ``hits_differ``, and for an MXU form beside a VPU form also the lanes
+    beyond the MXU tolerance, ``mxu_lanes_differ``)."""
     from pine_tpu_torch.core.samplers import BlueSampler
     from pine_tpu_torch.integrators.path import render_wavefront
 
-    (g,) = [g for g in cs.unified["groups"] if g["tid"] == tid]
+    inst = kinds[0].startswith("inst")
+    (g,) = [g for g in all_groups(cs) if g["tid"] == tid and (g["kind"] == "instanced") == inst]
     for kind in kinds:
-        prepare(g, kind)
+        prep(g, kind)
     recorded, _ = record_launches(cs, kinds[:1], lambda: render_wavefront(
-        cs, scene.camera, MAIN_SIZE, MAIN_SIZE, BlueSampler(MAIN_SPP), 1, MAIN_DEPTH))
+        cs, scene.camera, size, size, BlueSampler(MAIN_SPP), 1, depth))
     rec = dict(phase="kernel_ab", scene=what, group=group_desc(g), per="one 1-spp render")
     for any_hit, form in ((False, "closest"), (True, "any_hit")):
         calls = [args for h, args, _ in recorded[(kinds[0], any_hit)] if h is g]
@@ -1207,6 +1454,10 @@ def kernel_ab_record(cs, scene, what, tid, kinds):
             rec[form][f"{kind}_lanes_differ"] = sum(hits_differ(
                 launch(kinds[0], g, a, any_hit), launch(kind, g, a, any_hit), any_hit)
                 for a in calls)
+            if "mxu" in kind:
+                rec[form][f"{kind}_lanes_beyond_mxu_tol"] = sum(mxu_lanes_differ(
+                    launch(kinds[0], g, a, any_hit), launch(kind, g, a, any_hit), any_hit)
+                    for a in calls)
     emit(rec)
 
 
@@ -1299,6 +1550,28 @@ def phase_cli():
         fail(f"the CLI's image differs from the in-process render: {rec}")
 
 
+def phase_bench(box_rays):
+    """``python -m pine_tpu_torch.bench`` on the card, bench.py's counterpart:
+    its JSON line must parse, be finite, and count traced rays within 0.5 %
+    of phase 4's render of the box (``box_rays``)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "pine_tpu_torch.bench"], cwd=OUT_DIR,
+                          env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    try:
+        got = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        fail(f"the bench printed no JSON line: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    rec = dict(phase="bench", command="python -m pine_tpu_torch.bench", returncode=proc.returncode,
+               process_wall_s=wall, phase4_traced_rays=box_rays, result=got)
+    emit(rec)
+    if proc.returncode != 0 or got.get("finite") is not True or not (
+            abs(got.get("traced_rays", 0) - box_rays) <= 0.005 * box_rays):
+        fail(f"the bench's result is not finite or its traced rays differ from phase 4's: {rec}")
+
+
 def main():
     try:
         import torch
@@ -1340,7 +1613,9 @@ def main():
               ("inst", phase_inst_vs_plain), ("lattice", phase_lattice_vs_plain),
               ("scdense", phase_scdense_vs_plain),
               ("sctree", lambda dev: phase_tree_vs_plain(dev, "sctree", None)),
-              ("bvh", lambda dev: phase_tree_vs_plain(dev, "bvh", terrain_group(dev, 1002))))
+              ("bvh", lambda dev: phase_tree_vs_plain(dev, "bvh", terrain_group(dev, 1002))),
+              ("mxup", phase_mxup_vs_plain), ("grid_mxu", phase_grid_mxu_vs_plain),
+              ("inst_mxu", phase_inst_mxu_vs_plain))
     for kind, phase in phases:
         recs = phase(dev)
         with open(os.path.join(OUT_DIR, f"chip_smoke_{kind}.json"), "w") as f:
@@ -1351,6 +1626,9 @@ def main():
                   timed=[{k: v for k, v in r.items() if k in ("group", "form", "depth") or
                           k.endswith("_ms") or k == "ms" or k.startswith("vs_")}
                          for r in recs if "ms" in r],
+                  **({"mxu_tolerance_held": all(v["within"] for r in recs for k, v in r.items()
+                                                if k.startswith("vs_"))}
+                     if "mxu" in kind else {}),
                   **({"vs_dense": [dict(group=r["group"], form=r["form"], **r["vs_dense"])
                                    for r in recs]} if kind == "lattice" else {})))
         torch.cuda.empty_cache()
@@ -1362,7 +1640,7 @@ def main():
     kernels, cs = phase_main_path(
         name, "cbox", "bench cbox, 420 cones, from CBOX_PRL", box,
         [("dense", 1, 6), ("dense", 5, 2), ("dense", 7, 424)], False, ["dense"])
-    kernel_ab_record(cs, box, "bench cbox", 7, ["dense", "lattice", "scdense"])
+    kernel_ab_record(cs, box, "bench cbox", 7, ["dense", "lattice", "scdense", "mxup", "mxu"])
     kernels += phase_main_path(
         name, "forest", "cone forest, 1,600 cones, from CONE_FOREST_PRL",
         scenes.prl_scene(scenes.CONE_FOREST_PRL, "<cone forest>"),
@@ -1372,12 +1650,15 @@ def main():
         name, "terrain", "bench_mesh terrain, 99,458 triangles + 1 rect", terrain,
         [("dense", 1, 1), ("grid", 6, 99458)], True, ["grid"])
     kernels += entries
-    kernel_ab_record(cs, terrain, "bench_mesh terrain", 6, ["grid", "sctree", "bvh"])
-    kernels += phase_main_path(
+    kernel_ab_record(cs, terrain, "bench_mesh terrain", 6, ["grid", "sctree", "bvh", "grid_mxu"])
+    field = scenes.instanced((INST_SIZE, INST_SIZE))
+    entries, cs = phase_main_path(
         name, "instanced", "bench_instanced rock field, 1,024 x 4,802 triangles + plane + rect",
-        scenes.instanced((INST_SIZE, INST_SIZE)),
-        [("dense", 1, 1), ("dense", 3, 1), ("inst", 6, 1024)], False, ["inst"],
-        INST_SIZE, INST_SPP, INST_DEPTH)[0]
+        field, [("dense", 1, 1), ("dense", 3, 1), ("inst", 6, 1024)], False, ["inst"],
+        INST_SIZE, INST_SPP, INST_DEPTH)
+    kernels += entries
+    kernel_ab_record(cs, field, "bench_instanced rock field", 6, ["inst", "inst_mxu"],
+                     INST_SIZE, INST_DEPTH)
     del cs, entries
     torch.cuda.empty_cache()
     # the slice's three paths: the BVH walk by default on a mesh over 2,000,000
@@ -1395,7 +1676,23 @@ def main():
         name, "cbox_scdense", "bench cbox, 420 cones, from CBOX_PRL, small_kernel scdense", box,
         [("scdense", 1, 6), ("scdense", 5, 2), ("scdense", 7, 424)], False, ["scdense"],
         kernels=dict(small_kernel="scdense"))[0]
+    # the slice-6 paths: kernel 7 on the box's rect and cone groups, the grid
+    # kernel's MXU form on the terrain (pine_tpu's default route for it) and
+    # the instanced kernel's MXU leaf form on the rock field
+    kernels += phase_main_path(
+        name, "cbox_mxup", "bench cbox, 420 cones, from CBOX_PRL, small_kernel mxup", box,
+        [("mxup", 1, 6), ("dense", 5, 2), ("mxup", 7, 424)], False, ["mxup"],
+        kernels=dict(small_kernel="mxup"))[0]
+    kernels += phase_main_path(
+        name, "terrain_mxu", "bench_mesh terrain, 99,458 triangles + 1 rect, mesh_kernel mxu",
+        terrain, [("dense", 1, 1), ("grid_mxu", 6, 99458)], True, ["grid_mxu"],
+        kernels=dict(mesh_kernel="mxu"))[0]
+    kernels += phase_main_path(
+        name, "instanced_mxu", "bench_instanced rock field, 1,024 x 4,802 triangles + plane + "
+        "rect, inst_kernel mxu", field, [("dense", 1, 1), ("dense", 3, 1), ("inst_mxu", 6, 1024)],
+        False, ["inst_mxu"], INST_SIZE, INST_SPP, INST_DEPTH, kernels=dict(inst_kernel="mxu"))[0]
     phase_cli()
+    phase_bench(MAIN_RAYS["cbox"])
     emit(dict(phase="done", seconds=time.perf_counter() - t_start))
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,8 +15,8 @@ Counterpart of the dense path of pine_tpu/accel/pallas_traverse.py:
   ``(tmin, best_t)``; any-hit: ``(tmin, tmax)``, empty once occluded) passes
   both through bit for bit.
 
-The six routes, each a hand-written CUDA kernel on CUDA tensors (or a raise)
-and its plain PyTorch version on CPU tensors:
+The routes, each a hand-written CUDA kernel on CUDA tensors (or a raise)
+and its plain PyTorch version on CPU tensors, but "mxu":
 
 - "dense": every row of the group (csrc/dense_traverse.cu, ``dense_plain``);
 - "scdense": the rows in order, culled by 128-prim supercells and 16-prim
@@ -27,7 +27,14 @@ and its plain PyTorch version on CPU tensors:
   direction octant (accel/grid_traverse.py);
 - "sctree": a SAH tree over the supercells (accel/sctree_traverse.py);
 - "bvh": the group's own SAH tree of leaves of up to four prims
-  (accel/bvh_traverse.py).
+  (accel/bvh_traverse.py);
+- "mxup": the fused coefficient-table sweep, TPU kernel 7
+  (accel/mxu_sweep.py, csrc/mxu_sweep.cu);
+- "grid_mxu": the grid traversal with the coefficient-table leaf (the grid
+  kernel's MXU form, accel/grid_traverse.py);
+- "mxu": ``torch.matmul`` of the rays' features with the coefficient table
+  and the epilogue in PyTorch, on either device (pine_tpu's plain-XLA
+  route, accel/mxu_sweep.mxu_route): no kernel of the port's own.
 
 ``group_variant`` picks the route as ``pine_tpu``'s defaults do: groups of
 512 or fewer rows take the dense sweep; larger groups that form a lattice
@@ -37,7 +44,13 @@ traversal, or above GRID_MAX_PRIMS_HBM prims the BVH walk.  Two settings of
 ``PINE_MESH_KERNEL`` do for ``pine_tpu``: ``mesh_kernel`` for groups of more
 than GRID_MAX_PRIMS prims and at most GRID_MAX_PRIMS_HBM, ``small_kernel``
 for the other groups of at most GRID_MAX_PRIMS_HBM prims (a lattice group by
-the same rule); groups above GRID_MAX_PRIMS_HBM keep their default.  ``route``
+the same rule); groups above GRID_MAX_PRIMS_HBM keep their default.  A
+forced "mxu" or "mxup" resolves as ``pallas_group_query`` rewrites it: on a
+group of a type with a coefficient table (accel/mxu_tables.supports) of at
+most GRID_MAX_PRIMS prims it is that route, on such a group over
+GRID_MAX_PRIMS (and at most GRID_MAX_PRIMS_HBM) either value is
+"grid_mxu", and a type with no table (AABB, OBB, cylinder) takes the size
+default ("dense" up to DENSE_DEFAULT_MAX rows, else "grid").  ``route``
 resolves a group's route under the settings, builds and uploads the tables
 it needs (once, never per query) and records it as ``g["variant"]``, which
 ``group_query`` follows.
@@ -45,6 +58,7 @@ it needs (once, never per query) and records it as ``g["variant"]``, which
 from __future__ import annotations
 
 import ctypes
+from functools import partial
 
 import torch
 
@@ -54,11 +68,12 @@ BIG = 1e30
 DENSE_DEFAULT_MAX = 512  # groups of up to this many rows take the dense kernel
 GRID_MAX_PRIMS = 8192  # groups over this many prims are mesh-scale (mesh_kernel)
 GRID_MAX_PRIMS_HBM = 2_000_000  # groups over this many prims take the BVH walk
-VARIANTS = ("dense", "scdense", "lattice", "grid", "sctree", "bvh")
+VARIANTS = ("dense", "scdense", "lattice", "grid", "sctree", "bvh", "mxu", "mxup")
 
 # kernel launches, counted where a wrapper launches its CUDA kernel
 LAUNCHES = {f"{k}.{form}": 0 for k in ("dense", "scdense", "grid", "sctree", "bvh", "inst",
-                                       "lattice") for form in ("closest", "any_hit")}
+                                       "lattice", "mxup", "grid_mxu", "inst_mxu")
+            for form in ("closest", "any_hit")}
 
 
 def reset_launches():
@@ -356,18 +371,22 @@ def group_variant(g, small_kernel=None, mesh_kernel=None):
     as pine_tpu's ``_group_variant`` under PINE_SMALL_KERNEL and
     PINE_MESH_KERNEL.  A forced "lattice" on a group that is no lattice falls
     back to the size default, as there; "bvh" needs a SAH-ordered ("bvh"
-    kind) group; the MXU forms are not ported."""
+    kind) group; "mxu" and "mxup" resolve as the module docstring says."""
+    from pine_tpu_torch.accel.mxu_tables import supports
+
     n_prims, n_rows = len(g["prim_aabbs"]), g["rows"].shape[0]
     lattice = bool(g.get("lattice"))
     eligible = n_prims <= GRID_MAX_PRIMS_HBM
     mesh = eligible and n_prims > GRID_MAX_PRIMS
     forced = mesh_kernel if mesh else small_kernel if eligible or lattice else None
-    if forced in ("mxu", "mxup"):
-        raise NotImplementedError(
-            f"the {forced} route is TPU kernel 7 (mxu_sweep._make_fused_kernel), which is "
-            "not ported yet (ROADMAP.md, TPU kernels)")
     if forced is not None and forced not in VARIANTS:
         raise ValueError(f"unknown traversal route {forced!r}: one of {VARIANTS}")
+    if forced in ("mxu", "mxup"):
+        if supports(g["tid"]) and n_prims <= GRID_MAX_PRIMS:
+            return forced
+        if supports(g["tid"]) and eligible:
+            return "grid_mxu"
+        return "dense" if n_rows <= DENSE_DEFAULT_MAX else "grid"
     if forced == "bvh" and g.get("kind") != "bvh":
         raise ValueError(f"the bvh route needs a SAH-ordered group; this {g.get('kind')} "
                          f"group of {n_prims} prims has no node arrays")
@@ -382,14 +401,21 @@ def group_variant(g, small_kernel=None, mesh_kernel=None):
 
 def prepare(g, variant):
     """Build and upload the tables route ``variant`` reads, if the group does
-    not hold them yet: ``grid``, ``scd``, ``sctree`` or ``bvh``; the dense
-    sweep reads ``gbox`` and the lattice march ``lat``, which every such
-    group holds."""
-    from pine_tpu_torch.accel import bvh_traverse, grid_traverse, scdense_traverse, sctree
+    not hold them yet: ``grid``, ``scd``, ``sctree`` or ``bvh``; the
+    coefficient tables ``mxu`` (value-major) or ``mxut`` (tile-major); for
+    "grid_mxu" the grid layout and the supercell-major ``mxum``, joined as
+    ``grid_mxu``; the dense sweep reads ``gbox`` and the lattice march
+    ``lat``, which every such group holds."""
+    from pine_tpu_torch.accel import bvh_traverse, grid_traverse, mxu_sweep
+    from pine_tpu_torch.accel import scdense_traverse, sctree
 
     dev, pa = g["rows"].device, g["prim_aabbs"]
-    if variant == "grid" and "grid" not in g:
+    if variant in ("grid", "grid_mxu") and "grid" not in g:
         g["grid"] = grid_traverse.upload_layout(grid_traverse.grid_layout(pa), dev)
+    if variant == "grid_mxu" and "grid_mxu" not in g:
+        g["grid_mxu"] = dict(g["grid"], mxu=mxu_sweep.prepare_tables(g, "mxum"))
+    elif variant in ("mxu", "mxup"):
+        mxu_sweep.prepare_tables(g, "mxu" if variant == "mxu" else "mxut")
     elif variant == "scdense" and "scd" not in g:
         g["scd"] = scdense_traverse.scdense_layout(pa, dev)
     elif variant == "sctree" and "sctree" not in g:
@@ -429,10 +455,14 @@ def group_query(g, ro, rd, tmin, tmax, best_t, best_e, any_hit=False, variant=No
     if variant == "dense":
         fn = dense_cuda if ro.is_cuda else dense_plain
         return fn(g["tid"], g["rows"], g["gbox"], ro, rd, tmin, tmax, best_t, best_e, any_hit)
-    from pine_tpu_torch.accel import bvh_traverse, grid_traverse, scdense_traverse
+    from pine_tpu_torch.accel import bvh_traverse, grid_traverse, mxu_sweep, scdense_traverse
     from pine_tpu_torch.accel import sctree_traverse
 
     table, kernel, plain = {
+        "mxu": ("mxu", mxu_sweep.mxu_query, mxu_sweep.mxu_query),
+        "mxup": ("mxut", mxu_sweep.mxup_cuda, mxu_sweep.mxup_plain),
+        "grid_mxu": ("grid_mxu", partial(grid_traverse.grid_cuda, mxu=True),
+                     partial(grid_traverse.grid_plain, mxu=True)),
         "grid": ("grid", grid_traverse.grid_cuda, grid_traverse.grid_plain),
         "scdense": ("scd", scdense_traverse.scdense_cuda, scdense_traverse.scdense_plain),
         "sctree": ("sctree", sctree_traverse.sctree_cuda, grid_traverse.supercell_plain),

@@ -12,8 +12,13 @@ running best; any-hit: up to tmax), and tests the prims of the cells it
 reaches.  The contract is ``dense_traverse.group_query``'s.
 
 What was TPU-only is dropped: the (E_pad, 128) lane-padded table (the kernel
-reads the group's rows as they are), the 2048-row DMA alignment and the MXU
-coefficient strips.
+reads the group's rows as they are) and the 2048-row DMA alignment.
+
+The MXU form (``grid_cuda`` and ``grid_plain`` with ``mxu=True``, the route
+"grid_mxu"; pine_tpu's ``_make_grid_kernel`` with ``mxu_m > 0``) makes the
+same culls and swaps the leaf: a prim's test is its pair values from the
+supercell-major coefficient table (accel/mxu_tables.build_mesh_tables,
+``grid["mxu"]``) and the epilogue of accel/mxu_sweep.py.
 
 ``grid_plain`` computes the same function in plain PyTorch: supercells in row
 order, each tested as one (live lanes, 128) batch.  A closest hit is the
@@ -119,13 +124,16 @@ def _slab(box, o, inv, tmin, lim):
     return near <= far
 
 
-def grid_plain(tid, rows, grid, ro, rd, tmin, tmax, best_t, best_e, any_hit, counts=None):
-    """The grid traversal in plain PyTorch (see module docstring).  With a
+def grid_plain(tid, rows, grid, ro, rd, tmin, tmax, best_t, best_e, any_hit, counts=None,
+               mxu=False):
+    """The grid traversal in plain PyTorch (see module docstring), its MXU
+    form with ``mxu``.  With a
     ``counts`` dict, adds the slab tests and prim tests this call ran to
     ``counts["slabs"]`` and ``counts["tests"]`` (any-hit: tests up to each
     lane's first hit, as the kernel stops there), and the cell slab tests
     among them, those of the supercells that passed, to ``counts["cells"]``."""
     test = PRIM_TESTS[tid]
+    mxu = mxu_table(grid) if mxu else None
     n_prims, n_super = grid["n_prims"], grid["n_super"]
     sc, cells, coarse = grid["sc_boxes"], grid["cell_boxes"], grid["coarse_boxes"]
     dev = ro.device
@@ -168,10 +176,15 @@ def grid_plain(tid, rows, grid, ro, rd, tmin, tmax, best_t, best_e, any_hit, cou
             p0 = si * SUPER
             width = min(SUPER, n_prims - p0)
             tested = cell_ok.repeat_interleave(CELL, dim=1)[:, :width]
-            r = rows[p0 : p0 + width]
             d = [rd[idx, a, None] for a in range(3)]
             limit = tmax[idx, None] if any_hit else best_t[idx, None]
-            tt = test(lambda k: r[:, k], oi, d, tmi, limit)
+            if mxu is not None:
+                from pine_tpu_torch.accel.mxu_sweep import mesh_leaf_t
+
+                tt = mesh_leaf_t(tid, mxu, si, width, oi, d, tmi, limit)
+            else:
+                r = rows[p0 : p0 + width]
+                tt = test(lambda k: r[:, k], oi, d, tmi, limit)
             if any_hit:
                 hit = tested & (tt < BIG)
                 first = torch.where(hit.any(1), hit.to(torch.int8).argmax(1), width - 1)
@@ -230,14 +243,24 @@ def _library():
     if fn.argtypes is None:
         fn.argtypes = (
             [ctypes.c_int] * 2 + [ctypes.c_void_p] + [ctypes.c_int] * 5
-            + [ctypes.c_void_p] * 13 + [ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_void_p] * 14 + [ctypes.c_int, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
     return fn
 
 
-def grid_cuda(tid, rows, grid, ro, rd, tmin, tmax, best_t, best_e, any_hit):
-    """Launch csrc/grid_traverse.cu on the current stream."""
+def mxu_table(grid):
+    """The coefficient table ``grid["mxu"]`` that the MXU form reads; refuses
+    a layout without one (``dense_traverse.prepare`` joins it for the route
+    "grid_mxu")."""
+    if grid.get("mxu") is None:
+        raise ValueError("the MXU form needs the group's coefficient table (route grid_mxu)")
+    return grid["mxu"]
+
+
+def grid_cuda(tid, rows, grid, ro, rd, tmin, tmax, best_t, best_e, any_hit, mxu=False):
+    """Launch csrc/grid_traverse.cu on the current stream (its MXU form with
+    ``mxu``)."""
     n = ro.shape[0]
     dev = ro.device
     f32, i32 = torch.float32, torch.int32
@@ -255,6 +278,13 @@ def grid_cuda(tid, rows, grid, ro, rd, tmin, tmax, best_t, best_e, any_hit):
     for x, name in ((tmin, "tmin"), (tmax, "tmax"), (best_t, "best_t")):
         _check(x, f32, (n,), dev, name)
     _check(best_e, i32, (n,), dev, "best_e")
+    mxu = mxu_table(grid) if mxu else None
+    if mxu is not None:
+        from pine_tpu_torch.accel.mxu_tables import MXU_M, RAY_FEATS
+
+        if mxu["m"] != MXU_M.get(tid):
+            raise ValueError(f"a table of {mxu['m']} values for prim type {tid}")
+        _check(mxu["W"], f32, (n_super * RAY_FEATS, mxu["m"] * SUPER), dev, "mxu W")
     out_t = torch.empty(n, dtype=f32, device=dev)
     out_e = torch.empty(n, dtype=i32, device=dev)
     err = _library()(
@@ -262,10 +292,13 @@ def grid_cuda(tid, rows, grid, ro, rd, tmin, tmax, best_t, best_e, any_hit):
         int(grid["use_coarse"]), grid["coarse_boxes"].data_ptr(), grid["sc_boxes"].data_ptr(),
         grid["cell_boxes"].data_ptr(), grid["c_order8"].data_ptr(), grid["s_order8"].data_ptr(),
         ro.data_ptr(), rd.data_ptr(), tmin.data_ptr(), tmax.data_ptr(), best_t.data_ptr(),
-        best_e.data_ptr(), out_t.data_ptr(), out_e.data_ptr(), n,
+        best_e.data_ptr(), out_t.data_ptr(), out_e.data_ptr(),
+        None if mxu is None else mxu["W"].data_ptr(), n,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"grid_traverse kernel launch failed: CUDA error {err}")
-    LAUNCHES["grid.any_hit" if any_hit else "grid.closest"] += 1
+    kind = "grid" if mxu is None else "grid_mxu"
+    LAUNCHES[f"{kind}.any_hit" if any_hit else f"{kind}.closest"] += 1
     return out_t, out_e
+

@@ -26,7 +26,16 @@ Contract (``inst_query``), as inst_kernel_intersect / inst_kernel_any_hit:
 
 What was TPU-only is dropped: ``INST_KERNEL_MAX`` (an SMEM budget), the
 (8,128) block-shared stack and its lane mask ``imask``, the lane-padded
-table, the MXU leaf mode and the ``PINE_INST_PROBE`` probes.
+table and the ``PINE_INST_PROBE`` probes.
+
+The MXU leaf form (``inst_cuda`` and ``inst_plain`` with ``mxu=True``;
+``CompiledScene.inst_kernel = "mxu"``, the counterpart of
+``PINE_INST_KERNEL=mxu``): the same walk, with each triangle's test read
+from the shared mesh's supercell-major coefficient table
+(accel/mxu_tables.build_mesh_tables, ``g["mxum"]``) over the instance's
+local ray; its plain version is ``inst_plain`` with ``grid_plain``'s MXU
+leaf.  ``g["variant"]`` ("inst" or "inst_mxu", set by
+``route_inst``) selects the form ``inst_query`` runs.
 
 ``inst_plain`` computes the same function in plain PyTorch with
 pine_tpu's other form of this traversal, the dense enumeration of
@@ -157,10 +166,11 @@ def local_rays(minv, ro, rd):
     return o, d
 
 
-def inst_plain(g, ro, rd, tmin, tmax, best_t, best_e, any_hit, counts=None):
-    """The instanced traversal in plain PyTorch (see module docstring).  With
-    a ``counts`` dict, adds the instances entered (``entries``) and
-    grid_plain's ``slabs``, ``cells`` and ``tests``."""
+def inst_plain(g, ro, rd, tmin, tmax, best_t, best_e, any_hit, counts=None, mxu=False):
+    """The instanced traversal in plain PyTorch (see module docstring), its
+    MXU leaf form with ``mxu``.  With a ``counts`` dict, adds the instances
+    entered (``entries``) and grid_plain's ``slabs``, ``cells`` and
+    ``tests``."""
     if any_hit:
         occ = best_e.clone()
         live = (occ == 0) & (tmax > tmin)
@@ -170,6 +180,9 @@ def inst_plain(g, ro, rd, tmin, tmax, best_t, best_e, any_hit, counts=None):
         bound = torch.where(best_t > tmin, best_t, -BIG)
     first, count, inst, entry = _candidates(g, ro, rd, tmin, bound)
     tid, rows, grid = g["tid"], g["rows"], g["grid"]
+    if mxu:
+        grid = dict(grid, mxu=mesh_table(g))
+    leaf = dict(counts=counts, mxu=mxu)
     n_entries = 0
     for k in range(int(count.max()) if count.numel() else 0):
         idx = (first + k).clamp_max(max(inst.numel() - 1, 0))
@@ -186,12 +199,12 @@ def inst_plain(g, ro, rd, tmin, tmax, best_t, best_e, any_hit, counts=None):
         ol, dl = local_rays(g["minv"][j], ro[sel], rd[sel])
         if any_hit:
             _, o_new = grid_plain(tid, rows, grid, ol, dl, tmin[sel], tmax[sel], tmax[sel],
-                                  torch.zeros_like(sel, dtype=torch.int32), True, counts=counts)
+                                  torch.zeros_like(sel, dtype=torch.int32), True, **leaf)
             occ[sel] = torch.maximum(occ[sel], o_new)
             continue
         # each instance's best below the incoming bound, then the (t, id) rule
         t_i, e_i = grid_plain(tid, rows, grid, ol, dl, tmin[sel], best_t[sel], best_t[sel],
-                              torch.full_like(sel, -1, dtype=torch.int32), False, counts=counts)
+                              torch.full_like(sel, -1, dtype=torch.int32), False, **leaf)
         vid = (g["vbase"] + j * g["stride"] + e_i).to(torch.int32)
         ct, ce = cur_t[sel], cur_e[sel]
         better = (e_i >= 0) & ((t_i < ct) | ((t_i == ct) & (vid < ce)))
@@ -215,15 +228,24 @@ def _library():
     if fn.argtypes is None:
         fn.argtypes = (
             [ctypes.c_int] * 2 + [ctypes.c_void_p] + [ctypes.c_int] * 2
-            + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
+            + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
             + [ctypes.c_int, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
     return fn
 
 
-def inst_cuda(g, ro, rd, tmin, tmax, best_t, best_e, any_hit):
-    """Launch csrc/inst_traverse.cu on the current stream."""
+def mesh_table(g):
+    """The shared mesh's supercell-major coefficient table (``g["mxum"]``),
+    which the MXU leaf form reads; ``route_inst`` builds it."""
+    if "mxum" not in g:
+        raise ValueError("the MXU leaf form needs the mesh's coefficient table (route_inst)")
+    return g["mxum"]
+
+
+def inst_cuda(g, ro, rd, tmin, tmax, best_t, best_e, any_hit, mxu=False):
+    """Launch csrc/inst_traverse.cu on the current stream (its MXU leaf form
+    with ``mxu``)."""
     check_stack(g["need"], STACK_DEPTH, f"instanced group (top tree depth {g['d_top']}, "
                 f"mesh tree depth {g['d_mesh']})")
     n = ro.shape[0]
@@ -248,6 +270,11 @@ def inst_cuda(g, ro, rd, tmin, tmax, best_t, best_e, any_hit):
     for x, name in ((tmin, "tmin"), (tmax, "tmax"), (best_t, "best_t")):
         _check(x, f32, (n,), dev, name)
     _check(best_e, i32, (n,), dev, "best_e")
+    w_ptr = None
+    if mxu:
+        tab = mesh_table(g)
+        _check(tab["W"], f32, (n_super * 8, tab["m"] * SUPER), dev, "mxu W")
+        w_ptr = tab["W"].data_ptr()
     out_t = torch.empty(n, dtype=f32, device=dev)
     out_e = torch.empty(n, dtype=i32, device=dev)
     err = _library()(
@@ -258,16 +285,37 @@ def inst_cuda(g, ro, rd, tmin, tmax, best_t, best_e, any_hit):
         g["tstart"].data_ptr(), g["tcount"].data_ptr(), g["iboxes"].data_ptr(),
         g["minv"].data_ptr(), g["vbase"], g["stride"], ro.data_ptr(), rd.data_ptr(),
         tmin.data_ptr(), tmax.data_ptr(), best_t.data_ptr(), best_e.data_ptr(),
-        out_t.data_ptr(), out_e.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream,
+        out_t.data_ptr(), out_e.data_ptr(), w_ptr, n,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"inst_traverse kernel launch failed: CUDA error {err}")
-    LAUNCHES["inst.any_hit" if any_hit else "inst.closest"] += 1
+    kind = "inst_mxu" if mxu else "inst"
+    LAUNCHES[f"{kind}.any_hit" if any_hit else f"{kind}.closest"] += 1
     return out_t, out_e
+
+
+INST_KERNELS = (None, "mxu")  # the values of CompiledScene.inst_kernel
+
+
+def route_inst(groups, inst_kernel=None):
+    """Route every instanced group under the setting ``inst_kernel`` (None:
+    the VPU form; "mxu": the MXU leaf form, whose table is built here, once)
+    and record it as ``g["variant"]``."""
+    if inst_kernel not in INST_KERNELS:
+        raise ValueError(f"unknown instanced route {inst_kernel!r}: one of {INST_KERNELS}")
+    if inst_kernel == "mxu":
+        from pine_tpu_torch.accel.mxu_sweep import prepare_tables
+
+        for g in groups:
+            prepare_tables(g, "mxum")
+    for g in groups:
+        g["variant"] = "inst_mxu" if inst_kernel == "mxu" else "inst"
 
 
 def inst_query(g, ro, rd, tmin, tmax, best_t, best_e, any_hit=False):
     """One instanced group's traversal over a flat wavefront (see module
-    docstring): the kernel on CUDA tensors, the plain version on CPU ones."""
+    docstring), in the form ``g["variant"]``: the kernel on CUDA tensors,
+    the plain version on CPU ones."""
     fn = inst_cuda if ro.is_cuda else inst_plain
-    return fn(g, ro, rd, tmin, tmax, best_t, best_e, any_hit)
+    return fn(g, ro, rd, tmin, tmax, best_t, best_e, any_hit, mxu=g.get("variant") == "inst_mxu")

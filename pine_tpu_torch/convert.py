@@ -65,7 +65,7 @@ import numpy as np
 import torch
 
 from pine_tpu_torch.accel.dense_traverse import route
-from pine_tpu_torch.accel.inst_traverse import upload_inst_group
+from pine_tpu_torch.accel.inst_traverse import route_inst, upload_inst_group
 from pine_tpu_torch.accel.lattice_traverse import lattice_layout
 from pine_tpu_torch.accel.packet import box_corners, build_packet_accel, instancing_record
 from pine_tpu_torch.core.place import resolve_device
@@ -228,10 +228,11 @@ def upload_group(g: dict, device, small_kernel=None, mesh_kernel=None) -> dict:
 
 
 def compiled_scene_from_arrays(arrays: dict, device=None, small_kernel=None,
-                               mesh_kernel=None) -> CompiledScene:
+                               mesh_kernel=None, inst_kernel=None) -> CompiledScene:
     """Upload the arrays of ``scene_arrays``'s format to ``device`` (default:
     the card) and return the CompiledScene, its groups routed under the
-    settings ``small_kernel`` and ``mesh_kernel`` (CompiledScene)."""
+    settings ``small_kernel``, ``mesh_kernel`` and ``inst_kernel``
+    (CompiledScene)."""
     dev = resolve_device(device)
 
     def t(x, dtype=None):
@@ -250,6 +251,7 @@ def compiled_scene_from_arrays(arrays: dict, device=None, small_kernel=None,
                                mesh_kernel) for i in range(n_groups)]
         inst_groups = [upload_inst_group({k: arrays[f"inst.{i}.{k}"] for k in INST_KEYS}, dev)
                        for i in range(n_inst)]
+        route_inst(inst_groups, inst_kernel)
         unified = dict(groups=groups, inst_groups=inst_groups,
                        ent_gidx=t(arrays["ent_gidx"], torch.int32))
         unified.update({k: t(arrays[k]) for k in MESH_KEYS if k in arrays})
@@ -291,5 +293,5 @@ def compiled_scene_from_arrays(arrays: dict, device=None, small_kernel=None,
         dev, t(arrays["g_type"], torch.int32), t(arrays["g_local"], torch.int32),
         t(arrays["g_mat"], torch.int32), tables, type_global, unified, materials,
         lights, camera, t(arrays["world_lo"], torch.float32), float(arrays["world_span"]),
-        (small_kernel, mesh_kernel),
+        (small_kernel, mesh_kernel, inst_kernel),
     )

@@ -31,8 +31,19 @@
 // result is that of a sweep over the rows in order (grid_plain).  Any-hit
 // leaves a ray at its first hit.  Built without fast math and with
 // -fmad=false, the tests round as the plain PyTorch version does.
+//
+// The MXU form (_make_grid_kernel with mxu_m > 0, test_super_mxu; the
+// route "grid_mxu"): the same culls and visit order, but the leaf reads prim
+// e's m columns of the supercell-major coefficient table
+// (accel/mxu_tables.build_mesh_tables) and runs the epilogue of
+// csrc/mxu_epilogue.cuh on the ray's feature row, where the VPU form runs
+// prim_test<TID> on its row.  The TPU tested a whole taken supercell with one
+// (m*128, 8)^T x (8, 128) matmul per sublane row and dropped the cell culls;
+// here each thread forms its own pairs, so the cell culls stay.  Closest-hit
+// keeps the (t, row) rule: the result is that of a row-order sweep, which is
+// what test_super_mxu's min-then-min-pid gives.
 
-#include "prim_tests.cuh"
+#include "mxu_epilogue.cuh"
 
 namespace {
 
@@ -50,9 +61,10 @@ struct Tables {
   const float* cell_boxes;    // (n_super * 4, 6)
   const int* c_order8;        // (8, n_coarse) near-first coarse order per octant
   const int* s_order8;        // (8, n_coarse * 16) supercells, within their coarse box
+  const float* mxu_w;         // MXU form: (n_super * 8, m * 128) coefficient table
 };
 
-template <int TID, bool ANY>
+template <int TID, bool ANY, bool MXU>
 __global__ void __launch_bounds__(128)
 grid_kernel(Tables tb, const float* __restrict__ ro, const float* __restrict__ rd,
             const float* __restrict__ tmin_in, const float* __restrict__ tmax_in,
@@ -73,6 +85,8 @@ grid_kernel(Tables tb, const float* __restrict__ ro, const float* __restrict__ r
   V3 o = {ro[3 * i], ro[3 * i + 1], ro[3 * i + 2]};
   V3 d = {rd[3 * i], rd[3 * i + 1], rd[3 * i + 2]};
   V3 inv = {safe_inv(d.x), safe_inv(d.y), safe_inv(d.z)};
+  RayFeat rf;
+  if constexpr (MXU) rf = ray_features(o, d);
   int oct = (d.x < 0.0f ? 1 : 0) | (d.y < 0.0f ? 2 : 0) | (d.z < 0.0f ? 4 : 0);
   const int* c_order = tb.c_order8 + oct * tb.n_coarse;
   const int* s_order = tb.s_order8 + oct * tb.n_coarse * COARSE;
@@ -95,7 +109,11 @@ grid_kernel(Tables tb, const float* __restrict__ ro, const float* __restrict__ r
         if (!slab_hit(tb.cell_boxes + 6 * cell, o, inv, tmin, ANY ? tmax : cur_t)) continue;
         int p1 = min(p0 + CELL, tb.n_prims);
         for (int e = p0; e < p1; ++e) {
-          float t = prim_test<TID>(tb.rows + (size_t)e * tb.width, o, d, tmin, tmax);
+          float t;
+          if constexpr (MXU)
+            t = mesh_pair_t<TID>(tb.mxu_w, e, rf, tmin, tmax);
+          else
+            t = prim_test<TID>(tb.rows + (size_t)e * tb.width, o, d, tmin, tmax);
           if (ANY) {
             if (t < BIG) {
               occluded = true;
@@ -119,16 +137,16 @@ done:
   }
 }
 
-template <int TID>
+template <int TID, bool MXU>
 void launch(bool any_hit, const Tables& tb, const float* ro, const float* rd,
             const float* tmin, const float* tmax, const float* bt_in, const int* be_in,
             float* bt_out, int* be_out, int n, cudaStream_t stream) {
   dim3 block(128), grid((n + 127) / 128);
   if (any_hit)
-    grid_kernel<TID, true><<<grid, block, 0, stream>>>(
+    grid_kernel<TID, true, MXU><<<grid, block, 0, stream>>>(
         tb, ro, rd, tmin, tmax, bt_in, be_in, bt_out, be_out, n);
   else
-    grid_kernel<TID, false><<<grid, block, 0, stream>>>(
+    grid_kernel<TID, false, MXU><<<grid, block, 0, stream>>>(
         tb, ro, rd, tmin, tmax, bt_in, be_in, bt_out, be_out, n);
 }
 
@@ -136,20 +154,40 @@ void launch(bool any_hit, const Tables& tb, const float* ro, const float* rd,
 
 // C interface.  Returns cudaGetLastError() after the launch (0 on success);
 // an unknown shape type returns cudaErrorInvalidValue without launching.
+// mxu_w null: the VPU form; else the MXU form on that table, for the types
+// with one (others return cudaErrorInvalidValue).
 extern "C" int pine_grid_traverse(
     int tid, int any_hit, const float* rows, int width, int n_prims, int n_super,
     int n_coarse, int use_coarse, const float* coarse_boxes, const float* sc_boxes,
     const float* cell_boxes, const int* c_order8, const int* s_order8, const float* ro,
     const float* rd, const float* tmin, const float* tmax, const float* bt_in,
-    const int* be_in, float* bt_out, int* be_out, int n, void* stream) {
+    const int* be_in, float* bt_out, int* be_out, const float* mxu_w, int n, void* stream) {
   if (n <= 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Tables tb{rows, width, n_prims, n_super, n_coarse, use_coarse, coarse_boxes,
-            sc_boxes, cell_boxes, c_order8, s_order8};
+            sc_boxes, cell_boxes, c_order8, s_order8, mxu_w};
   bool a = any_hit != 0;
-#define PINE_CASE(T)                                                             \
-  case T:                                                                        \
-    launch<T>(a, tb, ro, rd, tmin, tmax, bt_in, be_in, bt_out, be_out, n, s);   \
+#define PINE_CASE_MXU(T)                                                               \
+  case T:                                                                              \
+    launch<T, true>(a, tb, ro, rd, tmin, tmax, bt_in, be_in, bt_out, be_out, n, s);   \
+    break;
+  if (mxu_w != nullptr) {
+    switch (tid) {
+      PINE_CASE_MXU(SPHERE)
+      PINE_CASE_MXU(RECT)
+      PINE_CASE_MXU(DISK)
+      PINE_CASE_MXU(PLANE)
+      PINE_CASE_MXU(TRIANGLE)
+      PINE_CASE_MXU(CONE)
+      default:
+        return cudaErrorInvalidValue;
+    }
+    return cudaGetLastError();
+  }
+#undef PINE_CASE_MXU
+#define PINE_CASE(T)                                                                    \
+  case T:                                                                               \
+    launch<T, false>(a, tb, ro, rd, tmin, tmax, bt_in, be_in, bt_out, be_out, n, s);   \
     break;
   switch (tid) {
     PINE_CASE(SPHERE)

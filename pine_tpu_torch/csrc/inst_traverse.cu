@@ -42,6 +42,11 @@
 // it (accel/inst_traverse.stack_need) and a push past the end traps, so no
 // subtree is ever dropped.  Built without fast math and with -fmad=false,
 // the arithmetic rounds as the plain PyTorch version's does.
+//
+// The MXU leaf form (MXU = true; pine_tpu's _do_super_body_mxu, selected by
+// PINE_INST_KERNEL=mxu): the same walk, with the mesh-level leaf test read
+// from the shared mesh's supercell-major coefficient table over the
+// instance's local ray (sctree_walk.cuh).  Triangles only.
 
 #include "sctree_walk.cuh"
 
@@ -62,7 +67,7 @@ struct TopTree {
   int vbase, stride;
 };
 
-template <bool ANY>
+template <bool ANY, bool MXU>
 __global__ void __launch_bounds__(128)
 inst_kernel(TopTree top, SCTree mesh, const float* __restrict__ ro,
             const float* __restrict__ rd, const float* __restrict__ tmin_in,
@@ -121,7 +126,7 @@ inst_kernel(TopTree top, SCTree mesh, const float* __restrict__ ro,
                  ld(mv, 4) * d.x + ld(mv, 5) * d.y + ld(mv, 6) * d.z,
                  ld(mv, 8) * d.x + ld(mv, 9) * d.y + ld(mv, 10) * d.z};
       V3 linv = {safe_inv(ldir.x), safe_inv(ldir.y), safe_inv(ldir.z)};
-      if (sctree_walk<TRIANGLE, ANY, STACK_DEPTH>(mesh, lo, ldir, linv, tmin, tmax, cur_t,
+      if (sctree_walk<TRIANGLE, ANY, STACK_DEPTH, MXU>(mesh, lo, ldir, linv, tmin, tmax, cur_t,
                                                   cur_e, top.vbase + id * top.stride, stack,
                                                   sp)) {
         occluded = true;
@@ -142,7 +147,8 @@ inst_kernel(TopTree top, SCTree mesh, const float* __restrict__ ro,
 
 // C interface.  Returns cudaGetLastError() after the launch (0 on success);
 // a stack depth other than the one compiled in returns cudaErrorInvalidValue
-// without launching.
+// without launching.  mxu_w null: the VPU form; else the MXU leaf form on
+// that table.
 extern "C" int pine_inst_traverse(
     int any_hit, int stack_depth, const float* rows, int n_prims, int n_super,
     const float* sc_boxes, const float* cell_boxes, const float* mboxes, const int* mcnode,
@@ -150,19 +156,27 @@ extern "C" int pine_inst_traverse(
     const int* tcnode, const int* tcstart, const int* tccount, const float* iboxes,
     const float* minv, int vbase, int stride, const float* ro, const float* rd,
     const float* tmin, const float* tmax, const float* bt_in, const int* be_in,
-    float* bt_out, int* be_out, int n, void* stream) {
+    float* bt_out, int* be_out, const float* mxu_w, int n, void* stream) {
   if (stack_depth != STACK_DEPTH) return cudaErrorInvalidValue;
   if (n <= 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   SCTree mesh{rows, n_prims, n_super, sc_boxes, cell_boxes, mboxes, mcnode, mcstart,
-              mccount, sc_order};
+              mccount, sc_order, mxu_w};
   TopTree top{tboxes, tcnode, tcstart, tccount, iboxes, minv, vbase, stride};
   dim3 block(128), grid((n + 127) / 128);
-  if (any_hit)
-    inst_kernel<true><<<grid, block, 0, s>>>(top, mesh, ro, rd, tmin, tmax, bt_in, be_in,
-                                             bt_out, be_out, n);
-  else
-    inst_kernel<false><<<grid, block, 0, s>>>(top, mesh, ro, rd, tmin, tmax, bt_in, be_in,
-                                              bt_out, be_out, n);
+#define PINE_LAUNCH(A, X)                                                                \
+  inst_kernel<A, X><<<grid, block, 0, s>>>(top, mesh, ro, rd, tmin, tmax, bt_in, be_in,   \
+                                           bt_out, be_out, n)
+  if (mxu_w != nullptr) {
+    if (any_hit)
+      PINE_LAUNCH(true, true);
+    else
+      PINE_LAUNCH(false, true);
+  } else if (any_hit) {
+    PINE_LAUNCH(true, false);
+  } else {
+    PINE_LAUNCH(false, false);
+  }
+#undef PINE_LAUNCH
   return cudaGetLastError();
 }

@@ -12,9 +12,16 @@
 // (closest-hit) or at tmax (any-hit).  Closest-hit compares (t, id)
 // lexicographically, so among equal t the lowest id wins whatever the visit
 // order; any-hit returns at the first hit.
+//
+// With MXU set (the instanced kernel's MXU leaf form, pine_tpu's
+// _do_super_body_mxu under PINE_INST_KERNEL=mxu), the culls stay and the leaf
+// reads prim e's m columns of the supercell-major coefficient table
+// (SCTree::mxu_w, accel/mxu_tables.build_mesh_tables) and runs the epilogue
+// of csrc/mxu_epilogue.cuh on the walk's ray, where the VPU form runs
+// prim_test<TID> on its row.
 #pragma once
 
-#include "prim_tests.cuh"
+#include "mxu_epilogue.cuh"
 
 namespace pine {
 
@@ -32,14 +39,15 @@ struct SCTree {
   const int* cstart;        // (M, 2) a leaf child's first entry in sc_order
   const int* ccount;        // (M, 2) and its number of supercells
   const int* sc_order;      // supercells in leaf order
+  const float* mxu_w;       // MXU leaf form: (n_super * 8, m * 128) coefficient table
 };
 
 // One supercell: its box, then its cells, then the prims of the cells that
 // pass.  Closest-hit updates (cur_t, cur_e); any-hit returns true at a hit.
-template <int TID, bool ANY>
+template <int TID, bool ANY, bool MXU = false>
 __device__ __forceinline__ bool sctree_super(const SCTree& m, int si, V3 o, V3 d, V3 inv,
                                              float tmin, float tmax, float& cur_t, int& cur_e,
-                                             int ent_base) {
+                                             int ent_base, const RayFeat& rf) {
   if (!slab_hit(m.sc_boxes + 6 * si, o, inv, tmin, ANY ? tmax : cur_t)) return false;
   for (int kc = 0; kc < SUPER / CELL; ++kc) {
     int cell = si * (SUPER / CELL) + kc;
@@ -48,7 +56,11 @@ __device__ __forceinline__ bool sctree_super(const SCTree& m, int si, V3 o, V3 d
     if (!slab_hit(m.cell_boxes + 6 * cell, o, inv, tmin, ANY ? tmax : cur_t)) continue;
     int p1 = min(p0 + CELL, m.n_prims);
     for (int e = p0; e < p1; ++e) {
-      float t = prim_test<TID>(m.rows + (size_t)e * prim_width<TID>(), o, d, tmin, tmax);
+      float t;
+      if constexpr (MXU)
+        t = mesh_pair_t<TID>(m.mxu_w, e, rf, tmin, tmax);
+      else
+        t = prim_test<TID>(m.rows + (size_t)e * prim_width<TID>(), o, d, tmin, tmax);
       if (ANY) {
         if (t < BIG) return true;
       } else {
@@ -67,9 +79,11 @@ __device__ __forceinline__ bool sctree_super(const SCTree& m, int si, V3 o, V3 d
 // (cur_t, cur_e); hit ids are ent_base + row.  Uses stack[sp0:], a stack of
 // CAP entries, and leaves it as it found it; it needs at most the tree's
 // depth of entries above sp0.  Any-hit returns true at the first hit.
-template <int TID, bool ANY, int CAP>
+template <int TID, bool ANY, int CAP, bool MXU = false>
 __device__ bool sctree_walk(const SCTree& m, V3 o, V3 d, V3 inv, float tmin, float tmax,
                             float& cur_t, int& cur_e, int ent_base, int* stack, int sp0) {
+  RayFeat rf;
+  if constexpr (MXU) rf = ray_features(o, d);
   int sp = sp0;
   push<CAP>(stack, sp, 0);
   while (sp > sp0) {
@@ -85,8 +99,8 @@ __device__ bool sctree_walk(const SCTree& m, V3 o, V3 d, V3 inv, float tmin, flo
       if (!(ch == 0 ? h0 : h1) || (ch == 0 ? c0 : c1) >= 0) continue;
       int start = __ldg(m.cstart + 2 * node + ch), cnt = __ldg(m.ccount + 2 * node + ch);
       for (int j = 0; j < cnt; ++j)
-        if (sctree_super<TID, ANY>(m, __ldg(m.sc_order + start + j), o, d, inv, tmin, tmax,
-                                   cur_t, cur_e, ent_base))
+        if (sctree_super<TID, ANY, MXU>(m, __ldg(m.sc_order + start + j), o, d, inv, tmin,
+                                        tmax, cur_t, cur_e, ent_base, rf))
           return true;
     }
     // inner children, the farther first so that the nearer pops next

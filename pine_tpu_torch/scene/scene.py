@@ -15,11 +15,21 @@ of more than 2,000,000 prims) or the instanced kernel (lazy instancings).
 Forced kernels: ``CompiledScene.small_kernel`` and ``mesh_kernel`` (or the
 same arguments of ``Scene.compile``) are the counterparts of pine_tpu's
 PINE_SMALL_KERNEL and PINE_MESH_KERNEL: one of "dense", "scdense",
-"lattice", "grid", "sctree" or "bvh" for the groups of at most
-GRID_MAX_PRIMS prims (small) or of more and at most 2,000,000 (mesh), None
-(the default) for pine_tpu's choice (accel/dense_traverse.group_variant).
-Setting one resolves every group's route and builds the tables it needs,
-once; a route a group cannot take raises and changes nothing.
+"lattice", "grid", "sctree", "bvh", "mxu" or "mxup" for the groups of at
+most GRID_MAX_PRIMS prims (small) or of more and at most 2,000,000 (mesh),
+None (the default) for pine_tpu's choice (accel/dense_traverse.group_variant;
+"mxu" and "mxup" on a mesh-scale group take the grid kernel's MXU form).
+``inst_kernel`` (None or "mxu") is PINE_INST_KERNEL's: "mxu" runs the
+instanced kernel's MXU leaf form.  Setting one resolves every group's route
+and builds the tables it needs, once; a route a group cannot take raises
+and changes nothing.
+
+``Scene.compile`` caches its CompiledScene per device and settings, as
+pine_tpu's ``Scene.compile`` does: a render compiles a scene once, and every
+``add`` / ``add_material`` / ``add_geometry`` drops the cache.  The camera
+is not part of it (renders read ``scene.camera``).  A cached scene whose
+settings were changed through its setters is not handed out for its old
+settings.
 
 ``Scene.add(InstancedShape)`` flattens an instancing into transformed meshes
 when its shape is not a Mesh, when an instance is emissive (area-light
@@ -98,9 +108,11 @@ class Scene:
         self.instancings = []  # InstancedShape kept lazy
         self.lights = []
         self.camera = None
+        self._compiled = {}  # (device, small_kernel, mesh_kernel, inst_kernel) -> CompiledScene
 
     def add_material(self, name, material):
         self.materials[name] = material
+        self._compiled = {}
         return material
 
     def add_geometry(self, shape, material):
@@ -109,6 +121,7 @@ class Scene:
                 raise RuntimeError(f"Can't find material `{material}`")
             material = self.materials[material]
         self.geometries.append((shape, material))
+        self._compiled = {}
         return material
 
     def add(self, *args):
@@ -121,6 +134,7 @@ class Scene:
         (x,) = args
         if isinstance(x, L.Light):
             self.lights.append(x)
+            self._compiled = {}
             return x
         if isinstance(x, S.InstancedShape):
             is_mesh = isinstance(x.shape, S.Mesh)
@@ -131,6 +145,7 @@ class Scene:
                     self.add_geometry(x.shape.transformed(m), mat)
             else:
                 self.instancings.append(x)
+                self._compiled = {}
             return x
         raise NotImplementedError(
             f"Scene.add({type(x).__name__}) is not ported yet: media are ROADMAP.md "
@@ -148,12 +163,20 @@ class Scene:
         self.camera = x
         return x
 
-    def compile(self, device=None, small_kernel=None, mesh_kernel=None):
+    def compile(self, device=None, small_kernel=None, mesh_kernel=None, inst_kernel=None):
         """The CompiledScene on ``device`` (default: the card), its groups
-        routed under the forced-kernel settings (module docstring)."""
+        routed under the forced-kernel settings, built once per device and
+        settings (module docstring)."""
         from pine_tpu_torch.convert import compiled_scene_from_arrays, scene_arrays
+        from pine_tpu_torch.core.place import resolve_device
 
-        return compiled_scene_from_arrays(scene_arrays(self), device, small_kernel, mesh_kernel)
+        kernels = (small_kernel, mesh_kernel, inst_kernel)
+        key = (str(resolve_device(device)),) + kernels
+        cs = self._compiled.get(key)
+        if cs is None or cs._kernels != kernels:  # re-routed through a setter since
+            cs = compiled_scene_from_arrays(scene_arrays(self), device, *kernels)
+            self._compiled[key] = cs
+        return cs
 
 
 class CompiledScene:
@@ -161,7 +184,7 @@ class CompiledScene:
 
     def __init__(self, device, g_type, g_local, g_mat, tables, type_global, unified,
                  materials, lights, camera=None, world_lo=None, world_span=1.0,
-                 kernels=(None, None)):
+                 kernels=(None, None, None)):
         self.device = device
         self.n_global = int(g_type.shape[0])
         self.g_type, self.g_local, self.g_mat = g_type, g_local, g_mat
@@ -179,7 +202,7 @@ class CompiledScene:
         # shared mesh does not make a scene heavy
         self.heavy_traversal = unified is not None and any(
             len(g["prim_aabbs"]) > DT.GRID_MAX_PRIMS for g in unified["groups"])
-        self._kernels = tuple(kernels)  # (small_kernel, mesh_kernel), as routed
+        self._kernels = tuple(kernels)  # (small_kernel, mesh_kernel, inst_kernel), as routed
         self.inst_traversal = unified is not None and bool(unified.get("inst_groups"))
         self.origin_sort = False  # the origin-major sort for instanced scenes (module docstring)
         self.world_lo = torch.zeros(3, device=device) if world_lo is None else world_lo
@@ -192,7 +215,7 @@ class CompiledScene:
 
     @small_kernel.setter
     def small_kernel(self, value):
-        self._route(value, self._kernels[1])
+        self._route(value, *self._kernels[1:])
 
     @property
     def mesh_kernel(self):
@@ -202,12 +225,26 @@ class CompiledScene:
 
     @mesh_kernel.setter
     def mesh_kernel(self, value):
-        self._route(self._kernels[0], value)
+        self._route(self._kernels[0], value, self._kernels[2])
 
-    def _route(self, small_kernel, mesh_kernel):
+    @property
+    def inst_kernel(self):
+        """The form of the instanced groups: None (the VPU form) or "mxu"."""
+        return self._kernels[2]
+
+    @inst_kernel.setter
+    def inst_kernel(self, value):
+        self._route(*self._kernels[:2], value)
+
+    def _route(self, small_kernel, mesh_kernel, inst_kernel):
+        from pine_tpu_torch.accel.inst_traverse import INST_KERNELS, route_inst
+
+        if inst_kernel not in INST_KERNELS:  # refused before any group is re-routed
+            raise ValueError(f"unknown instanced route {inst_kernel!r}: one of {INST_KERNELS}")
         if self.unified is not None:
             DT.route(self.unified["groups"], small_kernel, mesh_kernel)
-        self._kernels = (small_kernel, mesh_kernel)
+            route_inst(self.unified.get("inst_groups", []), inst_kernel)
+        self._kernels = (small_kernel, mesh_kernel, inst_kernel)
 
     def sort_mode(self, n, on_card):
         """The coherence sort's key for a wavefront of ``n`` lanes: "octant"

@@ -5,17 +5,26 @@ counterparts of pine_tpu's ``PINE_SMALL_KERNEL`` and ``PINE_MESH_KERNEL``.
 - With both settings None every group of the bench box, the terrain, the
   rock field and the cone forest takes the kernel it took before the
   settings existed.
-- For each value ("dense", "scdense", "lattice", "grid", "sctree", "bvh")
-  and each setting, the route of a table of groups (a small dense-kind
-  group, a lattice over 512 rows, a mid-size group, a group over
+- For each value ("dense", "scdense", "lattice", "grid", "sctree", "bvh",
+  "mxu", "mxup") and each setting, the route of a table of groups (a small
+  dense-kind group, a lattice over 512 rows, a mid-size group, a group over
   GRID_MAX_PRIMS and one over GRID_MAX_PRIMS_HBM, the limits cut in both
   packages) equals pine_tpu's ``_group_variant`` under the matching
-  environment variable, with pine_tpu's own fallback of a forced "lattice"
-  on a group that is no lattice, and its mesh default "mxu" read as the
-  port's "grid" (the MXU form is not ported); "bvh" on a dense-kind group,
-  which has no node arrays, raises; the MXU routes raise.
+  environment variable, followed by ``pallas_group_query``'s rewrites: a
+  forced "lattice" on a group that is no lattice takes the size default,
+  and a forced "mxu" or "mxup" stays itself on a group of at most
+  GRID_MAX_PRIMS prims of a type with a coefficient table and is the grid
+  kernel's MXU form, the port's "grid_mxu", on a mesh-scale one; pine_tpu's
+  mesh default "mxu", where no setting reaches the group, is the port's
+  default "grid"; "bvh" on a dense-kind group, which has no node arrays,
+  raises.
+- "mxu" and "mxup" resolve so on a soup too, a type with no table (AABB)
+  takes the size default, and an unknown value is refused.
 - A refused setting changes no route; ``compile()`` builds the tables of
   the routes taken and no others.
+- Two renders of one scene compile it once; an ``add`` between them makes
+  the next render compile it again; a compiled scene re-routed through a
+  setter is not handed out for its old settings.
 - Reduced renders through each forced kernel on the CPU (the reduced box
   with "scdense"; the reduced terrain with ``mesh_kernel`` "sctree" and
   "bvh", GRID_MAX_PRIMS cut so that its 3,042 triangles are mesh-scale)
@@ -26,6 +35,7 @@ counterparts of pine_tpu's ``PINE_SMALL_KERNEL`` and ``PINE_MESH_KERNEL``.
 """
 from __future__ import annotations
 
+import numpy as np
 import pytest
 import torch
 from test_torch_render import REDUCED, assert_renders_agree
@@ -85,11 +95,7 @@ def test_forced_routes_match_pine_tpu(monkeypatch):
                         m.setattr(PT, k, v)
                         m.setattr(DT, k, v)
                     m.setenv(env, value)
-                    want = PT._group_variant(jg)
-                    lattice = bool(pg["lattice"])
-                    if want == "lattice" and not lattice:  # pallas_group_query's fallback
-                        want = "dense" if pg["rows"].shape[0] <= DT.DENSE_DEFAULT_MAX else "grid"
-                    want = "grid" if want == "mxu" else want
+                    want = pine_route(PT, jg, pg, reaches(pg, setting))
                     if value == "bvh" and want == "bvh" and pg["kind"] != "bvh":
                         with pytest.raises(ValueError, match="node arrays"):
                             DT.group_variant(pg, **{setting: value})
@@ -101,18 +107,115 @@ def test_forced_routes_match_pine_tpu(monkeypatch):
     # every group took a forced route, and the large ones their defaults too
     assert {("small", "raises"), ("lattice 12x12", "lattice"), ("mid-size", "sctree"),
             ("over GRID_MAX_PRIMS", "scdense"), ("over GRID_MAX_PRIMS", "grid"),
-            ("over GRID_MAX_PRIMS_HBM", "bvh")} <= seen
+            ("over GRID_MAX_PRIMS_HBM", "bvh"), ("small", "mxup"), ("lattice 12x12", "mxu"),
+            ("mid-size", "mxup"), ("over GRID_MAX_PRIMS", "grid_mxu")} <= seen
     assert {got for name, got in seen if name == "over GRID_MAX_PRIMS_HBM"} == {"bvh"}
 
 
-def test_mxu_routes_and_unknown_values_are_refused():
-    pacc = port_soup(700, 5)
-    g = pacc["groups"][0]
+def reaches(pg, setting):
+    """Whether ``setting`` reaches the group (the module docstring of
+    accel/dense_traverse.py), as the matching variable reaches pine_tpu's."""
+    n = len(pg["prim_aabbs"])
+    eligible = n <= DT.GRID_MAX_PRIMS_HBM
+    if eligible and n > DT.GRID_MAX_PRIMS:
+        return setting == "mesh_kernel"
+    return setting == "small_kernel" and (eligible or bool(pg["lattice"]))
+
+
+def pine_route(PT, jg, pg, forced):
+    """pine_tpu's route of a group under the environment: ``_group_variant``,
+    then ``pallas_group_query``'s rewrites (pallas_traverse.py:1756-1777)
+    in the port's names; its mesh default "mxu" (no variable ``forced`` on
+    the group) is the port's "grid"."""
+    from pine_tpu.accel import mxu_sweep as JM
+
+    want = PT._group_variant(jg)
+    size_default = "dense" if pg["rows"].shape[0] <= DT.DENSE_DEFAULT_MAX else "grid"
+    if want in ("mxu", "mxup"):
+        if not forced:
+            return "grid"
+        if JM.supports(jg["tid"]) and not PT._grid_hbm(jg):
+            return want
+        if JM.supports(jg["tid"]) and PT._grid_eligible(jg):
+            return "grid_mxu"
+        return size_default
+    if want == "lattice" and not pg["lattice"]:
+        return size_default
+    return want
+
+
+def test_mxu_routes_and_unknown_values_are_refused(monkeypatch):
+    """"mxu" and "mxup" resolve as pine_tpu's pallas_group_query rewrites
+    them; an unknown value is refused."""
+    from pine_tpu_torch.accel import packet as PPK
+    from pine_tpu_torch.convert import upload_group
+    from pine_tpu_torch.scene import shapes as PS
+
+    g = port_soup(700, 5)["groups"][0]
+    assert DT.group_variant(g) == "grid"
     for value in ("mxu", "mxup"):
-        with pytest.raises(NotImplementedError, match="kernel 7"):
-            DT.group_variant(g, small_kernel=value)
+        assert DT.group_variant(g, small_kernel=value) == value
+        assert DT.group_variant(g, mesh_kernel=value) == "grid"  # mesh_kernel: not mesh-scale
+    with monkeypatch.context() as m:
+        m.setattr(DT, "GRID_MAX_PRIMS", 512)  # the soup is mesh-scale now
+        for value in ("mxu", "mxup"):
+            assert DT.group_variant(g, mesh_kernel=value) == "grid_mxu"
+            assert DT.group_variant(g, small_kernel=value) == "grid"
+        m.setattr(DT, "GRID_MAX_PRIMS_HBM", 600)  # above it: the default, whatever is set
+        assert DT.group_variant(g, small_kernel="mxu", mesh_kernel="mxup") == "bvh"
+    # a type with no coefficient table: the size default
+    for n, want in ((30, "dense"), (600, "grid")):
+        rng = np.random.default_rng(n)
+        prims = []
+        for i in range(n):
+            lo = rng.uniform(-2, 2, 3)
+            box = PS.BoxAABB(lo, lo + rng.uniform(0.05, 0.3, 3))
+            prims.append((box.type_id, box.params(), i, box.get_aabb()))
+        (ga,) = PPK.build_packet_accel(prims)["groups"]
+        ga = upload_group(ga, "cpu")
+        for value in ("mxu", "mxup"):
+            assert DT.group_variant(ga, small_kernel=value) == want
     with pytest.raises(ValueError, match="unknown"):
         DT.group_variant(g, small_kernel="octree")
+
+
+def test_render_compiles_once_and_add_recompiles(monkeypatch):
+    from pine_tpu_torch import convert
+    from pine_tpu_torch.core.samplers import BlueSampler
+    from pine_tpu_torch.integrators.path import PathIntegrator
+    from pine_tpu_torch.scene import lights as PL
+    from pine_tpu_torch.scene import materials as PM
+    from pine_tpu_torch.scene import shapes as PS
+
+    builds = []
+    real = convert.compiled_scene_from_arrays
+
+    def counted(*a, **k):
+        builds.append(a[1:])
+        return real(*a, **k)
+
+    monkeypatch.setattr(convert, "compiled_scene_from_arrays", counted)
+    scene = scenes.cbox((8, 8), *REDUCED)
+    integrator = PathIntegrator(BlueSampler(1), 2)
+    for _ in range(2):
+        integrator.render(scene, device="cpu")
+    assert len(builds) == 1
+    scene.add(PS.Sphere([0.0, 0.5, 1.0], 0.1), PM.Diffuse([0.5, 0.5, 0.5]))
+    for _ in range(2):
+        integrator.render(scene, device="cpu")
+    assert len(builds) == 2
+    for change in (lambda: scene.add("grey", PM.Diffuse([0.3, 0.3, 0.3])),
+                   lambda: scene.add(PL.PointLight([0.0, 1.5, 0.5], [1.0, 1.0, 1.0]))):
+        change()
+        integrator.render(scene, device="cpu")
+    assert len(builds) == 4
+    cs = scene.compile("cpu")
+    assert len(builds) == 4 and scene.compile("cpu", small_kernel="scdense") is not cs
+    assert len(builds) == 5 and scene.compile("cpu") is cs
+    cs.small_kernel = "dense"  # re-routed: no longer the scene of the default settings
+    fresh = scene.compile("cpu")
+    assert fresh is not cs and len(builds) == 6 and fresh.small_kernel is None
+    assert {g["variant"] for g in fresh.unified["groups"]} == {"dense"}
 
 
 def test_refused_setting_changes_nothing():
@@ -136,7 +239,8 @@ def test_compile_builds_only_the_route_tables(monkeypatch):
     monkeypatch.setattr(DT, "GRID_MAX_PRIMS", 1024)
     assert tables(scene.compile("cpu", mesh_kernel="sctree")) == [[], ["sctree"]]
     monkeypatch.setattr(DT, "GRID_MAX_PRIMS_HBM", 2000)
-    cs = scene.compile("cpu")
+    # a new scene: compile() caches per settings, and the limits are no setting
+    cs = scenes.terrain((16, 16), 40).compile("cpu")
     assert [g["variant"] for g in cs.unified["groups"]] == ["dense", "bvh"]
     assert tables(cs) == [[], ["bvh"]]
 

@@ -14,7 +14,8 @@
 - ``python -m pine_tpu_torch tiny.pine --platform cpu`` writes the PNG of
   the library render; without ``--platform cpu`` and without a card, and
   with an unported flag, it exits non-zero, and ``scenes.prl_scene`` of a
-  script that renders raises.
+  script that renders raises; ``python -m pine_tpu_torch.bench`` without a
+  card exits with status 1.
 """
 from __future__ import annotations
 
@@ -259,3 +260,14 @@ def test_cli_refuses_without_a_card(tmp_path):
     # scenes.prl_scene renders, if its script does, on the card too
     with pytest.raises(RuntimeError, match="device='cpu'"):
         scenes.prl_scene(TINY.split("scene.camera")[0])
+
+
+def test_bench_refuses_without_a_card(capsys):
+    """``python -m pine_tpu_torch.bench`` renders on the card only: without one
+    it exits with status 1 before it builds anything."""
+    from pine_tpu_torch import bench
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the bench runs there")
+    assert bench.main([]) == 1
+    assert "no CUDA device is available" in capsys.readouterr().out

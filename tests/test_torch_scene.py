@@ -65,11 +65,19 @@ def test_brute_force_intersect_matches(name):
     rd = _unit(rng, N)
     tmin = rng.uniform(0, 0.2, (N, 1)).astype(np.float32)
     tmax = np.where(rng.uniform(size=(N, 1)) < 0.5, 4.0, 1e30).astype(np.float32)
-    want = np.asarray(JI.INTERSECT[tid](*map(jnp.asarray, (params, ro, rd, tmin, tmax))))
-    got = PI.INTERSECT[tid](*map(torch.from_numpy, (params, ro, rd, tmin, tmax))).numpy()
+    inputs = (params, ro, rd, tmin, tmax)
+    snapshot = [x.copy() for x in inputs]
+    # each package gets its own copy (jnp.asarray and torch.from_numpy may
+    # both alias the numpy buffers), and the inputs must come back unchanged
+    want = np.array(JI.INTERSECT[tid](*(jnp.array(x) for x in inputs)))
+    got = PI.INTERSECT[tid](*(torch.from_numpy(x.copy()) for x in inputs)).numpy()
+    for x, x0 in zip(inputs, snapshot):
+        np.testing.assert_array_equal(x, x0)
     assert (want < 1e30).any()
     np.testing.assert_array_equal(got < 1e30, want < 1e30)
-    _close(got, want, rtol=1e-5, atol=1e-6)
+    bad = ~np.isclose(got, want, rtol=1e-5, atol=1e-6)
+    _close(got, want, rtol=1e-5, atol=1e-6, err_msg="lanes (ray, prim, port, pine_tpu): " + str(
+        [(int(i), int(j), float(got[i, j]), float(want[i, j])) for i, j in zip(*np.nonzero(bad))]))
 
 
 @pytest.mark.parametrize("name", list(TYPES))
