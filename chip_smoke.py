@@ -42,10 +42,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
       3,000 and 20,000 triangles and the terrain's group; beside it the grid
       kernel;
    j. the instanced kernel's MXU leaf form against its plain version on the
-      rock fields of 2x2 and 32x32; beside it the instanced kernel.
+      rock fields of 2x2 and 32x32; beside it the instanced kernel;
+   k. the cone-sweep probe (kernel 9, csrc/cone_probe.cu) in each of its
+      seven variants on the benchmark box's 424-row cone group and the
+      kernel lab's three ray sets of 65,536 rays (coherent, incoherent,
+      local); ``full`` then against the dense kernel on the same group and
+      rays (t to rtol 1e-5 / atol 1e-6, ids equal where either hits), and
+      ``inva`` against ``full`` (its largest deviation printed; t to rtol
+      1e-5 on the lanes both hit, plus, where the far root t0 + sq / a is
+      taken, INVA_ULPS ulps of the larger of those two terms, whose sum
+      cancels; ids different only at a tie within that tolerance, and no
+      lane hit by only one of the two).
    In b, c, f, g, i and j lanes may differ where a cull decides at a box
    face; at most GRID_MISMATCH_SHARE of them, and the counts are printed.
-   In a, d, e and h no lane may differ.
+   In a, d, e, h and k no lane may differ.
 3. Render parity, card (kernels) against CPU (plain versions): the reduced
    Cornell box (36 cones), the reduced terrain (grid 40, 3,042 triangles,
    the card also with the coherence sort forced on), a reduced rock field
@@ -54,7 +64,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    64x64, 4 spp, depth 4; and the reduced box with ``small_kernel``
    "scdense" and "mxup", the reduced terrain with ``mesh_kernel`` "sctree",
    "bvh" and "mxu" (its triangles made mesh-scale by a lower
-   GRID_MAX_PRIMS) and the reduced rock field with ``inst_kernel`` "mxu".
+   GRID_MAX_PRIMS) and the reduced rock field with ``inst_kernel`` "mxu";
+   the reduced house (scenes/house.pine at 48x48, 8 spp, the goldens'
+   patches) with PathIntegrator (depth 4) and CachedPathIntegrator (depth
+   4, grid 32), each beside its RMSE against its committed golden
+   (tests/goldens/house_*_48x48x8.npy, < 0.025 as tests/test_house.py).
 4. The main paths at full width through ``Scene.compile`` and
    ``render_wavefront`` on the card: the benchmark Cornell box (420 cones;
    built from bench.py's script through the port's PRL interpreter, as
@@ -87,13 +101,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``coherence_sort`` record times the launches of a 1-spp render with the
    sort on (the terrains: the octant key, on by default; rock field: the
    origin key, off by default and forced on here) and with its permutation
-   undone, beside the device time of the sort itself.
+   undone, beside the device time of the sort itself.  The house
+   (``scenes.house``: the GLB's 4,020 triangles on the grid kernel, one
+   DirectionalLight, the window's mesh light) at 640x640 with
+   PathIntegrator(BlueSampler(16), 5) as a main path (its kernel-line
+   entries ``grid_traverse.house.*``: the grid kernel held to its plain
+   version on every launch of a 1-spp render, the DirectionalLight's shadow
+   rays to t = 1e10 among them), then the script's own
+   CachedPathIntegrator(BlueSampler(128), 5, 128) once, launch counts zeroed
+   and read around it, its learning and render phases timed apart.  The
+   ``lab`` record: kernel 9's main path, the probe's chains on the box's
+   cone group and 65,536 coherent rays as ``python -m
+   pine_tpu_torch.lab.cone_probe`` runs them, launch counts zeroed just
+   before and read just after; its kernel-line entries (one per variant)
+   carry those times, each variant's own bound (its operations,
+   ``cone_probe.VARIANT_OPS``) beside the full sweep's, and phase 2k's
+   plain times.
 5. The CLI: the benchmark box's script plus a render and a save, run as
    ``python -m pine_tpu_torch cbox.pine`` in a subprocess on the card; its
    image must equal phase 4's in-process render of the box (same sampler,
    spp and seed) on 97 % of the pixels; then ``python -m
    pine_tpu_torch.bench`` (bench.py's counterpart) in a subprocess: its
-   JSON line finite, its traced rays within 0.5 % of phase 4's box.
+   JSON line finite, its traced rays within 0.5 % of phase 4's box; the
+   house script as written (640x640, CachedPathIntegrator(BlueSampler(128),
+   5, 128), its save to images/house3.png) with the GLB's path made
+   absolute, from build/chip_smoke/: its PNG finite and lit; ``python -m
+   pine_tpu_torch.lab.cone_probe``: seven records, ``full`` and ``inva``
+   finite, ``inva`` with ``max_dev_vs_full``; ``python -m
+   pine_tpu_torch.lab.kernel_lab``: a time for every workload, route and
+   ray set (a refused route, an error record, fails the phase).
 
 Per-case records and the full-width images go to build/chip_smoke/.  The
 last line is ``{"ok": true, "device": {...}}``.  Without a GPU, or
@@ -830,6 +866,122 @@ def phase_inst_mxu_vs_plain(dev):
     return recs
 
 
+def probe_t_of(variant, rows, args, lanes, ids):
+    """The t of row ``ids`` on ``lanes`` under the probe variant's cone test,
+    with no window above."""
+    import torch
+
+    from pine_tpu_torch.lab import cone_probe as CP
+
+    ro, rd, tmin = (x[lanes] for x in args[:3])
+    rows_k = rows[ids.long()]
+    return CP.variant_test(variant)(lambda c: rows_k[:, c], tuple(ro.T), tuple(rd.T), tmin,
+                                    torch.full_like(tmin, 1e30))
+
+
+INVA_ULPS = 4  # the two far-root terms, each rounded in two operations per form
+
+
+def cone_far_terms(rows, ro, rd, ids):
+    """max(|t0|, |sq / a|) of the cone test at row ``ids`` of each lane: the
+    two terms whose sum is a far root (csrc/prim_tests.cuh::test_cone)."""
+    import torch
+
+    r = rows[ids.long()]
+    o = [ro[:, k] - r[:, k] for k in range(3)]
+    d = [rd[:, k] for k in range(3)]
+    n = [r[:, 3 + k] for k in range(3)]
+    A2 = r[:, 6]
+    dn = d[0] * n[0] + d[1] * n[1] + d[2] * n[2]
+    on = o[0] * n[0] + o[1] * n[1] + o[2] * n[2]
+    dd = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+    od = o[0] * d[0] + o[1] * d[1] + o[2] * d[2]
+    oo = o[0] * o[0] + o[1] * o[1] + o[2] * o[2]
+    a = -A2 * dn * dn + dd
+    b = 2.0 * (-A2 * on * dn + od)
+    c = -A2 * on * on + oo
+    sq = torch.sqrt(torch.clamp_min(b * b - 4.0 * a * c, 0.0))
+    a_safe = torch.where(a == 0.0, 1e-6, a)
+    return torch.maximum(((-b - sq) / (2.0 * a_safe)).abs(), (sq / a_safe).abs())
+
+
+def phase_probe_vs_plain(dev):
+    """Phase 2k: kernel 9 in each variant against probe_plain on the box's
+    cone group and the lab's three ray sets, bit for bit; ``full`` against
+    the dense kernel, ``inva`` against ``full`` (module docstring)."""
+    import torch
+
+    from pine_tpu_torch.lab import cone_probe as CP
+    from pine_tpu_torch.lab import kernel_lab as KL
+
+    DT = module("dense")
+    g, lo, hi = KL.build_cone_group(dev)
+    rows = g["rows"]
+    recs = []
+    for rayset in KL.RAYSETS:
+        o, d = KL.synth_rays(N_RAYS, rayset, lo, hi)
+        ro, rd = torch.as_tensor(o, device=dev), torch.as_tensor(d, device=dev)
+        tmin = torch.full((N_RAYS,), 1e-3, device=dev)
+        bt = torch.full((N_RAYS,), 1e30, device=dev)
+        be = torch.zeros(N_RAYS, dtype=torch.int32, device=dev)
+        args = (ro, rd, tmin, bt, be)
+        out = {}
+        for v in CP.VARIANTS:
+            t_k, e_k = out[v] = CP.probe_cuda(v, rows, *args)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            t_p, e_p = CP.probe_plain(v, rows, *args)
+            end.record()
+            torch.cuda.synchronize()
+            differ = (t_k.view(torch.int32) != t_p.view(torch.int32)) | (e_k != e_p)
+            fin = (t_k < 1e30) & (t_p < 1e30)
+            recs.append(dict(kernel="cone_probe", group=f"cone[424] {rayset}", form=v,
+                             max_abs_err=float((t_k - t_p)[fin].abs().max()) if fin.any() else 0.0,
+                             lanes_differ=int(differ.sum()), hit_lanes=int((t_k < 1e30).sum()),
+                             ms=cuda_ms(lambda: CP.probe_cuda(v, rows, *args), 10),
+                             plain_ms=start.elapsed_time(end)))
+            if differ.any():
+                fail(f"cone_probe.{v} differs from probe_plain on {rayset} rays: {recs[-1]}")
+        # full is the dense kernel's sweep without its cull
+        t_f, e_f = out["full"]
+        t_d, e_d = DT.dense_cuda(g["tid"], rows, g["gbox"], ro, rd, tmin, bt, bt, be, False)
+        hit = (t_f < 1e30) | (t_d < 1e30)
+        bad = ~(torch.isclose(t_f, t_d, rtol=T_RTOL, atol=T_ATOL) | (t_f == t_d)) \
+            | (hit & (e_f != e_d))
+        full_rec = next(r for r in recs[-len(CP.VARIANTS):] if r["form"] == "full")
+        full_rec["vs_dense"] = dict(lanes_differ=int(bad.sum()), hit_lanes=int(hit.sum()),
+                                    bit_equal=bool(torch.equal(t_f.view(torch.int32),
+                                                               t_d.view(torch.int32))
+                                                   and torch.equal(e_f, e_d)))
+        if bad.any():
+            fail(f"cone_probe.full differs from the dense kernel on {rayset} rays: {full_rec}")
+        # inva: the same roots through one reciprocal.  Where the far root is
+        # taken (t0 < tmin), t = t0 + sq / a sums two terms of opposite sign
+        # far larger than t, so the two forms may differ there by the rounding
+        # of those terms: INVA_ULPS ulps of the larger, beyond rtol 1e-5
+        t_i, e_i = out["inva"]
+        both = (t_f < 1e30) & (t_i < 1e30)
+        flips = int(((t_f < 1e30) ^ (t_i < 1e30)).sum())
+        far = cone_far_terms(rows, ro[both], rd[both], e_f[both])
+        slack = torch.zeros_like(t_f)
+        slack[both] = INVA_ULPS * (torch.nextafter(far, torch.full_like(far, 1e38)) - far)
+        beyond = both & ((t_i - t_f).abs() > T_RTOL * t_f.abs() + slack)
+        beyond_rtol = both & ~torch.isclose(t_i, t_f, rtol=T_RTOL, atol=0.0)
+        lanes = torch.nonzero(both & (e_i != e_f)).squeeze(1)
+        ties = torch.isclose(probe_t_of("full", rows, args, lanes, e_i[lanes]),
+                             probe_t_of("full", rows, args, lanes, e_f[lanes]), rtol=T_RTOL,
+                             atol=0.0)
+        inva_rec = next(r for r in recs[-len(CP.VARIANTS):] if r["form"] == "inva")
+        inva_rec["vs_full"] = dict(
+            max_dev_both_hit=float((t_i - t_f)[both].abs().max()) if both.any() else 0.0,
+            both_hit=int(both.sum()), lanes_beyond_rtol=int(beyond_rtol.sum()),
+            lanes_beyond_rtol_and_far_root_ulps=int(beyond.sum()),
+            ids_differ=int(lanes.numel()), not_ties=int((~ties).sum()), hit_flips=flips)
+        if beyond.any() or not ties.all() or flips:
+            fail(f"cone_probe.inva disagrees with full on {rayset} rays: {inva_rec}")
+    return recs
+
+
 # ---------------------------------------------------------------- phase 3 ----
 
 def force_sort(cs, mode):
@@ -873,6 +1025,38 @@ def render_parity(what, make_scene, sort=None, kernels=None):
         fail(f"card render disagrees with the CPU render: {rec}")
 
 
+# the reduced house of tests/test_house.py's goldens: integrator, golden file
+HOUSE_GOLDENS = {"path": ("PathIntegrator(BlueSampler(8), 4)", "house_path_48x48x8.npy"),
+                 "cached": ("CachedPathIntegrator(BlueSampler(8), 4, 32)",
+                            "house_cached_48x48x8.npy")}
+
+
+def house_parity():
+    """The reduced house (48x48, 8 spp) rendered by its script on the card and
+    on the CPU, for each integrator: the port's render-parity rule, and each
+    tone-mapped image's RMSE against its committed golden below 0.025."""
+    import numpy as np
+
+    from pine_tpu_torch import scenes
+
+    for name, (expr, golden) in HOUSE_GOLDENS.items():
+        card, cpu = scenes.house(48, expr), scenes.house(48, expr, device="cpu")
+        g, c = card.camera.film.rgb.cpu().numpy(), cpu.camera.film.rgb.numpy()
+        d = np.abs(g - c)
+        agree = float(((d <= 1e-3 * np.abs(c)) | (d <= 1e-4)).all(-1).mean())
+        ref = np.load(os.path.join(ROOT, "tests", "goldens", golden)).astype(np.float32)
+        rmse = {dev: float(np.sqrt(np.mean((f.camera.film.finalized() - ref) ** 2)))
+                for dev, f in (("cuda", card), ("cpu", cpu))}
+        rec = dict(phase="render_parity", scene=f"reduced house, {expr}", size="48x48x8spp",
+                   pixels_agree=agree, mean_cuda=float(g.mean()), mean_cpu=float(c.mean()),
+                   finite=bool(np.isfinite(g).all()), golden=golden,
+                   rmse_vs_golden_cuda=rmse["cuda"], rmse_vs_golden_cpu=rmse["cpu"])
+        emit(rec)
+        if not (rec["finite"] and agree >= 0.97 and abs(g.mean() - c.mean()) <= 0.01 * abs(c.mean())
+                and max(rmse.values()) < 0.025):
+            fail(f"the reduced house disagrees between card and CPU or with its golden: {rec}")
+
+
 def lazy_field(size, n_side, rock_grid):
     """scenes.instanced with its instancing kept lazy however small."""
     from pine_tpu_torch import scenes
@@ -914,6 +1098,7 @@ def phase_render_parity():
                           dict(mesh_kernel=kernel))
     finally:
         DT.GRID_MAX_PRIMS = limit
+    house_parity()
 
 
 # ---------------------------------------------------------------- phase 4 ----
@@ -1181,9 +1366,10 @@ def tree_work(kind, g, args, any_hit, out_k):
                              rows_read=n_rows, table_bytes_read=4 * table_words)
 
 
-def kernel_line_entry(kind, form, calls, launches, checked=None):
+def kernel_line_entry(kind, form, calls, launches, checked=None, label=None):
     """Time one kernel form on the recorded main-path launches (every launch
-    of one 1-spp render).  ms and bound_ms are means per launch and the work
+    of one 1-spp render); ``label`` names the path in the entry's name where
+    another path's entries time the same kernel.  ms and bound_ms are means per launch and the work
     counts sums over the launches; the plain version runs, and the kernel is
     held to it, on every launch, or on the first ``checked`` of them, and
     plain_ms is the mean over those."""
@@ -1231,7 +1417,7 @@ def kernel_line_entry(kind, form, calls, launches, checked=None):
     base = {"grid_mxu": "grid_traverse.mxu", "inst_mxu": "inst_traverse.mxu"}.get(
         kind, KERNELS[kind][0])
     entry = dict(
-        name=f"{base}.{form}", route="cuda", source=KERNELS[kind][4],
+        name=f"{base}.{label}.{form}" if label else f"{base}.{form}", route="cuda", source=KERNELS[kind][4],
         replaces=KERNELS[kind][5], launches=launches, max_abs_err=err,
         ms=sum(ms_each) / k, plain_ms=sum(plain_each) / len(plain_each), bound_ms=bound / k,
         bound_by="operations" if ops / FP32_OPS_PER_S > nbytes / HBM_BYTES_PER_S else "bytes",
@@ -1356,13 +1542,15 @@ def record_launches(cs, kinds, render):
 
 
 def phase_main_path(dev_name, tag, what, scene, groups_want, heavy_want, kinds,
-                    size=MAIN_SIZE, spp=MAIN_SPP, depth=MAIN_DEPTH, kernels=None, checked=None):
+                    size=MAIN_SIZE, spp=MAIN_SPP, depth=MAIN_DEPTH, kernels=None, checked=None,
+                    label=None):
     """One main path at full width: compile on the card (routed under the
     forced-kernel settings ``kernels``), record the kernels' inputs, warm up,
     three timed renders (launch counts zeroed just before the first, read
     just after), the image checked and saved, a profile, and the kernel
     line's entries for ``kinds`` (the plain version on the first ``checked``
-    launches of each form, or on all).  -> (entries, compiled scene)."""
+    launches of each form, or on all; ``label`` as kernel_line_entry's).
+    -> (entries, compiled scene)."""
     import numpy as np
     import torch
 
@@ -1419,7 +1607,7 @@ def phase_main_path(dev_name, tag, what, scene, groups_want, heavy_want, kinds,
     profile_render(tag, lambda: render(2))
 
     entries = [kernel_line_entry(kind, form, recorded[(kind, any_hit)],
-                                 launches[f"{kind}.{form}"], checked)
+                                 launches[f"{kind}.{form}"], checked, label)
                for kind in kinds for form, any_hit in (("closest", False), ("any_hit", True))]
     if (cs.heavy_traversal or cs.inst_traversal) and not kernels:
         emit(coherence_sort_record(cs, tag, kinds, lambda: render(1), W * H))
@@ -1459,6 +1647,84 @@ def kernel_ab_record(cs, scene, what, tid, kinds, size=MAIN_SIZE, depth=MAIN_DEP
                     launch(kinds[0], g, a, any_hit), launch(kind, g, a, any_hit), any_hit)
                     for a in calls)
     emit(rec)
+
+
+def phase_house(dev_name):
+    """The house at 640x640: PathIntegrator(BlueSampler(16), 5) as a main path,
+    its grid kernel held to grid_plain on every launch of a 1-spp render
+    (the DirectionalLight's shadow rays to t = 1e10 among them) -> its
+    kernel-line entries; then the script's CachedPathIntegrator(
+    BlueSampler(128), 5, 128) once, launch counts zeroed just before and
+    read just after, its phases timed."""
+    import numpy as np
+    import torch
+
+    from pine_tpu_torch import scenes
+    from pine_tpu_torch.accel import dense_traverse as DT
+    from pine_tpu_torch.core.samplers import BlueSampler
+    from pine_tpu_torch.integrators.cachedpath import render_cached
+
+    scene = scenes.house(MAIN_SIZE)
+    entries, cs = phase_main_path(dev_name, "house", "house.pine: GLB, 4,020 triangles, "
+                                  "DirectionalLight + window mesh light, PathIntegrator",
+                                  scene, [("grid", 6, 4020)], False, ["grid"], depth=5,
+                                  label="house")
+    W = H = MAIN_SIZE
+    torch.cuda.synchronize()
+    DT.reset_launches()
+    t0 = time.perf_counter()
+    img, st = render_cached(cs, scene.camera, W, H, BlueSampler(128), 128, 5, scene.get_aabb(),
+                            128, 1, return_stats=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(DT.LAUNCHES)
+    img = img.cpu().numpy()
+    rec = dict(phase="main_path", scene="house.pine as written: CachedPathIntegrator("
+               "BlueSampler(128), 5, 128)", size=f"{W}x{H}", spp=128, learning_spp=32, depth=5,
+               device=dev_name, wall_s=wall, learn_s=st["learn_s"], render_s=st["render_s"],
+               traced_rays=st["traced_rays"], mrays_per_s=st["traced_rays"] / wall / 1e6,
+               finite=bool(np.isfinite(img).all()), mean=float(img.mean()), launches=launches)
+    emit(rec)
+    if not (rec["finite"] and img.mean() > 0) or min(
+            launches["grid.closest"], launches["grid.any_hit"]) <= 0:
+        fail(f"the house's cached render is not finite and lit, or skipped the grid kernel: {rec}")
+    scene.camera.film.set_rgb(torch.from_numpy(img))
+    scene.camera.film.save(os.path.join(OUT_DIR, "chip_smoke_house_cached.png"))
+    return entries
+
+
+def phase_lab(dev_name, probe_recs):
+    """Kernel 9's main path: the probe's timed chains, as ``python -m
+    pine_tpu_torch.lab.cone_probe`` runs them, launch counts zeroed just
+    before and read just after -> its kernel-line entries, with phase 2k's
+    plain times on the same (coherent) rays."""
+    import torch
+
+    from pine_tpu_torch.lab import cone_probe as CP
+
+    inputs = CP.probe_inputs(torch.device("cuda"))
+    CP.reset_launches()
+    recs = [CP.time_variant(v, inputs)[0] for v in CP.VARIANTS]
+    launches = dict(CP.LAUNCHES)
+    emit(dict(phase="lab", device=dev_name, what="cone probe chains, box cone group, "
+              f"{N_RAYS} coherent rays, chain {CP.CHAIN}, min of 3", records=recs,
+              launches=launches))
+    if min(launches.values()) <= 0:
+        fail(f"the probe's main path skipped a variant: {launches}")
+    checked = {r["form"]: r for r in probe_recs if r["group"] == "cone[424] coherent"}
+    return [dict(name=f"cone_probe.{r['variant']}", route="cuda",
+                 source="pine_tpu_torch/csrc/cone_probe.cu", replaces="scripts_cone_probe.py:97",
+                 launches=launches[r["variant"]], max_abs_err=checked[r["variant"]]["max_abs_err"],
+                 ms=checked[r["variant"]]["ms"], plain_ms=checked[r["variant"]]["plain_ms"],
+                 bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
+                 inputs=f"cone[424] x {N_RAYS} coherent rays, no cull; ms the mean of 10 "
+                        "launches back to back (phase 2k), chain_ms per link of the probe's "
+                        f"chains of {CP.CHAIN}, min of 3; bound_ms the variant's own "
+                        "operations (cone_probe.VARIANT_OPS), full_bound_ms the full sweep's",
+                 chain_ms=r["per_call_ms"], full_bound_ms=r["full_bound_ms"],
+                 x_bound=checked[r["variant"]]["ms"] / r["bound_ms"],
+                 ns_per_pair=checked[r["variant"]]["ms"] * 1e6 / (N_RAYS * r["n_prims"]))
+            for r in recs]
 
 
 # ---------------------------------------------------------------- phase 5 ----
@@ -1572,6 +1838,79 @@ def phase_bench(box_rays):
         fail(f"the bench's result is not finite or its traced rays differ from phase 4's: {rec}")
 
 
+def run_module(args, what, timeout=600):
+    """``python -m`` ``args`` from build/chip_smoke/ -> (completed process,
+    wall seconds, the JSON objects of its output lines)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=OUT_DIR,
+                          env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True, text=True,
+                          timeout=timeout)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"{what} failed: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    out = []
+    for line in proc.stdout.splitlines():
+        try:
+            out.append(json.loads(line))
+        except ValueError:
+            pass
+    return proc, wall, out
+
+
+def phase_house_cli():
+    """The house script as written, its GLB's path made absolute, through the
+    CLI from build/chip_smoke/: its images/house3.png finite and lit."""
+    import numpy as np
+
+    from pine_tpu_torch import scenes
+
+    out = os.path.join(OUT_DIR, "images", "house3.png")
+    if os.path.exists(out):
+        os.remove(out)
+    script = os.path.join(OUT_DIR, "house.pine")
+    with open(script, "w") as f:
+        f.write(scenes.house_prl(save="images/house3.png"))
+    proc, wall, _ = run_module(["pine_tpu_torch", script], "the house CLI")
+    lines = proc.stdout.strip().splitlines()
+    img = read_png(out).astype(np.float32) if os.path.exists(out) else np.zeros(1)
+    rec = dict(phase="cli", command="python -m pine_tpu_torch house.pine", wall_s=wall,
+               finished=lines[-1] if lines else "", png=os.path.exists(out),
+               size=list(img.shape), mean=float(img.mean()))
+    emit(rec)
+    if not (rec["png"] and img.shape == (640, 640, 3) and img.mean() > 0
+            and rec["finished"].startswith("Finished in")):
+        fail(f"the house CLI's image is missing or not lit: {rec}")
+
+
+def phase_lab_modules():
+    """``python -m pine_tpu_torch.lab.cone_probe`` (seven records, full and
+    inva finite, inva with max_dev_vs_full) and ``python -m
+    pine_tpu_torch.lab.kernel_lab`` (every workload, route and ray set timed:
+    the port's groups take every route the lab asks for)."""
+    import math
+
+    from pine_tpu_torch.lab import cone_probe as CP
+    from pine_tpu_torch.lab import kernel_lab as KL
+
+    _, wall, out = run_module(["pine_tpu_torch.lab.cone_probe"], "the cone probe")
+    recs = {r["variant"]: r for r in out if "variant" in r}
+    emit(dict(phase="lab_module", command="python -m pine_tpu_torch.lab.cone_probe",
+              wall_s=wall, records=list(recs.values())))
+    if sorted(recs) != sorted(CP.VARIANTS) or not all(
+            math.isfinite(recs[v]["per_call_ms"]) for v in ("full", "inva")) \
+            or "max_dev_vs_full" not in recs["inva"]:
+        fail(f"the cone probe's records are incomplete: {recs}")
+    _, wall, out = run_module(["pine_tpu_torch.lab.kernel_lab"], "the kernel lab", 900)
+    recs = [r for r in out if "workload" in r]
+    want = sorted((w, v, s) for w, vs in KL.WORKLOADS.items() for v in vs for s in KL.RAYSETS)
+    got = sorted((r["workload"], r["variant"], r.get("rays")) for r in recs
+                 if math.isfinite(r.get("per_call_ms", math.nan)))
+    emit(dict(phase="lab_module", command="python -m pine_tpu_torch.lab.kernel_lab",
+              wall_s=wall, records=recs))
+    if got != want or len(recs) != len(want):
+        fail(f"the kernel lab did not time every route and ray set: {recs}")
+
+
 def main():
     try:
         import torch
@@ -1604,7 +1943,8 @@ def main():
     logs = cuda_build.build(sources)
     emit(dict(phase="build", sources=sources + ["bvh_builder.cpp"], bvh_builder_s=native_s,
               seconds=time.perf_counter() - t0,
-              ptxas={k: [ln for ln in v.splitlines() if "registers" in ln or "spill" in ln]
+              ptxas={k: [ln for ln in v.splitlines() if "registers" in ln or "spill" in ln
+                         or "Compiling entry function" in ln]
                      for k, v in logs.items()}))
 
     dev = torch.device("cuda")
@@ -1615,9 +1955,11 @@ def main():
               ("sctree", lambda dev: phase_tree_vs_plain(dev, "sctree", None)),
               ("bvh", lambda dev: phase_tree_vs_plain(dev, "bvh", terrain_group(dev, 1002))),
               ("mxup", phase_mxup_vs_plain), ("grid_mxu", phase_grid_mxu_vs_plain),
-              ("inst_mxu", phase_inst_mxu_vs_plain))
+              ("inst_mxu", phase_inst_mxu_vs_plain), ("cone_probe", phase_probe_vs_plain))
     for kind, phase in phases:
         recs = phase(dev)
+        if kind == "cone_probe":
+            probe_recs = recs
         with open(os.path.join(OUT_DIR, f"chip_smoke_{kind}.json"), "w") as f:
             json.dump(recs, f, indent=1)
         emit(dict(phase="kernel_vs_plain", kernel=kind, cases=len(recs),
@@ -1691,8 +2033,12 @@ def main():
         name, "instanced_mxu", "bench_instanced rock field, 1,024 x 4,802 triangles + plane + "
         "rect, inst_kernel mxu", field, [("dense", 1, 1), ("dense", 3, 1), ("inst_mxu", 6, 1024)],
         False, ["inst_mxu"], INST_SIZE, INST_SPP, INST_DEPTH, kernels=dict(inst_kernel="mxu"))[0]
+    kernels += phase_house(name)
+    kernels += phase_lab(name, probe_recs)
     phase_cli()
     phase_bench(MAIN_RAYS["cbox"])
+    phase_house_cli()
+    phase_lab_modules()
     emit(dict(phase="done", seconds=time.perf_counter() - t_start))
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

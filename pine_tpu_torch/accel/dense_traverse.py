@@ -70,6 +70,12 @@ GRID_MAX_PRIMS = 8192  # groups over this many prims are mesh-scale (mesh_kernel
 GRID_MAX_PRIMS_HBM = 2_000_000  # groups over this many prims take the BVH walk
 VARIANTS = ("dense", "scdense", "lattice", "grid", "sctree", "bvh", "mxu", "mxup")
 
+
+class RouteRefused(ValueError):
+    """A route the group cannot take (the BVH walk on a group without SAH
+    node arrays)."""
+
+
 # kernel launches, counted where a wrapper launches its CUDA kernel
 LAUNCHES = {f"{k}.{form}": 0 for k in ("dense", "scdense", "grid", "sctree", "bvh", "inst",
                                        "lattice", "mxup", "grid_mxu", "inst_mxu")
@@ -388,7 +394,7 @@ def group_variant(g, small_kernel=None, mesh_kernel=None):
             return "grid_mxu"
         return "dense" if n_rows <= DENSE_DEFAULT_MAX else "grid"
     if forced == "bvh" and g.get("kind") != "bvh":
-        raise ValueError(f"the bvh route needs a SAH-ordered group; this {g.get('kind')} "
+        raise RouteRefused(f"the bvh route needs a SAH-ordered group; this {g.get('kind')} "
                          f"group of {n_prims} prims has no node arrays")
     if forced is not None and (forced != "lattice" or lattice):
         return forced
@@ -422,7 +428,7 @@ def prepare(g, variant):
         g["sctree"] = grid_traverse.upload_layout(sctree.sc_tree_layout(pa), dev)
     elif variant == "bvh" and "bvh" not in g:
         if g.get("nodes") is None:
-            raise ValueError("the bvh route needs the group's SAH node arrays")
+            raise RouteRefused("the bvh route needs the group's SAH node arrays")
         g["bvh"] = bvh_traverse.bvh_layout(g["nodes"], pa, dev)
 
 

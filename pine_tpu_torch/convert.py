@@ -3,8 +3,9 @@
 ``scene_arrays(scene)`` flattens a port Scene; ``compiled_scene_from_arrays``
 uploads such a dict once and returns the CompiledScene the renderer reads.
 The format is plain numpy, so the same geometry can come from pine_tpu's
-compiled scene (its tests flatten one into this dict): both packages then
-trace identical rows in identical order, and entity ids compare directly.
+compiled scene (its tests flatten one into this dict; ``material_record``
+takes pine_tpu's materials too): both packages then trace identical rows in
+identical order, and entity ids compare directly.
 
 Keys (``i`` counts from 0):
 
@@ -49,10 +50,20 @@ Keys (``i`` counts from 0):
   ``geom_n`` float32 (E, 3) triangle geometric normals; ``tri_n`` float32
   (E, 9) and ``tri_t`` (E, 6) the three vertex normals and texcoords;
   ``tri_has_n``, ``tri_has_t`` bool (E,) whether the mesh had them;
-- ``n_materials``; ``mat.<i>.tag``, ``.albedo`` (3,), ``.roughness``,
-  ``.ior``, ``.color`` (3,);
-- ``n_lights``; ``light.<i>.kind`` ("point", "area" or "mesh"); a point
-  light has ``.position`` and ``.color``; an area light ``.tid``,
+- ``n_materials``; ``mat.<i>.tag``; for each parameter (``albedo``,
+  ``roughness``, ``metallic``, ``transmission``, ``ior``, ``color``; one
+  missing takes materials.PARAMS' value) either ``mat.<i>.<param>``, a
+  constant (albedo and color (3,), the others scalars), or
+  ``mat.<i>.<param>.node``, a node tree as a JSON string: ``["const",
+  value]``, ``["uv"]``, ``[op, a, b]`` for op in + - * / ^, ``["texture",
+  p, k]`` reading image ``k``;
+- ``n_images``; ``image.<k>`` float32 (H, W, C), the texture images the
+  node trees read, each once;
+- ``n_lights``, in pine_tpu's order: the scene's point and directional
+  lights as added, then the emissive shapes in geometry order;
+  ``light.<i>.kind`` ("point", "directional", "area" or "mesh"); a point
+  light has ``.position`` and ``.color``; a directional light
+  ``.direction`` (unit, float32) and ``.color``; an area light ``.tid``,
   ``.params``, ``.gidx`` and ``.color``; a mesh light ``.tris`` float32
   (F, 9) (the mesh's triangles [v0, v1, v2] in mesh order), ``.gidx`` and
   ``.color``;
@@ -60,6 +71,8 @@ Keys (``i`` counts from 0):
   ``cam.fov2d`` (2,), ``cam.len_radius``, ``cam.focus_distance``.
 """
 from __future__ import annotations
+
+import json
 
 import numpy as np
 import torch
@@ -71,6 +84,7 @@ from pine_tpu_torch.accel.packet import box_corners, build_packet_accel, instanc
 from pine_tpu_torch.core.place import resolve_device
 from pine_tpu_torch.scene import lights as L
 from pine_tpu_torch.scene import materials as M
+from pine_tpu_torch.scene import nodes as N
 from pine_tpu_torch.scene import shapes as S
 from pine_tpu_torch.scene.scene import BIG, CompiledScene, check_ported
 
@@ -111,7 +125,7 @@ def scene_arrays(scene) -> dict:
             meshes.append((shape, gidx))
             if mat.is_emissive():
                 area_lights.append(dict(kind="mesh", tris=shape.triangles(), gidx=gidx,
-                                        color=M.material_arrays(mat)["color"]))
+                                        color=N.constant_vec3(mat.color)))
             continue
         tid = shape.type_id
         rows = per_type.setdefault(tid, [])
@@ -121,7 +135,7 @@ def scene_arrays(scene) -> dict:
         prims.append((tid, shape.params(), gidx, (lo, hi)))
         if mat.is_emissive():
             area_lights.append(dict(kind="area", tid=tid, params=shape.params(), gidx=gidx,
-                                    color=M.material_arrays(mat)["color"]))
+                                    color=N.constant_vec3(mat.color)))
     inst_records = []
     for inst in scene.instancings:
         corners = box_corners(*inst.shape.get_aabb())
@@ -162,18 +176,14 @@ def scene_arrays(scene) -> dict:
             a[k] = accel[k]
 
     a["n_materials"] = np.asarray(len(mat_slots))
+    images = []
     for i, mat in enumerate(mat_slots):
-        for k, v in M.material_arrays(mat).items():
-            a[f"mat.{i}.{k}"] = np.asarray(v)
+        a.update({f"mat.{i}.{k}": v for k, v in material_record(M.check_ported(mat), images)
+                  .items()})
+    a["n_images"] = np.asarray(len(images))
+    a.update({f"image.{k}": im for k, im in enumerate(images)})
 
-    lights = []
-    for li in scene.lights:
-        if not isinstance(li, L.PointLight):
-            raise NotImplementedError(
-                f"{type(li).__name__} is not ported yet (ROADMAP.md, modules item 10)"
-            )
-        lights.append(dict(kind="point", position=li.position, color=li.color))
-    lights += area_lights
+    lights = [light_record(li) for li in scene.lights] + area_lights
     a["n_lights"] = np.asarray(len(lights))
     for i, li in enumerate(lights):
         for k, v in li.items():
@@ -187,6 +197,68 @@ def scene_arrays(scene) -> dict:
         a["cam.len_radius"] = np.asarray(cam.len_radius)
         a["cam.focus_distance"] = np.asarray(cam.focus_distance)
     return a
+
+
+def node_spec(node, images):
+    """A node tree (of the port's nodes or pine_tpu's, by class name) as a
+    JSON-able spec (module docstring); texture images are appended to
+    ``images`` once each."""
+    kind = type(node).__name__
+    if not hasattr(node, "eval"):  # a plain value (pine_tpu's Uber keeps ior as a float)
+        return ["const", np.asarray(node, np.float32).tolist()]
+    if kind == "Constant":
+        return ["const", np.asarray(node.value, np.float32).tolist()]
+    if kind == "UV":
+        return ["uv"]
+    if kind == "Binary":
+        return [node.op, node_spec(node.a, images), node_spec(node.b, images)]
+    if kind == "Texture":
+        image = np.array(node.image, np.float32)  # a copy: pine_tpu's are read-only
+        k = next((k for k, im in enumerate(images) if np.array_equal(im, image)), None)
+        if k is None:
+            images.append(image)
+            k = len(images) - 1
+        return ["texture", node_spec(node.p, images), k]
+    raise NotImplementedError(f"{kind} nodes are not ported yet (ROADMAP.md, modules item 10)")
+
+
+def node_of(spec, images):
+    """The port's node of a spec of ``node_spec``; ``images`` (H,W,C) arrays."""
+    if spec[0] == "const":
+        return N.Constant(spec[1])
+    if spec[0] == "uv":
+        return N.UV()
+    if spec[0] == "texture":
+        return N.Texture(node_of(spec[1], images), images[spec[2]])
+    return N.Binary(spec[0], node_of(spec[1], images), node_of(spec[2], images))
+
+
+def material_record(mat, images) -> dict:
+    """One material (the port's, or pine_tpu's by its attributes) as the
+    ``mat.<i>.*`` keys without their prefix: ``tag``, and each parameter a
+    constant or a ``.node`` spec (module docstring)."""
+    rec = {"tag": np.asarray(mat.tag)}
+    for name, default in M.PARAMS.items():
+        spec = node_spec(getattr(mat, name, default), images)
+        if spec[0] != "const":
+            rec[f"{name}.node"] = np.asarray(json.dumps(spec))
+        elif name in ("albedo", "color"):
+            rec[name] = np.broadcast_to(np.asarray(spec[1], np.float32).reshape(-1), (3,)).copy()
+        else:
+            rec[name] = np.asarray(np.asarray(spec[1], np.float32).reshape(-1)[0])
+    return rec
+
+
+def light_record(li) -> dict:
+    """A scene light (the port's, or pine_tpu's by its attributes) as the
+    ``light.<i>.*`` keys without their prefix."""
+    kind = type(li).__name__
+    if kind == "PointLight":
+        return dict(kind="point", position=li.position, color=li.color)
+    if kind == "DirectionalLight":
+        return dict(kind="directional", direction=li.direction, color=li.color)
+    raise NotImplementedError(f"{kind} is not ported yet (ROADMAP.md, modules item "
+                              f"{3 if kind == 'SpotLight' else 10})")
 
 
 def carry_lattice(lat):
@@ -256,14 +328,15 @@ def compiled_scene_from_arrays(arrays: dict, device=None, small_kernel=None,
                        ent_gidx=t(arrays["ent_gidx"], torch.int32))
         unified.update({k: t(arrays[k]) for k in MESH_KEYS if k in arrays})
 
+    images = [arrays[f"image.{k}"] for k in range(int(arrays.get("n_images", 0)))]
     materials = []
     for i in range(int(arrays["n_materials"])):
-        get = lambda k: arrays[f"mat.{i}.{k}"]  # noqa: E731
-        materials.append(dict(
-            tag=int(get("tag")), albedo=t(get("albedo"), torch.float32),
-            roughness=t(get("roughness"), torch.float32),
-            ior=t(get("ior"), torch.float32), color=t(get("color"), torch.float32),
-        ))
+        mat = {"tag": int(arrays[f"mat.{i}.tag"])}
+        for name, default in M.PARAMS.items():
+            key = f"mat.{i}.{name}"
+            mat[name] = (node_of(json.loads(str(arrays[key + ".node"])), images)
+                         if key + ".node" in arrays else N.Constant(arrays.get(key, default)))
+        materials.append(mat)
 
     lights = []
     for i in range(int(arrays["n_lights"])):
@@ -271,6 +344,8 @@ def compiled_scene_from_arrays(arrays: dict, device=None, small_kernel=None,
         kind = str(get("kind"))
         if kind == "point":
             lights.append(L.PointLight(get("position"), get("color")))
+        elif kind == "directional":
+            lights.append(L.DirectionalLight.unit(get("direction"), get("color")))
         elif kind == "mesh":
             lights.append(L.MeshLight(get("tris"), int(get("gidx")),
                                       t(get("color"), torch.float32), dev))

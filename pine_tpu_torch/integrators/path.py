@@ -18,8 +18,12 @@ put in coherence-sort order once (CompiledScene.sort_perm); the permutation
 serves that depth's NEE shadow rays and the next depth's intersect.  Depth 0
 is not sorted: the tile-major primary rays are coherent already.
 
-Media, subsurface walks and environment lights are not ported yet (their
-scenes are refused at compile()).
+Material parameters are evaluated per lane at the hit (its ``p``, ``n`` and
+``uv``, so textures look up there), and Uber's lobe choice reads dims +3 and
++4.  NEE samples one light of the list uniformly: point and directional
+lights (delta, no MIS) and the emissive shapes.  Media, subsurface walks
+and environment lights are not ported yet (their scenes are refused at
+compile()).
 """
 from __future__ import annotations
 
@@ -153,67 +157,61 @@ def nee_contribution(cscene, p_s, ns, state, wi, ls, alive, sort_perm=None):
     return torch.where((do_nee & ~occluded)[:, None], contrib, 0.0), do_nee
 
 
-def path_trace_sample(cscene, cp, xs, ys, W, H, sampler, sample_index, max_depth, nee=True):
-    """One sample per pixel through the depth loop -> (L (N,3), traced rays)."""
-    n = xs.shape[0]
-    dev = xs.device
-    n_rays = torch.zeros((), dtype=torch.int64, device=dev)
+class PathWalk:
+    """One sample's walk through the depth loop: the state carried from depth
+    to depth, moved by ``hit`` (the intersect and the emissive hit) and
+    ``scatter`` (material, BSDF sample, NEE).  The path integrator and both
+    phases of the cached one (integrators/cachedpath.py) walk it."""
 
-    jitter = sampler.u2(xs, ys, sample_index, 0)
-    u_lens = sampler.u2(xs, ys, sample_index, 2)
-    wh = torch.tensor([W, H], dtype=torch.float32, device=dev)
-    p_film = (torch.stack([xs, ys], -1).to(torch.float32) + jitter) / wh
-    ro, rd = camera_mod.gen_rays(cp, p_film, u_lens)
-    ro, rd = ro.contiguous(), rd.contiguous()
+    def __init__(self, cp, xs, ys, W, H, sampler, sample_index):
+        n, dev = xs.shape[0], xs.device
+        jitter = sampler.u2(xs, ys, sample_index, 0)
+        u_lens = sampler.u2(xs, ys, sample_index, 2)
+        wh = torch.tensor([W, H], dtype=torch.float32, device=dev)
+        p_film = (torch.stack([xs, ys], -1).to(torch.float32) + jitter) / wh
+        ro, rd = camera_mod.gen_rays(cp, p_film, u_lens)
+        self.ro, self.rd = ro.contiguous(), rd.contiguous()
+        self.alive = torch.ones(n, dtype=torch.bool, device=dev)
+        self.prev_pdf = torch.zeros(n, device=dev)
+        self.prev_delta = torch.ones(n, dtype=torch.bool, device=dev)  # the camera vertex
+        self.diffused = torch.zeros(n, dtype=torch.bool, device=dev)
+        self.tmin = torch.zeros(n, device=dev)
+        self.perm = None  # depth 0 is not sorted: tile-major primaries are coherent
+        self.n_rays = torch.zeros((), dtype=torch.int64, device=dev)
 
-    L_direct = torch.zeros(n, 3, device=dev)  # depth-0 emissive (unclamped)
-    L_indirect = torch.zeros(n, 3, device=dev)  # everything else (clamped)
-    beta = torch.ones(n, 3, device=dev)
-    alive = torch.ones(n, dtype=torch.bool, device=dev)
-    prev_pdf = torch.zeros(n, device=dev)
-    prev_delta = torch.ones(n, dtype=torch.bool, device=dev)  # the camera vertex
-    diffused = torch.zeros(n, dtype=torch.bool, device=dev)
-    tmin = torch.zeros(n, device=dev)
-    n_lights = len(cscene.lights)
-    carry_perm = None  # depth 0 is not sorted: tile-major primaries are coherent
-
-    for depth in range(max_depth):
-        dim = 4 + depth * 16
-        n_rays = n_rays + alive.sum()
-
+    def hit(self, cscene):
+        """Intersect the depth's rays; the walk's lanes become the surface
+        hits -> (gidx, p, n, ctx, wi_world, emissive mask, their Le and MIS
+        weight (None in a scene without emissive shapes))."""
+        self.n_rays = self.n_rays + self.alive.sum()
         # dead lanes get tmax = -1 and miss every group box up front
         t, gidx, hitm, mesh_tri = cscene.intersect(
-            ro, rd, tmin, torch.where(alive, FLOAT_MAX, -1.0), sort_perm=carry_perm)
-        hitm = hitm & alive
-
-        # clamp miss-lane t before forming hit points (t = BIG overflows)
-        t_hit = torch.where(hitm, t, 1.0)
-        hp = ro + t_hit[:, None] * rd
-        p_s, ns, _uv = cscene.surface_info(gidx, hp, mesh_tri)
-        wi_world = -rd
-
-        # ---- emissive hit ----
+            self.ro, self.rd, self.tmin, torch.where(self.alive, FLOAT_MAX, -1.0),
+            sort_perm=self.perm)
+        hitm = hitm & self.alive
+        t_hit = torch.where(hitm, t, 1.0)  # miss lanes: t = BIG would overflow
+        p_s, ns, uv = cscene.surface_info(gidx, self.ro + t_hit[:, None] * self.rd, mesh_tri)
+        wi_world = -self.rd
         emis = cscene.is_emissive_lane(gidx) & hitm
+        le = mis = None
         if cscene.emissive_globals:
             le = cscene.emissive_le(gidx, ns, wi_world)
-            light_pdf = cscene.light_pdf_at_hit(gidx, ro, rd, t_hit, ns)
-            mis = torch.where(prev_delta, 1.0, balance_heuristic(prev_pdf, light_pdf))
-            contrib = torch.where(emis[:, None], beta * le * mis[:, None], 0.0)
-            if depth == 0:
-                L_direct = L_direct + contrib
-            else:
-                L_indirect = L_indirect + contrib
+            light_pdf = cscene.light_pdf_at_hit(gidx, self.ro, self.rd, t_hit, ns)
+            mis = torch.where(self.prev_delta, 1.0, balance_heuristic(self.prev_pdf, light_pdf))
+        self.alive = hitm & ~emis
+        return gidx, p_s, ns, dict(p=p_s, n=ns, uv=uv), wi_world, emis, le, mis
 
-        alive = hitm & ~emis
-        if depth + 1 >= max_depth:
-            break
-
-        # ---- material -> per-lane bxdf state ----
+    def scatter(self, cscene, xs, ys, sampler, sample_index, dim, gidx, p_s, ns, ctx, wi_world,
+                surf, nee=True):
+        """Material eval, BSDF sample and (with ``nee``) NEE at the surface
+        lanes ``surf``, sampler dims from ``dim`` -> (NEE contribution
+        without beta, throughput f cos / pdf, the sample's validity), and the
+        walk moved to the continuation rays."""
         mat_idx = cscene.g_mat[gidx.clamp(0, cscene.n_global - 1).long()]
-        state = material_eval.eval_bxdf_state(cscene, mat_idx, MIN_ROUGHNESS, diffused)
+        u_mat = sampler.u2(xs, ys, sample_index, dim + 3)
+        state = material_eval.eval_bxdf_state(cscene, mat_idx, ctx, wi_world, u_mat[:, 0],
+                                              u_mat[:, 1], MIN_ROUGHNESS, self.diffused)
         wi = to_local(ns, wi_world)
-
-        # ---- BSDF sampling ----
         u_wm = sampler.u2(xs, ys, sample_index, dim + 5)
         u_fr = sampler.u1(xs, ys, sample_index, dim + 7)
         u_cos = sampler.u2(xs, ys, sample_index, dim + 8)
@@ -221,26 +219,45 @@ def path_trace_sample(cscene, cp, xs, ys, W, H, sampler, sample_index, max_depth
         wo_world = to_world(ns, bs["wo"])
         cosine = dot(wo_world, ns).abs()
         thr = bs["f"] * (cosine / torch.clamp_min(bs["pdf"], 1e-20))[:, None]
-        surf_next = alive & bs["valid"]
+        surf_next = surf & bs["valid"]
         ro_next = offset_ray_origin(p_s, face_forward(ns, wo_world))
-        carry_perm = cscene.sort_perm(ro_next, wo_world, ~surf_next)
-
-        # ---- NEE ----
-        if n_lights > 0 and nee:
+        # the bounce's coherence sort serves its shadow rays and the next intersect
+        self.perm = cscene.sort_perm(ro_next, wo_world, ~surf_next)
+        contrib = torch.zeros_like(p_s)
+        if len(cscene.lights) > 0 and nee:
             u_sel = sampler.u1(xs, ys, sample_index, dim + 0)
             u_light = sampler.u2(xs, ys, sample_index, dim + 1)
             ls = sample_one_light(cscene, p_s, u_sel, u_light)
-            contrib, do_nee = nee_contribution(cscene, p_s, ns, state, wi, ls, alive,
-                                               sort_perm=carry_perm)
-            n_rays = n_rays + do_nee.sum()
-            L_indirect = L_indirect + beta * contrib
+            contrib, do_nee = nee_contribution(cscene, p_s, ns, state, wi, ls, surf,
+                                               sort_perm=self.perm)
+            self.n_rays = self.n_rays + do_nee.sum()
+        self.alive = surf_next
+        self.prev_pdf = bs["pdf"]
+        self.prev_delta = bs["is_delta_sample"]
+        self.diffused = self.diffused | (surf_next & ~bs["is_delta_sample"])
+        self.ro, self.rd = ro_next.contiguous(), wo_world.contiguous()
+        return contrib, thr, bs["valid"]
 
-        # ---- continuation ----
-        alive = surf_next
-        beta = torch.where(alive[:, None], beta * thr, beta)
-        prev_pdf = bs["pdf"]
-        prev_delta = bs["is_delta_sample"]
-        diffused = diffused | (alive & ~bs["is_delta_sample"])
-        ro, rd = ro_next.contiguous(), wo_world.contiguous()
 
-    return L_direct + torch.clamp_max(L_indirect, CLAMP), n_rays
+def path_trace_sample(cscene, cp, xs, ys, W, H, sampler, sample_index, max_depth, nee=True):
+    """One sample per pixel through the depth loop -> (L (N,3), traced rays)."""
+    n, dev = xs.shape[0], xs.device
+    walk = PathWalk(cp, xs, ys, W, H, sampler, sample_index)
+    L_direct = torch.zeros(n, 3, device=dev)  # depth-0 emissive (unclamped)
+    L_indirect = torch.zeros(n, 3, device=dev)  # everything else (clamped)
+    beta = torch.ones(n, 3, device=dev)
+    for depth in range(max_depth):
+        gidx, p_s, ns, ctx, wi_world, emis, le, mis = walk.hit(cscene)
+        if mis is not None:
+            contrib = torch.where(emis[:, None], beta * le * mis[:, None], 0.0)
+            if depth == 0:
+                L_direct = L_direct + contrib
+            else:
+                L_indirect = L_indirect + contrib
+        if depth + 1 >= max_depth:
+            break
+        contrib, thr, _ = walk.scatter(cscene, xs, ys, sampler, sample_index, 4 + depth * 16,
+                                       gidx, p_s, ns, ctx, wi_world, walk.alive, nee)
+        L_indirect = L_indirect + beta * contrib
+        beta = torch.where(walk.alive[:, None], beta * thr, beta)
+    return L_direct + torch.clamp_max(L_indirect, CLAMP), walk.n_rays

@@ -4,14 +4,17 @@ registrations; names per SURVEY.md Appendix A).
 
 Each name maps to one Python callable that dispatches on argument types and
 arity.  Every name pine_tpu registers is registered here.  Those whose
-target the port has run it: the Scene and its ``add``/``set``, the analytic
-shapes, constant materials, point lights, ThinLenCamera, Film and its tone
-mappers, the uniform and blue-noise samplers, the math, vector, matrix and
-transform builtins, ``PathIntegrator`` and ``render``, ``save`` and
-``println``.  The others raise NotImplementedError naming their ROADMAP.md
-modules item when called, so a script that declares something it never uses
-still runs (bench.py's box declares a Subsurface material it never applies).
-``render`` renders on the device the interpreter was given.
+target the port has run it: the Scene and its ``add``/``set``/``load``
+(GLB files) and ``get_aabb``, the analytic shapes and ``Mesh(file)``, the
+materials but Subsurface, the ``UV`` and ``Texture`` nodes and
+``load_image``, point and directional lights, ThinLenCamera, Film and its
+tone mappers, the uniform and blue-noise samplers, the math, vector, matrix
+and transform builtins, ``PathIntegrator``, ``CachedPathIntegrator`` and
+``render``, ``save`` and ``println``.  The others raise
+NotImplementedError naming their ROADMAP.md modules item when called, so a
+script that declares something it never uses still runs (bench.py's box
+declares a Subsurface material it never applies).  ``render`` renders on
+the device the interpreter was given.
 """
 from __future__ import annotations
 
@@ -24,15 +27,13 @@ Pi = float(np.pi)
 
 # builtin -> the ROADMAP.md modules item that ports its target
 UNPORTED = {
-    # texture nodes and noise, environment lights, image inputs
-    **dict.fromkeys(("Position", "Normal", "UV", "Checkerboard", "Noisef", "Noise3f", "Texture",
-                     "Function", "Vec3", "Comp", "pnoise", "pnoise2d", "pnoise3d", "fbm",
-                     "fbm2d", "fbm3d", "Sky", "Atmosphere", "ImageSky", "load_image"), 10),
+    # procedural texture nodes and noise, environment lights
+    **dict.fromkeys(("Position", "Normal", "Checkerboard", "Noisef", "Noise3f", "Function",
+                     "Vec3", "Comp", "pnoise", "pnoise2d", "pnoise3d", "fbm", "fbm2d", "fbm3d",
+                     "Sky", "Atmosphere", "ImageSky"), 10),
     # shapes and lights of the scene model still to port
-    **dict.fromkeys(("Line", "SpotLight", "DirectionalLight", "get_aabb"), 3),
+    **dict.fromkeys(("Line", "SpotLight"), 3),
     "SDF": 9,
-    # meshes from files, the cached path integrator
-    **dict.fromkeys(("Mesh", "load", "CachedPathIntegrator"), 7),
     **dict.fromkeys(("HgPF", "Hg2PF", "CloudPF", "HomoMedium", "VDBMedium"), 11),
     **dict.fromkeys(("HaltonSampler", "SobolSampler"), 2),
     **dict.fromkeys(("AOIntegrator", "VolIntegrator", "RandomWalkIntegrator",
@@ -348,15 +349,26 @@ def make_registry(interp):
     reg["next2f"] = lambda rng: PrlVec(rng.uniform2f())
     reg["next3f"] = lambda rng: PrlVec(rng.uniform3f())
 
-    # ---- materials (material.cpp): constant parameters ----------------------
+    # ---- texture nodes (node.cpp) and materials (material.cpp) -------------
     def matarg(x):
+        """A node of a script value: a node, a constant, or an image's texture."""
         if isinstance(x, N.Node):
             return x
         if _isvec(x):
             return N.Constant(_f32(x))
         if isinstance(x, Array2dValue):
-            return _refuse("an image as a material parameter", 10)
+            return N.Texture(N.UV(), x.data)
         return N.Constant(float(x))
+
+    reg["UV"] = lambda: N.UV()
+    reg["Texture"] = lambda p, image: N.Texture(
+        matarg(p), image.data if isinstance(image, Array2dValue) else image)
+
+    @register("load_image")
+    def _load_image(filename):
+        from pine_tpu_torch.io.image_io import load_image
+
+        return Array2dValue(load_image(filename))
 
     reg["Emissive"] = lambda color: M.Emissive(matarg(color))
     reg["Diffuse"] = lambda albedo: M.Diffuse(matarg(albedo))
@@ -392,8 +404,15 @@ def make_registry(interp):
 
     reg["Instancing"] = lambda mesh: S.InstancedShape(mesh)  # geometry.cpp:941-946
 
+    @register("Mesh")
+    def _mesh(filename):
+        from pine_tpu_torch.io.gltf import mesh_from_glb
+
+        return mesh_from_glb(filename)
+
     # ---- lights (light.cpp:174-186) ----------------------------------------
     reg["PointLight"] = lambda p, c: L.PointLight(_f32(p), _f32(c))
+    reg["DirectionalLight"] = lambda d, c: L.DirectionalLight(_f32(d), _f32(c))
 
     # ---- camera / film (camera.cpp:40-45, film.cpp:97-120) -----------------
     reg["Uncharted2"] = lambda: "uncharted2"
@@ -420,6 +439,12 @@ def make_registry(interp):
     # ---- integrators (program_context.cpp:54-118) --------------------------
     reg["PathIntegrator"] = lambda sampler, max_len: PathIntegrator(sampler, int(max_len))
 
+    @register("CachedPathIntegrator")
+    def _cached(sampler, max_len, resolution=128, starting_depth=1):
+        from pine_tpu_torch.integrators.cachedpath import CachedPathIntegrator
+
+        return CachedPathIntegrator(sampler, int(max_len), int(resolution), int(starting_depth))
+
     @register("render")
     def _render(integrator, scene):
         return integrator.render(scene, device=interp.device)
@@ -428,6 +453,8 @@ def make_registry(interp):
     reg["Scene"] = lambda: Scene()
     reg["add"] = lambda target, *args: target.add(*args)  # Scene.add, Instancing.add
     reg["set"] = lambda scene, x: scene.set(x)
+    reg["load"] = lambda scene, filename, m=None: scene.load(filename, m)
+    reg["get_aabb"] = lambda scene: S.BoxAABB(*scene.get_aabb())
 
     @register("quick_render")
     def _quick_render(scene, from_p, to_p, filename):

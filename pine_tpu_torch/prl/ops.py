@@ -4,8 +4,8 @@ Counterpart of pine_tpu/prl/ops.py, for eager numpy values only.
 Replicates the reference's operator registrations (vecmath.cpp:133-309,
 jit.cpp i32/f32 fast paths): C-style integer division/modulo, elementwise
 vector ops, matrix*vector / matrix*matrix, string concatenation with
-to_string of any operand.  Arithmetic on texture nodes (node.cpp) is not
-ported (ROADMAP.md, modules item 10).
+to_string of any operand.  Arithmetic on texture nodes builds node trees
+(node.cpp operator registrations).
 """
 from __future__ import annotations
 
@@ -31,8 +31,11 @@ def binary(op, a, b):
     from pine_tpu_torch.scene import nodes as N
 
     if isinstance(a, N.Node) or isinstance(b, N.Node):
-        raise NotImplementedError(
-            "arithmetic on texture nodes is not ported yet (ROADMAP.md, modules item 10)")
+        if op not in N.Binary.OPS:
+            raise TypeError(f"op {op} is not defined for texture nodes")
+        conv = lambda x: x if isinstance(x, N.Node) else N.Constant(  # noqa: E731
+            np.asarray(x.data, np.float32) if isinstance(x, PrlVec) else float(x))
+        return N.Binary(op, conv(a), conv(b))
     # string concatenation
     if op == "+" and (isinstance(a, str) or isinstance(b, str)):
         return prl_to_string(a) + prl_to_string(b)

@@ -1,9 +1,9 @@
-"""Lights.  Counterpart of pine_tpu/scene/lights.py: point lights, and area
-lights on an analytic shape or a triangle mesh.
+"""Lights.  Counterpart of pine_tpu/scene/lights.py: point and directional
+lights, and area lights on an analytic shape or a triangle mesh.
 
 ``sample(p, u2, u1)`` is batched: p (N,3), u2 (N,2), u1 (N,) ->
-dict(le, wo, distance, pdf, valid).  Spot, directional and environment
-lights are not ported yet (ROADMAP.md, modules item 10).
+dict(le, wo, distance, pdf, valid).  Spot lights (ROADMAP.md, modules item
+3) and environment lights (item 10) are not ported yet.
 """
 from __future__ import annotations
 
@@ -43,6 +43,44 @@ class PointLight(Light):
             distance=dist,
             pdf=dist * dist,
             valid=torch.ones_like(dist, dtype=torch.bool),
+        )
+
+
+class DirectionalLight(Light):
+    """A delta light from direction ``direction`` (toward the light),
+    normalised in float64 and then cast, as pine_tpu's: its sample is that
+    direction at distance 1e10 with pdf 1, always valid."""
+
+    is_delta = True
+
+    def __init__(self, direction, color):
+        d = np.asarray(direction, np.float64)
+        self.direction = (d / np.linalg.norm(d)).astype(np.float32)
+        self.color = np.asarray(color, np.float32)
+        self._dev = {}
+
+    @classmethod
+    def unit(cls, direction, color):
+        """A light whose float32 ``direction`` is already normalised (a
+        compiled scene's record), kept as it is."""
+        light = cls.__new__(cls)
+        light.direction = np.asarray(direction, np.float32)
+        light.color = np.asarray(color, np.float32)
+        light._dev = {}
+        return light
+
+    def sample(self, p, u2, u1):
+        n, dev = p.shape[0], p.device
+        if dev not in self._dev:
+            self._dev[dev] = (torch.as_tensor(self.direction, device=dev),
+                              torch.as_tensor(self.color, device=dev))
+        direction, color = self._dev[dev]
+        return dict(
+            le=color.expand(n, 3),
+            wo=direction.expand(n, 3),
+            distance=torch.full((n,), 1e10, device=dev),
+            pdf=torch.ones(n, device=dev),
+            valid=torch.ones(n, dtype=torch.bool, device=dev),
         )
 
 

@@ -1,8 +1,12 @@
 """Materials.  Counterpart of pine_tpu/scene/materials.py.
 
-Diffuse, Metal, Glossy, Glass and Emissive are ported, with constant
-parameters.  Uber and Subsurface are not yet (ROADMAP.md, modules item 3): a
-scene that renders with one is refused at compile().
+Host-side materials whose parameters are nodes (scene/nodes.py): constants,
+image textures and their products.  Diffuse, Metal, Glossy, Glass, Emissive
+and Uber are ported; the wavefront evaluates their nodes per lane and picks
+Uber's lobe from the lane's sampler dims (scene/material_eval.py).
+Subsurface is not yet (ROADMAP.md, modules item 3): a scene that renders
+with one is refused at compile().  An emissive material's color must be a
+constant (its light is sampled with one color).
 """
 from __future__ import annotations
 
@@ -83,27 +87,28 @@ class Subsurface(Material):
 
 
 class Uber(Material):
-    """Declared so scripts that name it build; rendering with it is refused."""
+    """A metallic / transmissive / dielectric blend (material.cpp:9-29): per
+    lane, a conductor where u_a < metallic, else a refractive dielectric
+    where u_b < transmission, else a diffuse dielectric."""
 
     tag = UBER
 
     def __init__(self, albedo, roughness, metallic=0.0, transmission=0.0, ior=1.45):
-        self.albedo, self.roughness = albedo, roughness
-        self.metallic, self.transmission, self.ior = metallic, transmission, ior
+        self.albedo = N.as_node(albedo)
+        self.roughness = N.as_node(roughness)
+        self.metallic = N.as_node(metallic)
+        self.transmission = N.as_node(transmission)
+        self.ior = float(ior)
 
 
-def material_arrays(mat):
-    """Constant parameters of a material as the flat record the compiled
-    scene reads: tag, albedo (3,), roughness, ior, color (3,)."""
-    if mat.tag in (UBER, SUBSURFACE):
+# a material's node parameters and the value of each it lacks
+PARAMS = dict(albedo=(0.0, 0.0, 0.0), roughness=0.0, metallic=0.0, transmission=0.0, ior=1.4,
+              color=(0.0, 0.0, 0.0))
+
+
+def check_ported(mat):
+    """Refuse materials the port cannot render yet."""
+    if mat.tag == SUBSURFACE:
         raise NotImplementedError(
-            f"{type(mat).__name__} material is not ported yet (ROADMAP.md, modules item 3)"
-        )
-    zero3 = [0.0, 0.0, 0.0]
-    return dict(
-        tag=mat.tag,
-        albedo=N.constant_vec3(getattr(mat, "albedo", zero3)),
-        roughness=N.constant_scalar(getattr(mat, "roughness", 0.0)),
-        ior=N.constant_scalar(getattr(mat, "ior", 1.4)),
-        color=N.constant_vec3(getattr(mat, "color", zero3)),
-    )
+            f"{type(mat).__name__} material is not ported yet (ROADMAP.md, modules item 3)")
+    return mat

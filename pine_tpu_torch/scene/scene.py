@@ -1,8 +1,9 @@
 """Scene (host container) and CompiledScene (device tables plus queries).
 
-Counterpart of pine_tpu/scene/scene.py for analytic shapes, triangle meshes,
-mesh instancing, constant materials, area (analytic or mesh) and point
-lights.  ``Scene.compile(device)`` flattens the scene into the arrays of
+Counterpart of pine_tpu/scene/scene.py for analytic shapes, triangle meshes
+(also from GLB files, ``Scene.load``), mesh instancing, materials with
+constant or image-texture parameters, area (analytic or mesh), point and
+directional lights.  ``Scene.compile(device)`` flattens the scene into the arrays of
 pine_tpu_torch/convert.py and uploads them once; the renderer then queries
 the CompiledScene.  Scenes with 24 or fewer analytic prims, no mesh and no
 lazy instancing keep the brute-force per-type product (no accel, no
@@ -48,12 +49,13 @@ off unless ``CompiledScene.origin_sort`` is set, because on the H100 it cost
 more device time than it saved (PERF.md, PR 3).  The sort is a pure
 permutation: per-lane results do not change.
 
-Not ported yet, and refused at compile() with their ROADMAP.md row: SDF and
-CSG (modules item 9), environment lights and textured nodes (10), media
-(11), the Subsurface and Uber materials (3).
+Not ported yet, and refused with their ROADMAP.md row: SDF and CSG (modules
+item 9) and the Subsurface material (3) at compile(), environment lights
+(10) at ``set`` and media (11) at ``add``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from pine_tpu_torch.accel import dense_traverse as DT
@@ -152,6 +154,31 @@ class Scene:
             "modules item 11"
         )
 
+    def load(self, filename, m=None):
+        """PRL ``scene.load(file[, m])``: the GLB's primitives, transformed by
+        the 4x4 ``m``, added as geometries (each ``add`` drops the compile
+        cache)."""
+        from pine_tpu_torch.io.gltf import load_glb_into_scene
+
+        load_glb_into_scene(self, filename, None if m is None else getattr(m, "data", m))
+
+    def get_aabb(self):
+        """(lo, hi) float32 over every geometry, lazy instances by their mesh
+        box's transformed corners."""
+        from pine_tpu_torch.accel.packet import box_corners
+
+        lo = np.full(3, np.inf, np.float32)
+        up = np.full(3, -np.inf, np.float32)
+        for shape, _ in self.geometries:
+            a, b = shape.get_aabb()
+            lo, up = np.minimum(lo, a), np.maximum(up, b)
+        for inst in self.instancings:
+            corners = box_corners(*inst.shape.get_aabb())
+            for m, _ in inst.instances:
+                wc = corners @ m[:3, :3].T + m[:3, 3]
+                lo, up = np.minimum(lo, wc.min(0)), np.maximum(up, wc.max(0))
+        return lo, up
+
     def set(self, x):
         from pine_tpu_torch.core.camera import ThinLenCamera
 
@@ -191,7 +218,7 @@ class CompiledScene:
         self.tables = tables  # tid -> (n, w) unsnapped params
         self.type_global = type_global  # tid -> (n,) geometry ids
         self.unified = unified  # None, or prim groups (accel/packet.py) + mesh tables
-        self.materials = materials  # per slot: dict of tag, albedo, roughness, ior, color
+        self.materials = materials  # per slot: dict of tag and parameter nodes (materials.PARAMS)
         self.lights = lights
         self.emissive_globals = {
             li.global_idx: li for li in lights if isinstance(li, L.AreaLight)

@@ -284,6 +284,18 @@ class Mesh(Shape):
             ).astype(np.float32)
         return self
 
+    def merge(self, other):
+        """Append ``other``'s triangles in place; normals and texcoords are
+        kept only where both meshes have them."""
+        off = len(self.vertices)
+        self.vertices = np.concatenate([self.vertices, other.vertices])
+        self.indices = np.concatenate([self.indices, other.indices + off])
+        both_n = self.normals is not None and other.normals is not None
+        self.normals = np.concatenate([self.normals, other.normals]) if both_n else None
+        both_t = self.texcoords is not None and other.texcoords is not None
+        self.texcoords = np.concatenate([self.texcoords, other.texcoords]) if both_t else None
+        return self
+
     def transformed(self, m):
         """A transformed copy (the flattened form of an instance)."""
         out = Mesh(

@@ -26,8 +26,17 @@ bit.
 extent, one lattice group of more than 512 prims, so it takes the lattice
 traversal.  ``prl_scene`` runs such a script through the port's PRL
 interpreter and returns its ``scene``.
+
+``house`` is the repository's ``scenes/house.pine``: ``assets/house.glb``
+(ten mesh primitives, 4,020 triangles in one triangle group, textured and
+factor-only Uber materials, an emissive window) under one DirectionalLight,
+rendered by ``CachedPathIntegrator(BlueSampler(128), 5, 128)`` at 640x640.
+``house_prl`` gives that script with the asset's path made absolute and the
+film size, the render line and the save cut as a caller asks.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -98,13 +107,14 @@ def cone_forest_prl(forest_x=FOREST_X, forest_z=FOREST_Z, size=640):
 CONE_FOREST_PRL = cone_forest_prl()
 
 
-def prl_scene(src, name="<script>"):
+def prl_scene(src, name="<script>", device=None):
     """The ``scene`` a PRL scene script builds, through the port's interpreter.
-    Building runs on the host; a script that also renders does so where
-    ``core.options.device`` says, the card unless the caller set "cpu"."""
+    Building runs on the host; a script that also renders does so on
+    ``device``, or where ``core.options.device`` says, the card unless the
+    caller set "cpu"."""
     from pine_tpu_torch.prl.interp import Interpreter
 
-    itp = Interpreter()
+    itp = Interpreter(device=device)
     itp.run(src, name)
     return itp.get_var("scene")
 
@@ -242,3 +252,34 @@ def terrain(size=(640, 640), grid=TERRAIN_GRID):
     scene.set(ThinLenCamera(Film(size, "uncharted2"), [0.0, hmax * 0.55, 0.8],
                             [0.5, 0.2, 5.5], 0.7))
     return scene
+
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+HOUSE_PINE = os.path.join(ROOT, "scenes", "house.pine")
+HOUSE_GLB = os.path.join(ROOT, "assets", "house.glb")
+HOUSE_INTEGRATOR = "CachedPathIntegrator(BlueSampler(128), 5, 128)"
+
+
+def house_prl(size=640, integrator=HOUSE_INTEGRATOR, save=None):
+    """``scenes/house.pine`` with its GLB read from the checkout by absolute
+    path, the film ``size`` pixels square, ``integrator`` (a PRL expression)
+    rendering the scene, or no render for None, and the film saved to
+    ``save``, or not saved for None (the script saves to
+    images/house3.png)."""
+    with open(HOUSE_PINE) as f:
+        src = f.read()
+    render = "" if integrator is None else f"{integrator}.render(scene);"
+    save_line = "" if save is None else f"scene.camera.film().save({save!r});"
+    for old, new in (('scene.load("assets/house.glb")', f"scene.load({HOUSE_GLB!r})"),
+                     ("image_size := [640, 640]", f"image_size := [{size}, {size}]"),
+                     (f"{HOUSE_INTEGRATOR}.render(scene);", render),
+                     ('scene.camera.film().save("images/house3.png");', save_line)):
+        assert old in src, old
+        src = src.replace(old, new)
+    return src
+
+
+def house(size=640, integrator=None, device=None):
+    """The house scene built (and, with ``integrator``, rendered into its
+    film on ``device``, default the card) through the port's interpreter."""
+    return prl_scene(house_prl(size, integrator), "<house>", device)

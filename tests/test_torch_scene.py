@@ -171,7 +171,10 @@ def _states(seed):
     ctx = dict(p=jnp.zeros((N, 3)), n=jnp.asarray(n), uv=jnp.zeros((N, 2)))
     jst = Jme.eval_bxdf_state(JCS, jnp.asarray(mat_idx), ctx, jnp.asarray(wi_world),
                               jnp.asarray(u_a), jnp.asarray(u_b), 0.6, jnp.asarray(diffused))
-    pst = Pme.eval_bxdf_state(pcs, torch.from_numpy(mat_idx), 0.6, torch.from_numpy(diffused))
+    pctx = dict(p=torch.zeros(N, 3), n=torch.from_numpy(n), uv=torch.zeros(N, 2))
+    pst = Pme.eval_bxdf_state(pcs, torch.from_numpy(mat_idx), pctx, torch.from_numpy(wi_world),
+                              torch.from_numpy(u_a), torch.from_numpy(u_b), 0.6,
+                              torch.from_numpy(diffused))
     return jst, pst, rng
 
 
