@@ -16,7 +16,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
       any-hit, groups of 1, 16 and 424 prims, plus the benchmark Cornell
       box's own three groups;
    b. the grid traversal on triangle soups of 300 (no coarse level), 3,000
-      and 20,000 triangles and on the 99,458-triangle terrain's own group;
+      and 20,000 triangles and on the 99,458-triangle terrain's own group,
+      and on that group three ray sets that drive its two leaf schedules
+      (``schedule_rays``: one live lane per warp, full warps aimed at one
+      prim, any-hit rays occluded by the middle prim of a cell);
    c. the two-level instanced traversal on the instancing benchmark's rock
       (4,802 triangles) in fields of 2x2, 32x32 (the benchmark's 1,024
       instances) and 101x101 (its --big 10,201), rays aimed into the field
@@ -39,8 +42,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
       gated, the dense kernel and the "mxu" route (torch.matmul and the
       epilogue), their agreement by tests/test_mxu_sweep.py's tolerance;
    i. the grid kernel's MXU form against its plain version on soups of
-      3,000 and 20,000 triangles and the terrain's group; beside it the grid
-      kernel;
+      3,000 and 20,000 triangles and the terrain's group, with b's three
+      schedule ray sets; beside it the grid kernel;
    j. the instanced kernel's MXU leaf form against its plain version on the
       rock fields of 2x2 and 32x32; beside it the instanced kernel;
    k. the cone-sweep probe (kernel 9, csrc/cone_probe.cu) in each of its
@@ -469,6 +472,60 @@ def triangle_soup(n_tri, seed):
     return S.Mesh(tris.reshape(-1, 3), np.arange(3 * n_tri).reshape(-1, 3))
 
 
+def schedule_rays(rng, dev, g):
+    """Ray sets that drive the grid kernel's two leaf schedules on group
+    ``g`` (triangles), 65,536 rays in warps of 32 lanes:
+    - "one live lane": terrain_rays with every lane but the first of each
+      warp dead (tmax and the running best -1): cells of k = 1, lanes over
+      prims;
+    - "full warps": each warp's 32 rays from one origin above the group,
+      aimed within 1e-3 of one prim's centroid: cells of k = 32, lanes over
+      rays;
+    - "mid-cell occluders": each warp's rays aimed from 0.5 along the normal
+      at the centroid of the middle prim (row 16) of a random cell, tmax 1
+      (any-hit: occluded there); every lane in even warps (lanes over rays,
+      leaving the cell mid-way), the first lane only in odd warps (lanes over
+      prims)."""
+    import numpy as np
+    import torch
+
+    n, warps = N_RAYS, N_RAYS // 32
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)  # noqa: E731
+    rows = g["rows"].cpu().numpy()
+    n_prims = len(g["prim_aabbs"])
+    cen = (rows[:n_prims, 0:3] + rows[:n_prims, 3:6] + rows[:n_prims, 6:9]) / 3
+    lo, hi = cen.min(0), cen.max(0)
+    sets = {}
+
+    r = terrain_rays(rng, dev, g)
+    dead = torch.arange(n, device=dev) % 32 != 0
+    for k in ("tmax", "bt"):
+        r[k] = torch.where(dead, -1.0, r[k])
+    sets["one live lane"] = r
+
+    def aimed(ro, target, tmax):
+        rd = target + rng.uniform(-1e-3, 1e-3, (n, 3)) - ro
+        rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+        tmax = np.asarray(tmax, np.float32)
+        return dict(ro=t(ro), rd=t(rd), tmin=t(np.zeros(n)), tmax=t(tmax), bt=t(tmax),
+                    be=torch.full((n,), -1, dtype=torch.int32, device=dev),
+                    occ=torch.zeros(n, dtype=torch.int32, device=dev))
+
+    eye = rng.uniform(lo, hi, (warps, 3)) + [0.0, 2.0, 0.0]
+    tgt = cen[rng.integers(0, n_prims, warps)]
+    sets["full warps"] = aimed(np.repeat(eye, 32, 0), np.repeat(tgt, 32, 0),
+                               np.full(n, 1e30))
+
+    mid = np.minimum(rng.integers(0, n_prims // 32, warps) * 32 + 16, n_prims - 1)
+    nrm = np.cross(rows[mid, 3:6] - rows[mid, 0:3], rows[mid, 6:9] - rows[mid, 0:3])
+    nrm /= np.maximum(np.linalg.norm(nrm, axis=1, keepdims=True), 1e-12)
+    tmax = np.ones(n)
+    tmax[(np.arange(n) // 32 % 2 == 1) & (np.arange(n) % 32 != 0)] = -1.0
+    sets["mid-cell occluders"] = aimed(np.repeat(cen[mid] + 0.5 * nrm, 32, 0),
+                                       np.repeat(cen[mid], 32, 0), tmax)
+    return sets
+
+
 def phase_grid_vs_plain(dev):
     import numpy as np
 
@@ -481,11 +538,13 @@ def phase_grid_vs_plain(dev):
         cases.append((f"soup{n_tri}", g, random_rays(np.random.default_rng(n_tri + 1), dev, n_tri)))
     g = terrain_group(dev)
     cases.append(("terrain", g, terrain_rays(np.random.default_rng(5), dev, g)))
+    cases += [(f"terrain, {name}", g, r)
+              for name, r in schedule_rays(np.random.default_rng(6), dev, g).items()]
     recs = []
     for what, g, r in cases:
         for any_hit in (False, True):
             recs.append(compare("grid", g, ray_args(r, any_hit), any_hit,
-                                time_it=what in ("soup20000", "terrain"), what=what))
+                                time_it=what.startswith(("soup20000", "terrain")), what=what))
     return recs
 
 
@@ -849,6 +908,8 @@ def phase_grid_mxu_vs_plain(dev):
                             random_rays(rng, dev, n_tri), f"soup{n_tri}", n_tri == 20000)
     g = terrain_group(dev)
     recs += compare_mxu("grid_mxu", ("grid",), g, terrain_rays(rng, dev, g), "terrain", True)
+    for name, r in schedule_rays(np.random.default_rng(6), dev, g).items():
+        recs += compare_mxu("grid_mxu", ("grid",), g, r, f"terrain, {name}", True)
     return recs
 
 
@@ -1484,8 +1545,9 @@ def profile_render(what, render):
         device_busy_share=busy_ms / (wall * 1e3) if busy_ms else "not measured",
         launches=sum(e.count for e in kernels),
         **{f"{k}_ms": sum(e.self_device_time_total for e in kernels if f"::{k}<" in e.key) / 1e3
-           for k in ("dense_kernel", "scdense_kernel", "grid_kernel", "sctree_kernel",
-                     "bvh_kernel", "inst_kernel", "lattice_kernel", "mxu_sweep_kernel")},
+           for k in ("dense_kernel", "scdense_kernel", "grid_kernel", "grid_mxu_kernel",
+                     "sctree_kernel", "bvh_kernel", "inst_kernel", "lattice_kernel",
+                     "mxu_sweep_kernel")},
         top=[dict(name=e.key[:90], ms=e.self_device_time_total / 1e3, count=e.count)
              for e in top],
     ))

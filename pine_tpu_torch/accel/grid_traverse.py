@@ -12,7 +12,12 @@ running best; any-hit: up to tmax), and tests the prims of the cells it
 reaches.  The contract is ``dense_traverse.group_query``'s.
 
 What was TPU-only is dropped: the (E_pad, 128) lane-padded table (the kernel
-reads the group's rows as they are) and the 2048-row DMA alignment.
+reads the group's rows as they are) and the 2048-row DMA alignment.  On the
+card the warp is the unit of the walk: it takes a box when any of its rays'
+culls passes, stages each taken cell's rows (the MXU form: each taken
+supercell's table strip, per block) in shared memory by asynchronous
+copies, and tests a cell lanes over prims or lanes over rays by how many of
+its rays reach it (csrc/grid_traverse.cu says how and why).
 
 The MXU form (``grid_cuda`` and ``grid_plain`` with ``mxu=True``, the route
 "grid_mxu"; pine_tpu's ``_make_grid_kernel`` with ``mxu_m > 0``) makes the
@@ -37,6 +42,7 @@ import numpy as np
 import torch
 
 from pine_tpu_torch.accel.dense_traverse import BIG, LAUNCHES, PRIM_TESTS, _check, _safe_inv
+from pine_tpu_torch.scene.shapes import PARAM_WIDTH
 
 SUPER = 128  # prims per supercell
 CELL = 32  # prims per cull cell
@@ -236,10 +242,8 @@ def supercell_plain(tid, rows, tables, ro, rd, tmin, tmax, best_t, best_e, any_h
 # the kernel
 # --------------------------------------------------------------------------
 
-def _library():
-    from pine_tpu_torch import cuda_build
-
-    fn = cuda_build.load("grid_traverse").pine_grid_traverse
+def bind(fn):
+    """Give a library's ``pine_grid_traverse`` its C signature."""
     if fn.argtypes is None:
         fn.argtypes = (
             [ctypes.c_int] * 2 + [ctypes.c_void_p] + [ctypes.c_int] * 5
@@ -247,6 +251,12 @@ def _library():
         )
         fn.restype = ctypes.c_int
     return fn
+
+
+def _library():
+    from pine_tpu_torch import cuda_build
+
+    return bind(cuda_build.load("grid_traverse").pine_grid_traverse)
 
 
 def mxu_table(grid):
@@ -258,6 +268,12 @@ def mxu_table(grid):
     return grid["mxu"]
 
 
+def _aligned(x, name):
+    """The kernel stages rows and table strips by 16-byte copies."""
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel needs a 16-byte-aligned table")
+
+
 def grid_cuda(tid, rows, grid, ro, rd, tmin, tmax, best_t, best_e, any_hit, mxu=False):
     """Launch csrc/grid_traverse.cu on the current stream (its MXU form with
     ``mxu``)."""
@@ -267,7 +283,8 @@ def grid_cuda(tid, rows, grid, ro, rd, tmin, tmax, best_t, best_e, any_hit, mxu=
     n_super, n_coarse = grid["n_super"], grid["n_coarse"]
     if rows.shape[0] < grid["n_prims"]:
         raise ValueError(f"rows: {rows.shape[0]} rows for a grid of {grid['n_prims']} prims")
-    _check(rows, f32, (rows.shape[0], rows.shape[1]), dev, "rows")
+    _check(rows, f32, (rows.shape[0], PARAM_WIDTH[tid]), dev, "rows")
+    _aligned(rows, "rows")
     for k, shape in (("coarse_boxes", (n_coarse, 6)), ("sc_boxes", (n_coarse * COARSE, 6)),
                      ("cell_boxes", (n_super * (SUPER // CELL), 6))):
         _check(grid[k], f32, shape, dev, k)
@@ -285,6 +302,7 @@ def grid_cuda(tid, rows, grid, ro, rd, tmin, tmax, best_t, best_e, any_hit, mxu=
         if mxu["m"] != MXU_M.get(tid):
             raise ValueError(f"a table of {mxu['m']} values for prim type {tid}")
         _check(mxu["W"], f32, (n_super * RAY_FEATS, mxu["m"] * SUPER), dev, "mxu W")
+        _aligned(mxu["W"], "mxu W")
     out_t = torch.empty(n, dtype=f32, device=dev)
     out_e = torch.empty(n, dtype=i32, device=dev)
     err = _library()(

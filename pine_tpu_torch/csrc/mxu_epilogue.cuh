@@ -1,6 +1,8 @@
 // The coefficient-table form of the prim tests, shared by the fused sweep
-// (mxu_sweep.cu, TPU kernel 7) and the MXU leaf forms of the grid kernel
-// (grid_traverse.cu) and the instanced kernel (sctree_walk.cuh).
+// (mxu_sweep.cu: TPU kernel 7, pine_tpu/accel/mxu_sweep.py::
+// _make_fused_kernel) and the MXU leaf forms of the grid kernel
+// (grid_traverse.cu: kernel 5m, pallas_traverse.py::_make_grid_kernel with
+// mxu_m > 0) and the instanced kernel (sctree_walk.cuh: kernel 8m).
 //
 // Counterpart of pine_tpu/accel/mxu_sweep.py::_pair_t_vals and of
 // pine_tpu_torch/accel/mxu_sweep.py (pair_t_vals, features, ordered_values).
@@ -11,6 +13,20 @@
 // The epilogue turns the values into t, or BIG on a miss or outside
 // (tmin, limit).  Built without fast math and with -fmad=false, every
 // operation rounds as the plain PyTorch version's does.
+//
+// What bounds it on this card: operations.  On the TPU the pair values came
+// from the MXU, one matmul per block; here a triangle pair costs six 8-term
+// sums (90 FP32 operations unfused, 48 table reads) before an epilogue of
+// about 10 and one IEEE division, where the VPU test takes 52 and 12 reads.
+// The tables are read from shared memory where a kernel stages them: kernel
+// 7 its 128-prim tiles, kernel 5m each taken supercell's strip (one bulk
+// asynchronous copy per block, grid_traverse.cu); kernel 8m reads global
+// memory (mesh_pair_t).  The tensor cores were weighed for the sums
+// (mma.sync.m16n8k8 in TF32 with the 3xTF32 split): emulated on the CPU
+// (tests/test_torch_mxu.py) they put 1.2e-3 of a reduced terrain render's
+// bounce rays outside the 1e-4 gate against the ordered sums, so the sums
+// stay on the CUDA cores; the exact three-way TF32 split (six products per
+// value) meets it (5.4e-5) and is the lead for a later tensor-core leaf.
 #pragma once
 
 #include "prim_tests.cuh"
@@ -109,16 +125,25 @@ __device__ __forceinline__ float mxu_pair_t(const float* val, const RayFeat& r, 
   return (ok && t > tmin && t < limit) ? t : BIG;
 }
 
+// The MXU leaf test of prim e (0..127) of one supercell's (8, M * 128)
+// value-major strip (a row block of accel/mxu_tables.build_mesh_tables'
+// table), in global or shared memory.
+template <int TID>
+__device__ __forceinline__ float strip_pair_t(const float* strip, int e, const RayFeat& r,
+                                              float tmin, float limit) {
+  constexpr int M = mxu_m<TID>();
+  float val[M];
+  pair_values<M>(r, strip + e, M * 128, 128, val);
+  return mxu_pair_t<TID>(val, r, tmin, limit);
+}
+
 // The MXU leaf test of prim e of a supercell-major table (n_super * 8,
-// M * 128) (accel/mxu_tables.build_mesh_tables).
+// M * 128) in global memory (accel/mxu_tables.build_mesh_tables).
 template <int TID>
 __device__ __forceinline__ float mesh_pair_t(const float* __restrict__ wm, int e,
                                              const RayFeat& r, float tmin, float limit) {
   constexpr int M = mxu_m<TID>();
-  float val[M];
-  const float* col = wm + (size_t)(e / 128) * RAY_FEATS * M * 128 + (e % 128);
-  pair_values<M>(r, col, M * 128, 128, val);
-  return mxu_pair_t<TID>(val, r, tmin, limit);
+  return strip_pair_t<TID>(wm + (size_t)(e / 128) * RAY_FEATS * M * 128, e % 128, r, tmin, limit);
 }
 
 }  // namespace pine

@@ -26,7 +26,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
 )
 
-_LOADED: dict[str, ctypes.CDLL] = {}
+_LOADED: dict[tuple, ctypes.CDLL] = {}
 
 
 def _nvcc():
@@ -39,41 +39,48 @@ def _nvcc():
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernels")
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, defines=()) -> Path:
+    """The library of csrc/<name>.cu built with ``-D`` ``defines``."""
     src = (CSRC / f"{name}.cu").read_bytes()
     src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    flags = [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+    h = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{h}.so"
 
 
 def build(names, timeout=900) -> dict:
-    """Compile every source not yet built, all nvcc processes at once.
+    """Compile every source not yet built, all nvcc processes at once;
+    ``names`` holds source names, or (name, defines) pairs for a source
+    built with ``-D`` ``defines`` (the lab's variants).
 
-    Returns {name: build log (ptxas register and spill report)}."""
+    Returns {name or pair: build log (ptxas register and spill report)}."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in names:
-        out = library_path(name)
+    for key in names:
+        name, defs = (key, ()) if isinstance(key, str) else key
+        out = library_path(name, defs)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(
+        cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defs), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[key] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ), tmp, out)
     logs = {}
-    for name, (proc, tmp, out) in procs.items():
+    for key, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate(timeout=timeout)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+            raise RuntimeError(f"nvcc failed for csrc/{key}:\n{log}")
         os.replace(tmp, out)
         out.with_suffix(".log").write_text(log)
-        logs[name] = log
+        logs[key] = log
     return logs
 
 
-def load(name: str) -> ctypes.CDLL:
-    if name not in _LOADED:
-        build([name])
-        _LOADED[name] = ctypes.CDLL(str(library_path(name)))
-    return _LOADED[name]
+def load(name: str, defines=()) -> ctypes.CDLL:
+    key = (name, tuple(defines))
+    if key not in _LOADED:
+        build([key])
+        _LOADED[key] = ctypes.CDLL(str(library_path(*key)))
+    return _LOADED[key]

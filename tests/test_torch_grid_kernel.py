@@ -201,3 +201,83 @@ def test_kernel_matches_plain_on_card(n_tri):
         torch.cuda.synchronize()
         torch.testing.assert_close(t_k, t_p, rtol=1e-5, atol=1e-6)
         assert torch.equal(e_k, e_p)
+
+
+def schedule_rays(rows, n_prims, n, seed):
+    """Ray sets (numpy ro, rd, tmin, tmax) that drive the CUDA grid kernel's
+    two leaf schedules on a triangle group's (rows, n_prims), in warps of
+    32 lanes: "one live lane" (every lane but the first of each warp dead:
+    cells of k = 1, lanes over prims), "full warps" (each warp's rays from
+    one origin aimed within 1e-3 of one prim's centroid: k = 32, lanes over
+    rays), "mid-cell occluders" (rays aimed from 0.5 along the normal at the
+    middle prim of a cell, tmax 1: any-hit leaves the cell mid-way; all
+    lanes in even warps, the first only in odd ones) and "shadow rays"
+    (from just above random prims towards the house's DirectionalLight, to
+    t = 1e10)."""
+    rng = np.random.default_rng(seed)
+    warps, lane = n // 32, np.arange(n) % 32
+    v0, v1, v2 = rows[:n_prims, 0:3], rows[:n_prims, 3:6], rows[:n_prims, 6:9]
+    cen, nrm = (v0 + v1 + v2) / 3, np.cross(v1 - v0, v2 - v0)
+    nrm /= np.maximum(np.linalg.norm(nrm, axis=1, keepdims=True), 1e-12)
+    lo, hi = cen.min(0), cen.max(0)
+
+    def unit(v):
+        return (v / np.linalg.norm(v, axis=1, keepdims=True)).astype(np.float32)
+
+    def aimed(ro, tgt, tmax):
+        rd = unit(tgt + rng.uniform(-1e-3, 1e-3, (n, 3)) - ro)
+        return ro.astype(np.float32), rd, np.zeros(n, np.float32), tmax.astype(np.float32)
+
+    ro = rng.uniform(lo - 0.5, hi + 0.5, (n, 3)).astype(np.float32)
+    one = (ro, unit(rng.normal(size=(n, 3))), np.zeros(n, np.float32),
+           np.where(lane == 0, 1e30, -1.0).astype(np.float32))
+    eye = rng.uniform(lo, hi, (warps, 3)) + [0.0, 2.0, 0.0]
+    full = aimed(np.repeat(eye, 32, 0), np.repeat(cen[rng.integers(0, n_prims, warps)], 32, 0),
+                 np.full(n, 1e30))
+    mid = np.minimum(rng.integers(0, n_prims // 32, warps) * 32 + 16, n_prims - 1)
+    odd = np.arange(n) // 32 % 2 == 1
+    occl = aimed(np.repeat(cen[mid] + 0.5 * nrm[mid], 32, 0), np.repeat(cen[mid], 32, 0),
+                 np.where(odd & (lane != 0), -1.0, 1.0))
+    p = rng.integers(0, n_prims, n)
+    light = np.array([0.0, 1.0, 5.0]) / np.sqrt(26.0)
+    shadow = ((cen[p] + 1e-3 * nrm[p]).astype(np.float32),
+              np.tile(light, (n, 1)).astype(np.float32), np.full(n, 1e-4, np.float32),
+              np.full(n, 1e10, np.float32))
+    return {"one live lane": one, "full warps": full, "mid-cell occluders": occl,
+            "shadow rays": shadow}
+
+
+def card_schedule_case(case, mxu):
+    """Hold the kernel (its MXU form with ``mxu``) to grid_plain on the card
+    on one of schedule_rays' sets, closest-hit and any-hit: t to rtol 1e-5 /
+    atol 1e-6 and ids and flags equal on all but GRID_MISMATCH_SHARE (1e-4)
+    of the lanes.  The shadow rays run on the house's 4,020-triangle group,
+    the others on the reduced terrain's (grid 40, 3,042 triangles)."""
+    from pine_tpu_torch import scenes
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    dev = torch.device("cuda")
+    scene = scenes.house(48) if case == "shadow rays" else scenes.terrain((8, 8), 40)
+    (g,) = [g for g in scene.compile(dev).unified["groups"] if g["tid"] == PS.TRIANGLE]
+    kind = "grid_mxu" if mxu else "grid"
+    DT.prepare(g, kind)
+    n_prims = len(g["prim_aabbs"])
+    rays = schedule_rays(g["rows"].cpu().numpy(), n_prims, 8192, seed=41)[case]
+    ro, rd, tmin, tmax = (torch.from_numpy(x).to(dev) for x in rays)
+    be = torch.full_like(tmin, -1, dtype=torch.int32)
+    for any_hit, state in ((False, (tmax, be)), (True, (tmax, torch.zeros_like(be)))):
+        args = (g["tid"], g["rows"], g[kind], ro, rd, tmin, tmax, *state, any_hit)
+        t_k, e_k = GT.grid_cuda(*args, mxu=mxu)
+        t_p, e_p = GT.grid_plain(*args, mxu=mxu)
+        torch.cuda.synchronize()
+        differ = ~torch.isclose(t_k, t_p, rtol=1e-5, atol=1e-6) | (e_k != e_p)
+        assert differ.float().mean() <= 1e-4, (case, any_hit, int(differ.sum()))
+        assert (e_k > 0).sum() > 50 if any_hit else (t_k < 1e30).sum() > 50
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one live lane", "full warps", "mid-cell occluders",
+                                  "shadow rays"])
+def test_leaf_schedules_match_plain_on_card(case):
+    card_schedule_case(case, mxu=False)

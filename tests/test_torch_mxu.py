@@ -53,6 +53,7 @@ torch.set_num_threads(2)
 BIG = 1e30
 MXU_TYPES = {k: v for k, v in TYPES.items() if MT.supports(v)}
 RTOL, ATOL, HIT_SHARE, ID_SHARE = 3e-4, 3e-5, 0.995, 0.99
+GRID_MISMATCH_SHARE = 1e-4  # lanes where a culling kernel may differ (chip_smoke.py)
 
 
 def shape_prims(tid, n, seed):
@@ -288,6 +289,135 @@ def test_grid_mxu_plain_matches_group_query(form):
     assert_agree(t_p.numpy(), e_p.numpy(), t_v.numpy(), e_v.numpy(), any_hit, "grid")
 
 
+# --------------------------------------------------------------------------
+# the tensor-core leaf weighed for the grid kernel's MXU form, emulated
+# --------------------------------------------------------------------------
+
+def tf32(x):
+    """cvt.rna.tf32.f32: float32 rounded to 10 mantissa bits, to nearest,
+    ties away from zero."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def fragment_index(n_super, m):
+    """The weighed leaf's fragment layout of a supercell-major table
+    (n_super*8, m*128), as indices into the flat table (-1: a zero pad):
+    (n_super, 16 prim groups, tiles = ceil(m/2), 32 lanes, 4).  Tile j of
+    group q is the 16x8 A operand of mma.sync.m16n8k8, W^T with rows 0-7
+    value 2j of the group's eight prims and rows 8-15 value 2j+1, columns the
+    eight features; lane 4g+c holds (g, c), (g+8, c), (g, c+4), (g+8, c+4),
+    so its accumulator fragment holds all m values of prim g of the group
+    for its rays."""
+    tiles = (m + 1) // 2
+    idx = torch.full((n_super, 8, 2 * tiles, 128), -1, dtype=torch.int64)
+    idx[:, :, :m] = torch.arange(n_super * 8 * m * 128).reshape(n_super, 8, m, 128)
+    # (si, k, j, half, q, p) -> (si, q, j, row = half*8 + p, k)
+    a = idx.reshape(n_super, 8, tiles, 2, 16, 8).permute(0, 4, 2, 3, 5, 1)
+    a = a.reshape(n_super, 16, tiles, 16, 8)
+    g, c = torch.arange(32) // 4, torch.arange(32) % 4
+    return torch.stack([a[..., g, c], a[..., g + 8, c], a[..., g, c + 4],
+                        a[..., g + 8, c + 4]], -1)
+
+
+def split_values(parts):
+    """ordered_values' counterpart on the tensor cores: pair values of
+    feature rows F (n, 8) and table columns W (8, K) from TF32 parts of both
+    (``parts(x)``: a list of TF32 terms, largest first, summing to about x),
+    the cross products of terms i, j with i + j < len(parts) taken smallest
+    first, each an 8-term product sum accumulated in float32."""
+    def values(F, W):
+        fs, ws = parts(F), parts(W)
+        pairs = [(i, j) for i in range(len(fs)) for j in range(len(ws)) if i + j < len(fs)]
+        acc = torch.zeros(F.shape[0], W.shape[1])
+        for i, j in sorted(pairs, key=lambda ij: -sum(ij)):
+            for k in range(MT.RAY_FEATS):
+                acc = acc + fs[i][:, k:k + 1] * ws[j][k]
+        return acc
+    return values
+
+
+def split2(x):
+    """3xTF32: hi + lo, giving hi*hi + hi*lo + lo*hi."""
+    hi = tf32(x)
+    return [hi, tf32(x - hi)]
+
+
+def split3(x):
+    """The exact three-way TF32 split: six products."""
+    hi = tf32(x)
+    mid = tf32(x - hi)
+    return [hi, mid, tf32(x - hi - mid)]
+
+
+@pytest.fixture(scope="module")
+def terrain_queries():
+    """The reduced terrain's grid_mxu queries (grid_plain with mxu) of one
+    48x48, 4-spp, depth-3 render on the CPU, by ray set: primary (each
+    sample's first closest-hit query), bounce (its other closest-hit
+    queries) and shadow (any-hit)."""
+    from pine_tpu_torch.accel import grid_traverse as GT
+    from pine_tpu_torch.core.samplers import BlueSampler
+    from pine_tpu_torch.integrators.path import render_wavefront
+
+    calls, real = [], GT.grid_plain
+
+    def record(*a, **kw):
+        calls.append((tuple(x.clone() if torch.is_tensor(x) else x for x in a), kw))
+        return real(*a, **kw)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(DT, "GRID_MAX_PRIMS", 1024)
+        mp.setattr(GT, "grid_plain", record)
+        scene = scenes.terrain((48, 48), 40)
+        render_wavefront(scene.compile("cpu", mesh_kernel="mxu"), scene.camera, 48, 48,
+                         BlueSampler(4), 4, 3)
+    closest = [c for c in calls if not c[0][-1]]
+    per_sample = len(closest) // 4
+    return real, {"primary": closest[::per_sample],
+                  "bounce": [c for k, c in enumerate(closest) if k % per_sample],
+                  "shadow": [c for c in calls if c[0][-1]]}
+
+
+def test_tensor_core_leaf_layout_and_emulation(terrain_queries):
+    """The grid kernel's MXU form was to take its pair values from the tensor
+    cores (mma.sync.m16n8k8 in TF32, the 3xTF32 split).  Its fragment layout
+    is a permutation of build_mesh_tables's values, bit for bit.  Emulated on
+    the reduced terrain, it puts more than GRID_MISMATCH_SHARE of a ray set's
+    lanes outside the gate against grid_plain(..., mxu=True) (t to rtol 1e-5
+    / atol 1e-6, ids and flags equal), so the kernel forms the values on the
+    CUDA cores in the ordered FP32 sum instead (csrc/grid_traverse.cu).  The
+    exact three-way split (six products) meets the gate: the lead for a
+    later tensor-core leaf."""
+    real, sets = terrain_queries
+    assert [len(c) for c in sets.values()] == [4, 8, 8]
+    tab = sets["primary"][0][0][2]["mxu"]
+    Wm = tab["W"].flatten()
+    idx = fragment_index(tab["W"].shape[0] // MT.RAY_FEATS, tab["m"])
+    flat = idx[idx >= 0]
+    assert torch.equal(flat.sort().values, torch.arange(Wm.numel()))
+    frag = torch.where(idx >= 0, Wm[idx.clamp_min(0)], 0.0)
+    back = torch.empty_like(Wm)
+    back[flat] = frag[idx >= 0]
+    assert torch.equal(back.view(torch.int32), Wm.view(torch.int32))
+
+    shares = {}
+    for rs, calls in sets.items():
+        want = [real(*a, **kw) for a, kw in calls]
+        for name, parts in (("3xtf32", split2), ("6xtf32", split3)):
+            bad = lanes = 0
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(MS, "ordered_values", split_values(parts))
+                for (a, kw), (t_p, e_p) in zip(calls, want):
+                    t_k, e_k = real(*a, **kw)
+                    close = torch.isclose(t_k, t_p, rtol=1e-5, atol=1e-6) | (t_k == t_p)
+                    bad += int((~close | (e_k != e_p)).sum())
+                    lanes += t_k.shape[0]
+            shares[(name, rs)] = bad / lanes
+    print(shares)
+    assert max(shares[("3xtf32", rs)] for rs in sets) > GRID_MISMATCH_SHARE, shares
+    assert max(shares[("6xtf32", rs)] for rs in sets) <= GRID_MISMATCH_SHARE, shares
+
+
 def test_inst_mxu_plain_matches_inst_plain_and_xla_walk(monkeypatch):
     import jax.numpy as jnp
     from pine_tpu.accel import packet as JPK
@@ -361,10 +491,15 @@ def _card_rays(n, seed):
     return [torch.from_numpy(x).cuda() for x in sweep_rays(n, seed)]
 
 
+def needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA)")
+
+
 @pytest.mark.cuda
-@pytest.mark.skipif(not torch.cuda.is_available(), reason="needs an NVIDIA GPU (CUDA)")
 @pytest.mark.parametrize("name", list(MXU_TYPES))
 def test_kernel7_matches_plain_on_card(name):
+    needs_card()
     tid = MXU_TYPES[name]
     g = port_group(tid, 300, 80 + tid, "cuda")
     DT.prepare(g, "mxup")
@@ -378,8 +513,8 @@ def test_kernel7_matches_plain_on_card(name):
 
 
 @pytest.mark.cuda
-@pytest.mark.skipif(not torch.cuda.is_available(), reason="needs an NVIDIA GPU (CUDA)")
 def test_mxu_leaf_forms_match_plain_on_card():
+    needs_card()
     from test_torch_scdense import port_soup
 
     from pine_tpu_torch.accel import grid_traverse as GT
@@ -405,3 +540,12 @@ def test_mxu_leaf_forms_match_plain_on_card():
         t_p, e_p = IT.inst_plain(*a, mxu=True)
         assert ((e_k != e_p) | ~torch.isclose(t_k, t_p, rtol=1e-5, atol=1e-6)).float().mean() \
             <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one live lane", "full warps", "mid-cell occluders",
+                                  "shadow rays"])
+def test_mxu_leaf_schedules_match_plain_on_card(case):
+    from test_torch_grid_kernel import card_schedule_case
+
+    card_schedule_case(case, mxu=True)
