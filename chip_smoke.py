@@ -32,7 +32,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    e. the scdense sweep on the benchmark box's three groups, the cone
       forest's group and a 3,000-triangle soup; beside it the dense kernel;
    f. the supercell-tree walk on soups of 3,000 and 20,000 triangles and the
-      terrain's group; beside it the grid kernel;
+      terrain's group, and on that group b's three schedule ray sets (its
+      warp-level walk and the grid kernel's leaf schedules); beside it the
+      grid kernel;
    g. the BVH walk on the same soups, the terrain's group and the terrain
       grown to 2,004,002 triangles; beside it the grid kernel;
    h. the fused coefficient-table sweep (kernel 7, "mxup") against
@@ -767,7 +769,8 @@ def phase_scdense_vs_plain(dev):
 def phase_tree_vs_plain(dev, kind, big):
     """sctree or bvh against its plain version on soups of 3,000 and 20,000
     triangles and on the terrain's group (and, for bvh, the 2,004,002-triangle
-    group ``big``); beside it the grid kernel."""
+    group ``big``; for sctree, ``schedule_rays`` on the terrain's group);
+    beside it the grid kernel."""
     import numpy as np
 
     recs = []
@@ -776,9 +779,13 @@ def phase_tree_vs_plain(dev, kind, big):
         g = soup_group(n_tri, dev)
         recs += compare_beside(kind, "grid", g, random_rays(rng, dev, n_tri), f"soup{n_tri}",
                                time_it=n_tri == 20000)
-    groups = [("terrain", terrain_group(dev))] + ([("terrain 2M", big)] if big else [])
+    terrain = terrain_group(dev)
+    groups = [("terrain", terrain)] + ([("terrain 2M", big)] if big else [])
     for what, g in groups:
         recs += compare_beside(kind, "grid", g, terrain_rays(rng, dev, g), what)
+    if kind == "sctree":
+        for name, r in schedule_rays(np.random.default_rng(6), dev, terrain).items():
+            recs += compare_beside(kind, "grid", terrain, r, f"terrain, {name}")
     return recs
 
 
@@ -1430,17 +1437,23 @@ def tree_work(kind, g, args, any_hit, out_k):
 def kernel_line_entry(kind, form, calls, launches, checked=None, label=None):
     """Time one kernel form on the recorded main-path launches (every launch
     of one 1-spp render); ``label`` names the path in the entry's name where
-    another path's entries time the same kernel.  ms and bound_ms are means per launch and the work
-    counts sums over the launches; the plain version runs, and the kernel is
-    held to it, on every launch, or on the first ``checked`` of them, and
-    plain_ms is the mean over those."""
+    another path's entries time the same kernel.  ms and bound_ms are means
+    per launch and the work counts sums over the launches; ``by_group``
+    holds each group's launches and its means of ms, bound_ms and
+    library_ms.  The plain version runs, and the kernel is held to it, on
+    every launch, or on the first ``checked`` of them, and plain_ms is the
+    mean over those."""
     any_hit = form == "any_hit"
     ms_each, plain_each, lib_each = [], [], []
     bound = err = 0.0
     ops = nbytes = differ = 0
-    sums = {}
+    sums, by_group = {}, {}
     for i, (g, args, _) in enumerate(calls):
         ms_each.append(cuda_ms(lambda: launch(kind, g, args, any_hit), 10))
+        per = by_group.setdefault(group_desc(g), dict(launches=0, ms=0.0, bound_ms=0.0,
+                                                      library_ms=0.0))
+        per["launches"] += 1
+        per["ms"] += ms_each[-1]
         out_k = launch(kind, g, args, any_hit)
         counts = out_p = None
         if checked is None or i < checked:
@@ -1460,6 +1473,7 @@ def kernel_line_entry(kind, form, calls, launches, checked=None, label=None):
             c_ops, c_bytes, c = mxup_work(g, args, any_hit)
             prep(g, "mxu")
             lib_each.append(cuda_ms(lambda: launch("mxu", g, args, any_hit), 10))
+            per["library_ms"] += lib_each[-1]
         elif kind == "lattice":
             c_ops, c_bytes, c = lattice_work(g, args, any_hit, out_p, counts)
         elif kind == "scdense":
@@ -1472,8 +1486,15 @@ def kernel_line_entry(kind, form, calls, launches, checked=None, label=None):
             sums[key] = sums.get(key, 0) + v
         ops += c_ops
         nbytes += c_bytes
-        bound += max(c_bytes / HBM_BYTES_PER_S, c_ops / FP32_OPS_PER_S) * 1e3
+        c_bound = max(c_bytes / HBM_BYTES_PER_S, c_ops / FP32_OPS_PER_S) * 1e3
+        bound += c_bound
+        per["bound_ms"] += c_bound
     k = len(calls)
+    for per in by_group.values():  # means per launch of each group
+        for key in ("ms", "bound_ms", "library_ms"):
+            per[key] /= per["launches"]
+        if not lib_each:
+            per["library_ms"] = None
     groups = sorted({group_desc(g) for g, _, _ in calls})
     base = {"grid_mxu": "grid_traverse.mxu", "inst_mxu": "inst_traverse.mxu"}.get(
         kind, KERNELS[kind][0])
@@ -1489,6 +1510,7 @@ def kernel_line_entry(kind, form, calls, launches, checked=None, label=None):
           "of one 1-spp render, work counts summed over them; the plain version on "
           + (f"the first {len(plain_each)} of them" if len(plain_each) < k else "each"),
         ms_each=ms_each, lanes_differ=differ, **{f"{key}_sum": v for key, v in sums.items()},
+        by_group=by_group,
     )
     return entry
 

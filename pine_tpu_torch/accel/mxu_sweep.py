@@ -25,8 +25,9 @@ The three sweeps:
   epilogue, ``pine_tpu``'s plain-XLA "mxu" route; rays in chunks of at
   most ``ROUTE_PAIRS`` pair values, which change no result.  On a lane that nothing hits,
   closest-hit returns t = BIG with row 0 (the argmin), as there;
-- ``mxup_cuda``: kernel 7, one thread per ray, 128-prim tiles of W staged
-  in shared memory (csrc/mxu_sweep.cu);
+- ``mxup_cuda``: kernel 7 (csrc/mxu_sweep.cu): one ray per thread,
+  128-prim tiles of the table's prim-major copy (``mxu_tables.prim_major``,
+  the table's ``Wp``) staged in shared memory by bulk asynchronous copies;
 - ``mxup_plain``: kernel 7 in plain PyTorch, each pair value the ordered
   sum ``((((((d0*w0 + d1*w1) + d2*w2) + o0*w3) + o1*w4) + o2*w5) + 1*w6)
   + 0*w7`` and ``odr``, ``oor``, ``ddr`` as ``(x0*y0 + x1*y1) + x2*y2``,
@@ -235,10 +236,8 @@ def mxup_plain(tid, rows, tab, ro, rd, tmin, tmax, best_t, best_e, any_hit):
 # kernel 7: the kernel
 # --------------------------------------------------------------------------
 
-def _library():
-    from pine_tpu_torch import cuda_build
-
-    fn = cuda_build.load("mxu_sweep").pine_mxu_sweep
+def bind(fn):
+    """Give a library's ``pine_mxu_sweep`` its C signature."""
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] + [ctypes.c_int] * 2
                        + [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p])
@@ -246,16 +245,27 @@ def _library():
     return fn
 
 
+def _library():
+    from pine_tpu_torch import cuda_build
+
+    return bind(cuda_build.load("mxu_sweep").pine_mxu_sweep)
+
+
 def mxup_cuda(tid, rows, tab, ro, rd, tmin, tmax, best_t, best_e, any_hit):
     """Launch csrc/mxu_sweep.cu (kernel 7) on the current stream, on the
-    tile-major table ``tab`` of the group's ``rows`` (which it does not read)."""
+    prim-major copy ``Wp`` of the tile-major table ``tab`` of the group's
+    ``rows`` (which it does not read)."""
     n = ro.shape[0]
     dev = ro.device
     f32, i32 = torch.float32, torch.int32
     m, n_tiles = tab["m"], tab["n_tiles"]
     if m != mxu_tables.MXU_M.get(tid):
         raise ValueError(f"a table of {m} values for prim type {tid}")
-    _check(tab["W"], f32, (mxu_tables.RAY_FEATS, n_tiles * m * TILE), dev, "W")
+    if not 0 < tab["C"] <= n_tiles * TILE:
+        raise ValueError(f"a table of {n_tiles} tiles for {tab['C']} prims")
+    _check(tab["Wp"], f32, (n_tiles, TILE, m, mxu_tables.RAY_FEATS), dev, "Wp")
+    if tab["Wp"].data_ptr() % 16:
+        raise ValueError("Wp: the kernel needs a 16-byte-aligned table")
     for x, name in ((ro, "ro"), (rd, "rd")):
         _check(x, f32, (n, 3), dev, name)
     for x, name in ((tmin, "tmin"), (tmax, "tmax"), (best_t, "best_t")):
@@ -264,7 +274,7 @@ def mxup_cuda(tid, rows, tab, ro, rd, tmin, tmax, best_t, best_e, any_hit):
     out_t = torch.empty(n, dtype=f32, device=dev)
     out_e = torch.empty(n, dtype=i32, device=dev)
     err = _library()(
-        tid, int(any_hit), tab["W"].data_ptr(), tab["C"], n_tiles, ro.data_ptr(),
+        tid, int(any_hit), tab["Wp"].data_ptr(), tab["C"], n_tiles, ro.data_ptr(),
         rd.data_ptr(), tmin.data_ptr(), tmax.data_ptr(), best_t.data_ptr(), best_e.data_ptr(),
         out_t.data_ptr(), out_e.data_ptr(), n,
         torch.cuda.current_stream(dev).cuda_stream,
@@ -299,9 +309,10 @@ def mesh_leaf_t(tid, mesh, si, width, o, d, tmin, limit):
 def prepare_tables(g, kind):
     """Build and upload the table ``kind`` of group ``g`` if it does not hold
     it yet: "mxu" (value-major, ``g["mxu"]``), "mxut" (tile-major,
-    ``g["mxut"]``) or "mxum" (supercell-major over the group's prims
-    without its builder pad rows, ``g["mxum"]``).  Each is a dict with the
-    table ``W`` on the group's device and its counts."""
+    ``g["mxut"]``, with its prim-major copy ``Wp`` for the kernel) or "mxum"
+    (supercell-major over the group's prims without its builder pad rows,
+    ``g["mxum"]``).  Each is a dict with the table ``W`` on the group's
+    device and its counts."""
     if kind in g:
         return g[kind]
     rows = g["rows"].cpu().numpy()
@@ -311,6 +322,7 @@ def prepare_tables(g, kind):
         tab = dict(W=mxu_tables.build_w(tid, rows), m=m)
     elif kind == "mxut":
         tab = mxu_tables.build_tiled_tables(tid, rows)
+        tab["Wp"] = torch.as_tensor(mxu_tables.prim_major(tab["W"], tab["m"]), device=dev)
     else:
         n_prims = len(g["prim_aabbs"])
         e_pad = (n_prims + TILE - 1) // TILE * TILE

@@ -18,7 +18,9 @@ Three layouts of one table:
   column ``v*C + e`` (the flat "mxu" route);
 - ``build_tiled_tables``: tile-major, 128-prim tiles each holding its ``m``
   value blocks side by side, ``(8, n_tiles*m*128)``, zero columns past the
-  last prim (the fused sweep, csrc/mxu_sweep.cu);
+  last prim (the fused sweep's plain version); ``prim_major`` permutes it to
+  ``(n_tiles, 128, m, 8)``, each (prim, value) pair's eight coefficients
+  contiguous (the fused sweep, csrc/mxu_sweep.cu);
 - ``build_mesh_tables``: supercell-major ``(n_super*8, m*128)``, row block
   ``[si*8, si*8+8)`` holding supercell ``si``'s value-major strip; prims past
   the last copy prim 0's columns (the MXU leaf forms of the grid and
@@ -154,6 +156,15 @@ def build_tiled_tables(tid, rows):
             dst0 = (ct * m + v) * C_TILE
             Wt[:, dst0:dst0 + src.shape[1]] = src
     return dict(W=Wt, m=m, C=C, n_tiles=n_tiles)
+
+
+def prim_major(W, m):
+    """The tile-major table ``W`` (8, n_tiles*m*128) of m values per prim as
+    (n_tiles, 128, m, 8): entry [ct, c, v, f] is W[f, (ct*m + v)*128 + c], the
+    same floats in another order."""
+    n_tiles = W.shape[1] // (m * C_TILE)
+    return np.ascontiguousarray(
+        np.asarray(W).reshape(RAY_FEATS, n_tiles, m, C_TILE).transpose(1, 3, 2, 0))
 
 
 def build_mesh_tables(tid, rows, e_pad, super_sz=C_TILE):

@@ -6,9 +6,10 @@ Counterpart of pine_tpu/accel/pallas_traverse.py::_sc_tree_layout and
 second SAH tree, built by the C++ builder over the supercell boxes, orders
 the supercells.  A walk descends that tree near-first, gates each supercell
 of a leaf it reaches by its box, then each of its four cells, and tests the
-prims of the cells that pass.  The walk is ``sctree_walk`` in
-csrc/sctree_walk.cuh: the supercell-tree kernel (accel/sctree_traverse.py)
-runs it once per ray over a group, the two-level instanced kernel over the
+prims of the cells that pass.  The supercell-tree kernel
+(accel/sctree_traverse.py, csrc/sctree_traverse.cu) walks it a warp at a
+time over a group; the two-level instanced kernel, one ray per thread
+(``sctree_walk`` in csrc/sctree_walk.cuh), over the
 shared mesh of an instanced group in each instance's frame.
 
 Tables (``sc_tree_layout``), all uploaded once at compile():

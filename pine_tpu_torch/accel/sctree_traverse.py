@@ -6,13 +6,14 @@ csrc/sctree_traverse.cu through ``sctree_cuda``), which ``pine_tpu`` runs
 under ``PINE_MESH_KERNEL=sctree`` and the port when
 ``CompiledScene.mesh_kernel`` (or ``small_kernel``) is "sctree".  The tables
 are accel/sctree.py's (``sc_tree_layout``, uploaded once): a SAH tree over
-the group's 128-prim supercells, the supercell and 32-prim cell boxes.  Each
-ray walks the tree near-first in world space (``sctree_walk`` of
-csrc/sctree_walk.cuh, which the instanced kernel runs in each instance's
-frame), gating each supercell of a leaf it reaches by its box, then each of
-its cells, and tests the prims of the cells that pass, reading the group's
-rows directly.  The contract is ``dense_traverse.group_query``'s; exact ties
-in t go to the lowest row whatever the visit order.
+the group's 128-prim supercells, the supercell and 32-prim cell boxes.  On
+the card the warp is the unit of the walk, as the TPU kernel's (8,128) ray
+block was: one stack per warp, a child taken when any of its rays reaches
+its box, near-first; each supercell of a reached leaf, then each of its
+cells, culled per ray, and each cell that a ray reaches staged in shared
+memory and tested as the grid kernel tests its cells (csrc/warp_leaf.cuh).
+The contract is ``dense_traverse.group_query``'s; exact ties in t go to the
+lowest row whatever the visit order.
 
 The kernel's stack holds STACK_DEPTH entries, and the walk needs at most the
 tree's depth of them: the wrapper refuses a deeper tree.
@@ -38,22 +39,26 @@ import ctypes
 import torch
 
 from pine_tpu_torch.accel.dense_traverse import LAUNCHES, _check, check_stack
-from pine_tpu_torch.accel.grid_traverse import CELL, SUPER
+from pine_tpu_torch.accel.grid_traverse import CELL, SUPER, _aligned
 from pine_tpu_torch.accel.sctree import TREE_LEAF
 from pine_tpu_torch.scene import shapes as S
 
-STACK_DEPTH = 64  # entries of the kernel's per-ray stack (csrc/sctree_traverse.cu)
+STACK_DEPTH = 64  # entries of the kernel's per-warp stack (csrc/sctree_traverse.cu)
 
 
-def _library():
-    from pine_tpu_torch import cuda_build
-
-    fn = cuda_build.load("sctree_traverse").pine_sctree_traverse
+def bind(fn):
+    """Give a library's ``pine_sctree_traverse`` its C signature."""
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] + [ctypes.c_int] * 2
                        + [ctypes.c_void_p] * 15 + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def _library():
+    from pine_tpu_torch import cuda_build
+
+    return bind(cuda_build.load("sctree_traverse").pine_sctree_traverse)
 
 
 def sctree_cuda(tid, rows, sct, ro, rd, tmin, tmax, best_t, best_e, any_hit):
@@ -66,6 +71,7 @@ def sctree_cuda(tid, rows, sct, ro, rd, tmin, tmax, best_t, best_e, any_hit):
     if rows.shape[0] < sct["n_prims"]:
         raise ValueError(f"rows: {rows.shape[0]} rows for {sct['n_prims']} prims")
     _check(rows, f32, (rows.shape[0], S.PARAM_WIDTH[tid]), dev, "rows")
+    _aligned(rows, "rows")
     for k, shape in (("sc_boxes", (n_super, 6)), ("cell_boxes", (n_super * (SUPER // CELL), 6)),
                      ("boxes", (n_nodes, 2, 6))):
         _check(sct[k], f32, shape, dev, k)

@@ -29,8 +29,8 @@
 // pops.  An instance entry is re-culled against the running best when it
 // pops, then the ray goes into its frame with the 3x4 inverse in the order
 // ((m0*x + m1*y) + m2*z) + m3 (directions unnormalized, so local t is world
-// t), and sctree_walk (csrc/sctree_walk.cuh, shared with the one-level
-// supercell-tree kernel), the mesh-level walk, runs on the same stack above
+// t), and sctree_walk (csrc/sctree_walk.cuh; the one-level supercell-tree
+// kernel walks per warp), the mesh-level walk, runs on the same stack above
 // the pending entries: supercell-tree nodes near-first, each leaf's supercells
 // gated by their box, then their four 32-prim cells, then the triangle tests
 // of csrc/prim_tests.cuh.  Ties: the running best (t, virtual id) is compared

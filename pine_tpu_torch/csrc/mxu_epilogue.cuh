@@ -74,8 +74,53 @@ __device__ __forceinline__ void pair_values(const RayFeat& r, const float* col, 
   }
 }
 
-// t of one (ray, prim) pair from its values, BIG on a miss.
-template <int TID>
+// A kernel's two-stage ring of table slices (kernel 5m's supercell strips,
+// kernel 7's tiles), each slice one bulk asynchronous copy (cp.async.bulk,
+// the 1-D form of the TMA) completing on its stage's mbarrier.
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Thread 0 readies the ring's two barriers, before the block's first barrier.
+__device__ __forceinline__ void init_bulk_barriers(unsigned long long* bar) {
+  for (int s = 0; s < 2; ++s)
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar + s)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Thread 0 asks the bulk copy engine for one slice; the barrier's phase
+// completes when its bytes have landed.
+__device__ __forceinline__ void bulk_fetch(float* dst, const float* src, unsigned bytes,
+                                           unsigned long long* bar) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Waits until the barrier's phase of the given parity has completed.
+__device__ __forceinline__ void bulk_wait(unsigned long long* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT_%=;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// t of one (ray, prim) pair from its values, BIG on a miss.  With EARLY, a
+// cone or sphere pair whose discriminant is not positive returns BIG before
+// its square root and divisions: the same value, since such a pair misses.
+template <int TID, bool EARLY = false>
 __device__ __forceinline__ float mxu_pair_t(const float* val, const RayFeat& r, float tmin,
                                             float limit) {
   float t;
@@ -88,6 +133,7 @@ __device__ __forceinline__ float mxu_pair_t(const float* val, const RayFeat& r, 
     float b = 2.0f * (od - on * dn);
     float c = oo - on * on;
     float disc = b * b - 4.0f * a * c;
+    if (EARLY && !(disc > 0.0f)) return BIG;
     float sq = sqrtf(vmax(disc, 0.0f));
     float a_safe = a == 0.0f ? 1e-6f : a;
     float t0 = (-b - sq) / (2.0f * a_safe);
@@ -98,6 +144,7 @@ __device__ __forceinline__ float mxu_pair_t(const float* val, const RayFeat& r, 
     float b = r.odr - val[0];
     float cc = r.oor + val[1];
     float disc = b * b - cc;
+    if (EARLY && !(disc > 0.0f)) return BIG;
     float sq = sqrtf(vmax(disc, 0.0f));
     float t0 = -b - sq;
     t = t0 < tmin ? -b + sq : t0;

@@ -1,7 +1,8 @@
 // Per-type ray tests on one prim row, shared by the traversal kernels
 // (dense_traverse.cu, scdense_traverse.cu, grid_traverse.cu,
 // sctree_traverse.cu, bvh_traverse.cu, inst_traverse.cu,
-// lattice_traverse.cu), and the slab tests and stack push of their culls.
+// lattice_traverse.cu, cone_probe.cu), and the slab tests and stack push of
+// their culls.
 // Counterpart of PRIM_TESTS in
 // pine_tpu/accel/pallas_traverse.py and pine_tpu_torch/accel/dense_traverse.py:
 // the same rounded sequence of operations as the plain PyTorch versions when
@@ -11,8 +12,9 @@
 // The tests read the row through an accessor ``r(c)`` -> column c, as the TPU
 // kernels pass ``fetch`` to PRIM_TESTS: ``prim_test<TID>(const float* row)``
 // reads a row of a table in global memory (GlobalRow, through the read-only
-// cache); the grid kernel passes rows it staged in shared memory
-// (SharedRow); the lattice kernel passes a row it rebuilds in registers.
+// cache); the grid and supercell-tree kernels pass rows they staged in
+// shared memory (SharedRow, warp_leaf.cuh); the lattice kernel passes a row
+// it rebuilds in registers.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -57,27 +59,6 @@ __device__ __forceinline__ float ld(const float* r, int c) { return __ldg(r + c)
 struct GlobalRow {
   const float* p;
   __device__ __forceinline__ float operator()(int c) const { return __ldg(p + c); }
-};
-
-// A prim row of W floats staged in shared memory, read into registers once:
-// as 16-byte vectors when W is a multiple of 4 (the row then starts on a
-// 16-byte boundary), else float by float.
-template <int W>
-struct SharedRow {
-  float v[W];
-  __device__ __forceinline__ explicit SharedRow(const float* s) {
-    if constexpr (W % 4 == 0) {
-#pragma unroll
-      for (int q = 0; q < W / 4; ++q) {
-        float4 x = reinterpret_cast<const float4*>(s)[q];
-        v[4 * q] = x.x; v[4 * q + 1] = x.y; v[4 * q + 2] = x.z; v[4 * q + 3] = x.w;
-      }
-    } else {
-#pragma unroll
-      for (int c = 0; c < W; ++c) v[c] = s[c];
-    }
-  }
-  __device__ __forceinline__ float operator()(int c) const { return v[c]; }
 };
 
 template <class R>

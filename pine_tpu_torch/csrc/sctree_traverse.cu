@@ -2,88 +2,217 @@
 // group that CompiledScene.mesh_kernel (or small_kernel) sets to "sctree".
 //
 // Replaces pine_tpu/accel/pallas_traverse.py::_make_sctree_kernel (reached
-// through _compiled_sctree_call), the Pallas TPU kernel that walks a SAH tree
-// over a group's 128-prim supercells with one scalar stack per (8,128) ray
-// block, DMAs each reached supercell from a lane-padded (E_pad, 128) table in
-// HBM and culls its four 32-prim cells against the block.  Its contract is
-// pallas_group_query's:
+// through _compiled_sctree_call, TPU kernel 6), the Pallas TPU kernel that
+// walks a SAH tree over a group's 128-prim supercells with one scalar stack
+// per (8,128) ray block: it takes a child when any lane of the block reaches
+// its box, pushes the nearer inner child last by the block's least entry
+// distance, DMAs each reached supercell from a lane-padded (E_pad, 128) table
+// in HBM and culls its four 32-prim cells while the copy is in flight.  Its
+// contract is pallas_group_query's:
 //   closest-hit: (best_t, best_e) in/out, best_e the group-local row;
 //   any-hit: best_e in/out is the 0/1 occlusion flag, best_t passes through;
 //   lanes with nothing to do (occluded, tmax <= tmin, best_t <= tmin) and
 //   lanes that reach no prim pass their state through bit for bit.
 //
-// What bounds it: arithmetic and divergence.  A ray runs a few dozen slab
-// tests in the tree and the cells and the prim tests of the cells it reaches;
-// it reads 40 bytes of ray state and writes 8.  The tables (the 99,458-
-// triangle terrain: 4.8 MB of rows, ~110 KB of tree and cell boxes) are read
-// through the read-only cache and sit in the 50 MB L2.
+// What bounds it on this card: not the tests (a terrain ray needs a few
+// dozen slab tests and the prim tests of the cells it reaches, the tables
+// sit in the 50 MB L2) but how the warp runs them.  One thread per ray, each
+// with its own 64-entry stack in local memory, walking its own nodes and
+// testing a reached cell's 32 rows one by one from L2, ran at 72x / 48x its
+// operations bound (closest / any-hit) on the terrain: the lanes of a warp
+// that did not need a cell waited while the others tested it.
 //
-// Design: one thread per ray, the walk of csrc/sctree_walk.cuh (the one the
-// instanced kernel runs in each instance's frame) once per ray in world
-// space, over the group's rows as they are: the lane-padded table and its
-// DMA were the TPU's way to reach HBM.  The walk's stack is a per-thread
-// array of STACK_DEPTH entries in local memory; the wrapper refuses a tree
-// deeper than that (accel/sctree_traverse.sctree_cuda).  The prims of a cell
-// are tested only below the group's prim count, so the pad rows of the
-// group's table are never read.  Closest-hit keeps the lowest (t, row)
-// whatever the visit order (the TPU kernel kept the first visited on an
-// exact tie) and replaces the incoming best only on a strict t < best_t.
-// Any-hit leaves a ray at its first hit.  Built without fast math and with
-// -fmad=false, the tests round as the plain PyTorch version's do.
+// Design: the warp is the unit of the walk, the TPU kernel's one stack per
+// block at warp size, with the grid kernel's leaf (csrc/warp_leaf.cuh).
+// - One stack per warp in shared memory, STACK_DEPTH entries: node ids, and
+//   a taken leaf child waiting its turn; the wrapper refuses a deeper tree
+//   (accel/sctree_traverse.sctree_cuda).  Lane 0 alone reads and writes it
+//   and broadcasts a popped entry by a shuffle, so no lane reads a slot
+//   another lane writes.
+// - At each popped node every lane tests both child boxes against its own
+//   window (closest-hit: its running best; any-hit: tmax), and the warp takes
+//   a child when any live lane passes (a ballot).  Leaf children first, the
+//   nearer first; then inner children, the nearer popped first.  Which child
+//   is nearer is decided per warp by the TPU kernel's rule: the child whose
+//   least entry distance over the lanes that reach it is lower (two warp
+//   min-reductions).  A majority vote of those lanes (each preferring the
+//   child it enters first), built as a -D variant of this kernel, took
+//   1.8-2.4 % more in each of six calls on the card (H100 80GB HBM3, 700 W),
+//   summed over both queries on the terrain group's four ray sets of
+//   lab/grid_crossover.py.  Any-hit leaves when no lane of the warp is live
+//   and unoccluded (the TPU's jnp.all(done)).
+// - A taken leaf's supercells, then their cells, are culled per lane; a cell
+//   any lane passes is staged by cp.async into the warp's two-stage ring
+//   while the cell before it is tested, and tested lanes over prims (k <=
+//   GRID_PRIMS_MAX_K rays reach it) or lanes over rays, as the grid kernel
+//   tests its cells.  The walk runs one cell ahead of the tests, so its
+//   windows are one cell behind: it can take more nodes and cells, never
+//   fewer.  Lanes past the rays, dead lanes and occluded lanes stay in the
+//   walk as not live: every ballot and shuffle needs all 32 lanes.
+// Closest-hit keeps the lowest (t, row) whatever the visit order (the TPU
+// kernel kept the first visited on an exact tie) and replaces the incoming
+// best only on a strict t < best_t; any-hit sets the flag at its first hit.
+// The prims of a cell are tested only below the group's prim count, so the
+// pad rows of the group's table are never read.  Built without fast math
+// and with -fmad=false, the tests round as the plain PyTorch version's do.
+//
+// ptxas -v (sm_90a, at least six blocks of 128 threads per SM): the
+// triangle forms take 62 / 60 registers (closest / any-hit) with 13,312 B of
+// static shared memory (four warps' two-stage rings of 1,536 B and stacks of
+// 64 entries); every instantiation 48-76 registers and 5,120-31,744 B, no
+// spills.
 
-#include "sctree_walk.cuh"
+#include "warp_leaf.cuh"
 
 namespace {
 
 using namespace pine;
 
 constexpr int STACK_DEPTH = 64;  // accel/sctree_traverse.STACK_DEPTH
+constexpr int WARPS = 4;         // warps per block
 
-template <int TID, bool ANY>
-__global__ void __launch_bounds__(128)
-sctree_kernel(SCTree m, const float* __restrict__ ro, const float* __restrict__ rd,
-              const float* __restrict__ tmin_in, const float* __restrict__ tmax_in,
-              const float* __restrict__ bt_in, const int* __restrict__ be_in,
-              float* __restrict__ bt_out, int* __restrict__ be_out, int n) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float bt = bt_in[i];
-  int be = be_in[i];
-  float tmin = tmin_in[i];
-  // the prim-test limit: tmax for any-hit, the incoming best for closest-hit
-  float tmax = ANY ? tmax_in[i] : bt;
-  if (ANY ? (be != 0 || !(tmax > tmin)) : !(bt > tmin)) {
-    bt_out[i] = bt;
-    be_out[i] = be;
+struct Tree {
+  const float* rows;        // (>= n_prims, prim_width) prim rows in leaf order
+  int n_prims, n_super;
+  const float* sc_boxes;    // (n_super, 6) lo xyz, hi xyz
+  const float* cell_boxes;  // (n_super * 4, 6)
+  const float* boxes;       // (M, 2, 6) child boxes of each node
+  const int* cnode;         // (M, 2) child node, < 0 for a leaf child
+  const int* cstart;        // (M, 2) a leaf child's first entry in sc_order
+  const int* ccount;        // (M, 2) and its number of supercells
+  const int* sc_order;      // supercells in leaf order
+};
+
+// The walk's place: the warp's stack (sp entries in shared memory: a node
+// id, or -1 - (2 * node + child) for a taken leaf child waiting its turn) and
+// the open leaf's supercells, sc_order[a, b).  Every lane holds the same
+// values.
+struct TreeWalk {
+  int* stack;
+  int sp;
+  int a, b;
+};
+
+// A float's order as a signed integer, for warp min-reductions.
+__device__ __forceinline__ int order_key(float x) {
+  int i = __float_as_int(x);
+  return i ^ ((i >> 31) & 0x7fffffff);
+}
+
+// Opens leaf child k (2 * node + child) of the tree.
+__device__ __forceinline__ void open_leaf(TreeWalk& w, const Tree& tr, int k) {
+  w.a = __ldg(tr.cstart + k);
+  w.b = w.a + __ldg(tr.ccount + k);
+}
+
+// Pops an entry of the warp's stack: a waiting leaf child opens; a node's
+// children are taken, the nearer leaf child opened, a farther one pushed
+// above the inner children, which are pushed the farther first, so that the
+// nearer pops next.  A node whose children are both leaves pushes no inner
+// child, so the stack never holds more entries than the tree has levels.
+template <bool ANY>
+__device__ __forceinline__ void visit_node(TreeWalk& w, const Tree& tr, const Lane& l,
+                                           int lane) {
+  --w.sp;
+  int node = __shfl_sync(FULL, lane == 0 ? w.stack[w.sp] : 0, 0);
+  if (node < 0) {
+    open_leaf(w, tr, -1 - node);
     return;
   }
-  V3 o = {ro[3 * i], ro[3 * i + 1], ro[3 * i + 2]};
-  V3 d = {rd[3 * i], rd[3 * i + 1], rd[3 * i + 2]};
-  V3 inv = {safe_inv(d.x), safe_inv(d.y), safe_inv(d.z)};
-  float cur_t = tmax;  // running best (t, row); row -1: not improved
-  int cur_e = -1;
-  int stack[STACK_DEPTH];
-  bool occluded = sctree_walk<TID, ANY, STACK_DEPTH>(m, o, d, inv, tmin, tmax, cur_t, cur_e,
-                                                     0, stack, 0);
-  if (ANY) {
-    bt_out[i] = bt;
-    be_out[i] = occluded ? 1 : be;
-  } else {
-    bt_out[i] = cur_e >= 0 ? cur_t : bt;
-    be_out[i] = cur_e >= 0 ? cur_e : be;
+  bool lv = live<ANY>(l);
+  float n0, n1, lim = window<ANY>(l);
+  bool h0 = slab_near(tr.boxes + 12 * node, l.r.o, l.inv, l.r.tmin, lim, n0) && lv;
+  bool h1 = slab_near(tr.boxes + 12 * node + 6, l.r.o, l.inv, l.r.tmin, lim, n1) && lv;
+  bool t0 = __ballot_sync(FULL, h0) != 0, t1 = __ballot_sync(FULL, h1) != 0;
+  if (!t0 && !t1) return;
+  int m0 = __reduce_min_sync(FULL, h0 ? order_key(n0) : 0x7fffffff);
+  int m1 = __reduce_min_sync(FULL, h1 ? order_key(n1) : 0x7fffffff);
+  int nr = m0 <= m1 ? 0 : 1;
+  int c0 = __ldg(tr.cnode + 2 * node), c1 = __ldg(tr.cnode + 2 * node + 1);
+  bool taken_near = nr == 0 ? t0 : t1, taken_far = nr == 0 ? t1 : t0;
+  int c_near = nr == 0 ? c0 : c1, c_far = nr == 0 ? c1 : c0;
+  auto push = [&](int v) {
+    if (w.sp >= STACK_DEPTH) __trap();  // unreachable: the wrapper checks the tree's depth
+    if (lane == 0) w.stack[w.sp] = v;
+    ++w.sp;
+  };
+  // inner children, the farther first so that the nearer pops next
+  if (taken_far && c_far >= 0) push(c_far);
+  if (taken_near && c_near >= 0) push(c_near);
+  // leaf children, the nearer first
+  if (taken_near && c_near < 0) {
+    open_leaf(w, tr, 2 * node + nr);
+    if (taken_far && c_far < 0) push(-1 - (2 * node + 1 - nr));
+  } else if (taken_far && c_far < 0) {
+    open_leaf(w, tr, 2 * node + 1 - nr);
   }
 }
 
+// The next supercell the warp takes, or -1; in_s: this lane passed its cull.
+template <bool ANY>
+__device__ int next_super(TreeWalk& w, const Tree& tr, const Lane& l, int lane, bool& in_s) {
+  for (;;) {
+    while (w.a < w.b) {
+      int si = __ldg(tr.sc_order + w.a++);
+      in_s = live<ANY>(l) && cull<ANY>(tr.sc_boxes + 6 * si, l);
+      if (__ballot_sync(FULL, in_s)) return si;
+    }
+    if (w.sp == 0) return -1;
+    if (ANY && !__ballot_sync(FULL, live<ANY>(l))) {  // every ray of the warp is occluded
+      w.sp = 0;
+      return -1;
+    }
+    visit_node<ANY>(w, tr, l, lane);
+  }
+}
+
+// The thread's ray, read from the special registers each time it is asked
+// for: kept live across the walk, the index cost some forms a spill.
+__device__ __forceinline__ int ray_index() {
+  unsigned t, b, d;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(b));
+  asm volatile("mov.u32 %0, %%ntid.x;" : "=r"(d));
+  return static_cast<int>(b * d + t);
+}
+
+// At least six blocks per SM: without a minimum, ptxas held some forms to
+// fewer registers than they need, to keep more blocks resident, and spilled.
+template <int TID, bool ANY>
+__global__ void __launch_bounds__(WARPS * 32, 6)
+sctree_kernel(Tree tr, const float* __restrict__ ro, const float* __restrict__ rd,
+              const float* __restrict__ tmin_in, const float* __restrict__ tmax_in,
+              const float* __restrict__ bt_in, const int* __restrict__ be_in,
+              float* __restrict__ bt_out, int* __restrict__ be_out, int n) {
+  using L = CellLayout<prim_width<TID>()>;
+  __shared__ __align__(16) float ring[WARPS][2][L::FLOATS];
+  __shared__ int stack[WARPS][STACK_DEPTH];
+  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int i = ray_index();
+  if (__ballot_sync(FULL, i < n) == 0) return;  // the whole warp lies past the rays
+  Lane l = load_lane<ANY, false>(i, n, ro, rd, tmin_in, tmax_in, bt_in, be_in);
+  TreeWalk w{stack[warp], 0, 0, 0};
+  if (lane == 0) w.stack[0] = 0;  // the root
+  w.sp = 1;
+  Cells cs{-1, CELLS, false};
+  warp_cells<TID, ANY>(&ring[warp][0][0], tr.rows, tr.n_prims, l, lane, [&](unsigned& mask) {
+    return next_cell<ANY>(cs, tr.cell_boxes, tr.n_prims, l, mask, [&](bool& in_s) {
+      return next_super<ANY>(w, tr, l, lane, in_s);
+    });
+  });
+  store_lane<ANY>(l, ray_index(), n, bt_in, be_in, bt_out, be_out);
+}
+
 template <int TID>
-void launch(bool any_hit, const SCTree& m, const float* ro, const float* rd, const float* tmin,
+void launch(bool any_hit, const Tree& tr, const float* ro, const float* rd, const float* tmin,
             const float* tmax, const float* bt_in, const int* be_in, float* bt_out,
             int* be_out, int n, cudaStream_t stream) {
-  dim3 block(128), grid((n + 127) / 128);
+  dim3 block(WARPS * 32), grid((n + WARPS * 32 - 1) / (WARPS * 32));
   if (any_hit)
-    sctree_kernel<TID, true><<<grid, block, 0, stream>>>(m, ro, rd, tmin, tmax, bt_in, be_in,
+    sctree_kernel<TID, true><<<grid, block, 0, stream>>>(tr, ro, rd, tmin, tmax, bt_in, be_in,
                                                          bt_out, be_out, n);
   else
-    sctree_kernel<TID, false><<<grid, block, 0, stream>>>(m, ro, rd, tmin, tmax, bt_in, be_in,
+    sctree_kernel<TID, false><<<grid, block, 0, stream>>>(tr, ro, rd, tmin, tmax, bt_in, be_in,
                                                           bt_out, be_out, n);
 }
 
@@ -91,7 +220,8 @@ void launch(bool any_hit, const SCTree& m, const float* ro, const float* rd, con
 
 // C interface.  Returns cudaGetLastError() after the launch (0 on success);
 // an unknown shape type, or a stack depth other than the one compiled in,
-// returns cudaErrorInvalidValue without launching.
+// returns cudaErrorInvalidValue without launching.  rows start on a 16-byte
+// boundary.
 extern "C" int pine_sctree_traverse(
     int tid, int any_hit, int stack_depth, const float* rows, int n_prims, int n_super,
     const float* sc_boxes, const float* cell_boxes, const float* boxes, const int* cnode,
@@ -101,12 +231,11 @@ extern "C" int pine_sctree_traverse(
   if (stack_depth != STACK_DEPTH) return cudaErrorInvalidValue;
   if (n <= 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  SCTree m{rows, n_prims, n_super, sc_boxes, cell_boxes, boxes, cnode, cstart, ccount,
-           sc_order};
+  Tree tr{rows, n_prims, n_super, sc_boxes, cell_boxes, boxes, cnode, cstart, ccount, sc_order};
   bool a = any_hit != 0;
-#define PINE_CASE(T)                                                          \
-  case T:                                                                     \
-    launch<T>(a, m, ro, rd, tmin, tmax, bt_in, be_in, bt_out, be_out, n, s);  \
+#define PINE_CASE(T)                                                           \
+  case T:                                                                      \
+    launch<T>(a, tr, ro, rd, tmin, tmax, bt_in, be_in, bt_out, be_out, n, s);  \
     break;
   switch (tid) {
     PINE_CASE(SPHERE)

@@ -1,8 +1,8 @@
-// The walk of a prim group's supercell tree (accel/sctree.sc_tree_layout),
-// shared by the one-level supercell-tree kernel (sctree_traverse.cu, TPU
-// kernel _make_sctree_kernel) and the two-level instanced kernel
-// (inst_traverse.cu), which runs it over the shared mesh in each instance's
-// frame.
+// The per-thread walk of a prim group's supercell tree
+// (accel/sctree.sc_tree_layout) that the two-level instanced kernel
+// (inst_traverse.cu) runs over the shared mesh in each instance's frame.
+// The one-level supercell-tree kernel (sctree_traverse.cu) walks the same
+// tables a warp at a time (warp_leaf.cuh).
 //
 // The tree is a SAH tree over the group's 128-prim supercells.  The walk
 // descends it near-first with a per-thread stack; at each leaf child its ray

@@ -247,20 +247,24 @@ def schedule_rays(rows, n_prims, n, seed):
             "shadow rays": shadow}
 
 
-def card_schedule_case(case, mxu):
-    """Hold the kernel (its MXU form with ``mxu``) to grid_plain on the card
-    on one of schedule_rays' sets, closest-hit and any-hit: t to rtol 1e-5 /
-    atol 1e-6 and ids and flags equal on all but GRID_MISMATCH_SHARE (1e-4)
-    of the lanes.  The shadow rays run on the house's 4,020-triangle group,
-    the others on the reduced terrain's (grid 40, 3,042 triangles)."""
+def card_schedule_case(case, kind):
+    """Hold the kernel ``kind`` ("grid", its MXU form "grid_mxu", or the
+    supercell-tree kernel "sctree") to its plain version on the card on one of
+    schedule_rays' sets, closest-hit and any-hit: t to rtol 1e-5 / atol 1e-6
+    and ids and flags equal on all but GRID_MISMATCH_SHARE (1e-4) of the
+    lanes (the tree walk: not closest-hit lanes that both leave without a
+    hit below BIG, as tests/test_torch_sctree.py).  The shadow rays run on
+    the house's 4,020-triangle group, the others on the reduced terrain's
+    (grid 40, 3,042 triangles)."""
     from pine_tpu_torch import scenes
+    from pine_tpu_torch.accel import sctree_traverse as ST
 
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     dev = torch.device("cuda")
     scene = scenes.house(48) if case == "shadow rays" else scenes.terrain((8, 8), 40)
     (g,) = [g for g in scene.compile(dev).unified["groups"] if g["tid"] == PS.TRIANGLE]
-    kind = "grid_mxu" if mxu else "grid"
+    mxu = kind == "grid_mxu"
     DT.prepare(g, kind)
     n_prims = len(g["prim_aabbs"])
     rays = schedule_rays(g["rows"].cpu().numpy(), n_prims, 8192, seed=41)[case]
@@ -268,10 +272,16 @@ def card_schedule_case(case, mxu):
     be = torch.full_like(tmin, -1, dtype=torch.int32)
     for any_hit, state in ((False, (tmax, be)), (True, (tmax, torch.zeros_like(be)))):
         args = (g["tid"], g["rows"], g[kind], ro, rd, tmin, tmax, *state, any_hit)
-        t_k, e_k = GT.grid_cuda(*args, mxu=mxu)
-        t_p, e_p = GT.grid_plain(*args, mxu=mxu)
+        if kind == "sctree":
+            t_k, e_k = ST.sctree_cuda(*args)
+            t_p, e_p = GT.supercell_plain(*args)
+        else:
+            t_k, e_k = GT.grid_cuda(*args, mxu=mxu)
+            t_p, e_p = GT.grid_plain(*args, mxu=mxu)
         torch.cuda.synchronize()
         differ = ~torch.isclose(t_k, t_p, rtol=1e-5, atol=1e-6) | (e_k != e_p)
+        if kind == "sctree" and not any_hit:
+            differ &= ~((t_k >= 1e30) & (t_p >= 1e30))
         assert differ.float().mean() <= 1e-4, (case, any_hit, int(differ.sum()))
         assert (e_k > 0).sum() > 50 if any_hit else (t_k < 1e30).sum() > 50
 
@@ -280,4 +290,4 @@ def card_schedule_case(case, mxu):
 @pytest.mark.parametrize("case", ["one live lane", "full warps", "mid-cell occluders",
                                   "shadow rays"])
 def test_leaf_schedules_match_plain_on_card(case):
-    card_schedule_case(case, mxu=False)
+    card_schedule_case(case, "grid")

@@ -28,8 +28,18 @@ accel/inst_traverse.py) against pine_tpu/accel/mxu_sweep.py.
   mesh-scale) and the rock field with ``inst_kernel="mxu"`` against the
   port's default renders, by tests/test_torch_render.py's criteria.
 
-The GPU tests hold kernel 7 to ``mxup_plain`` bit for bit and the two MXU
-leaf forms to their plain versions, and skip without a card.
+- Kernel 7's prim-major table (``mxu_tables.prim_major``, what the CUDA
+  kernel stages) is a permutation of the tile-major table's floats, bit for
+  bit, and the kernel's per-thread order over it (each tile's first
+  ``width`` prims in turn, each pair value the ordered sum with ``1*w6``
+  taken as ``w6`` and ``0*w7`` as ``+0``), emulated in PyTorch on the CPU,
+  equals ``mxup_plain`` bit for bit on groups of 1, 16 and 300 prims of
+  each type; the wrapper refuses a table it cannot stage.
+
+The GPU tests hold kernel 7 to ``mxup_plain`` bit for bit (groups of 1, 16,
+300 and 424 prims, ray counts that are not a multiple of a block's rays, an
+any-hit set occluded in the first tile) and the two MXU leaf forms to their
+plain versions, and skip without a card.
 """
 from __future__ import annotations
 
@@ -156,6 +166,85 @@ def test_mesh_tables_drop_builder_pad_rows():
     tab = MS.prepare_tables(ig, "mxum")
     want = JM.build_mesh_tables(jg["mesh"], 256, 128)["Wm"]
     np.testing.assert_array_equal(tab["W"].numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("name", list(MXU_TYPES))
+def test_prim_major_table_is_a_permutation(name):
+    tid = MXU_TYPES[name]
+    g = port_group(tid, 300, 15 + tid)
+    tab = MS.prepare_tables(g, "mxut")
+    W, Wp, m = tab["W"].numpy(), tab["Wp"].numpy(), tab["m"]
+    assert Wp.shape == (3, 128, m, MT.RAY_FEATS) and Wp.dtype == np.float32
+    perm = MT.prim_major(np.arange(W.size).reshape(W.shape), m).ravel()
+    np.testing.assert_array_equal(np.sort(perm), np.arange(W.size))
+    np.testing.assert_array_equal(Wp.ravel().view(np.int32), W.ravel()[perm].view(np.int32))
+    ct, c, v, f = 2, 5, m - 1, 3  # [ct, c, v, f] is W[f, (ct*m + v)*128 + c]
+    assert Wp[ct, c, v, f] == W[f, (ct * m + v) * 128 + c]
+
+
+def kernel7_emulated(tid, tab, ro, rd, tmin, tmax, best_t, best_e, any_hit):
+    """csrc/mxu_sweep.cu's per-thread order in PyTorch, every ray at once:
+    the prim-major tiles' first ``width`` prims in turn, each pair value
+    ((((((f0*w0 + f1*w1) + f2*w2) + f3*w3) + f4*w4) + f5*w5) + w6) + 0, a
+    closest-hit best replaced on a strictly lower t, any-hit flags."""
+    Wp, C, m = tab["Wp"], tab["C"], tab["m"]
+    F, odr, oor, ddr = MS.features(ro, rd)
+    limit = tmax if any_hit else best_t
+    live = (limit > tmin) & ((best_e < 1) if any_hit else True)
+    bt_run = torch.full_like(best_t, BIG)
+    be_run = torch.full_like(best_e, MS.INT_BIG)
+    hit = torch.zeros_like(live)
+    for ct in range(tab["n_tiles"]):
+        for c in range(min(128, C - ct * 128)):
+            w = Wp[ct, c]
+            vals = []
+            for v in range(m):
+                s = F[:, 0] * w[v, 0]
+                for f in range(1, 6):
+                    s = s + F[:, f] * w[v, f]
+                vals.append((s + w[v, 6]) + 0.0)
+            t = MS.pair_t_vals(tid, lambda v: vals[v], odr[:, 0], oor[:, 0], ddr[:, 0], tmin,
+                               limit)
+            hit |= live & (t < BIG)
+            better = t < bt_run
+            bt_run = torch.where(better, t, bt_run)
+            be_run = torch.where(better, ct * 128 + c, be_run)
+    if any_hit:
+        return best_t, torch.where(live, torch.maximum(best_e, hit.to(best_e.dtype)), best_e)
+    win = live & (bt_run < best_t)
+    return torch.where(win, bt_run, best_t), torch.where(win, be_run, best_e)
+
+
+@pytest.mark.parametrize("n_prims", [1, 16, 300])
+@pytest.mark.parametrize("form", ["closest", "any_hit"])
+def test_kernel7_order_is_mxup_plain(form, n_prims):
+    any_hit = form == "any_hit"
+    for name, tid in MXU_TYPES.items():
+        g = port_group(tid, n_prims, 17 + tid)
+        tab = MS.prepare_tables(g, "mxut")
+        ro, rd, tmin, tmax, bt, be, occ = (torch.from_numpy(x) for x in sweep_rays(512, 18))
+        state = (tmax, occ) if any_hit else (bt, be)
+        args = (ro, rd, tmin, tmax, *state, any_hit)
+        t_e, e_e = kernel7_emulated(tid, tab, *args)
+        t_p, e_p = MS.mxup_plain(tid, g["rows"], tab, *args)
+        assert torch.equal(t_e.view(torch.int32), t_p.view(torch.int32)), name
+        assert torch.equal(e_e, e_p), name
+
+
+def test_kernel7_wrapper_refuses_a_table_it_cannot_stage():
+    g = port_group(MXU_TYPES["cone"], 300, 19)
+    tab = MS.prepare_tables(g, "mxut")
+    ro, rd, tmin, tmax, bt, be, _ = (torch.from_numpy(x) for x in sweep_rays(64, 20))
+    args = (ro, rd, tmin, tmax, bt, be, False)
+    Wp = tab["Wp"]
+    shifted = torch.empty(Wp.numel() + 1)[1:].view(Wp.shape)
+    shifted.copy_(Wp)
+    with pytest.raises(ValueError, match="16-byte"):
+        MS.mxup_cuda(g["tid"], g["rows"], dict(tab, Wp=shifted), *args)
+    with pytest.raises(ValueError, match="tiles"):
+        MS.mxup_cuda(g["tid"], g["rows"], dict(tab, C=4 * 128), *args)
+    with pytest.raises(ValueError, match="Wp"):
+        MS.mxup_cuda(g["tid"], g["rows"], dict(tab, Wp=tab["Wp"][:2]), *args)
 
 
 # --------------------------------------------------------------------------
@@ -513,6 +602,49 @@ def test_kernel7_matches_plain_on_card(name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_prims", [1, 16, 300, 424])
+def test_kernel7_ragged_edges_match_plain_on_card(n_prims):
+    """Every type with a table at n_prims (one tile, a partial last tile,
+    four tiles) and 8,269 rays: not a multiple of a block's 128 rays, the
+    last block holding 77."""
+    needs_card()
+    ro, rd, tmin, tmax, bt, be, occ = _card_rays(8192 + 77, 93)
+    for name, tid in MXU_TYPES.items():
+        g = port_group(tid, n_prims, 94 + tid, "cuda")
+        DT.prepare(g, "mxup")
+        for any_hit, state in ((False, (bt, be)), (True, (tmax, occ))):
+            a = (g["tid"], g["rows"], g["mxut"], ro, rd, tmin, tmax, *state, any_hit)
+            t_k, e_k = MS.mxup_cuda(*a)
+            t_p, e_p = MS.mxup_plain(*a)
+            assert torch.equal(t_k.view(torch.int32), t_p.view(torch.int32)), (name, any_hit)
+            assert torch.equal(e_k, e_p), (name, any_hit)
+
+
+@pytest.mark.cuda
+def test_kernel7_any_hit_occluded_in_the_first_tile_on_card():
+    """424 spheres (four tiles), each ray aimed from 5 units out at one of
+    the first 128 spheres' centres: every block leaves after its first tile,
+    with the same flags as mxup_plain."""
+    needs_card()
+    g = port_group(MXU_TYPES["sphere"], 424, 95, "cuda")
+    DT.prepare(g, "mxup")
+    n = 4096 + 33
+    rng = np.random.default_rng(96)
+    cen = g["rows"][rng.integers(0, 128, n), 0:3]
+    u = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)).cuda()
+    u = u / u.norm(dim=1, keepdim=True)
+    ro, rd = (cen + 5.0 * u).contiguous(), (-u).contiguous()
+    tmin = torch.full((n,), 1e-3, device="cuda")
+    tmax = torch.full((n,), 1e30, device="cuda")
+    occ = torch.zeros(n, dtype=torch.int32, device="cuda")
+    a = (g["tid"], g["rows"], g["mxut"], ro, rd, tmin, tmax, tmax, occ, True)
+    t_k, e_k = MS.mxup_cuda(*a)
+    t_p, e_p = MS.mxup_plain(*a)
+    assert bool((e_k == 1).all())
+    assert torch.equal(t_k.view(torch.int32), t_p.view(torch.int32)) and torch.equal(e_k, e_p)
+
+
+@pytest.mark.cuda
 def test_mxu_leaf_forms_match_plain_on_card():
     needs_card()
     from test_torch_scdense import port_soup
@@ -548,4 +680,4 @@ def test_mxu_leaf_forms_match_plain_on_card():
 def test_mxu_leaf_schedules_match_plain_on_card(case):
     from test_torch_grid_kernel import card_schedule_case
 
-    card_schedule_case(case, mxu=True)
+    card_schedule_case(case, "grid_mxu")

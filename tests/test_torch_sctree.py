@@ -23,16 +23,21 @@ closest-hit query of 1,024 rays over the 700-triangle soup took 191 s on the
 CPU (timed under a 240 s limit, beside two other interpret runs), over the
 60 s a case may take.
 
-The GPU test holds the CUDA kernel to ``grid_traverse.supercell_plain`` on
+The GPU tests hold the CUDA kernel to ``grid_traverse.supercell_plain`` on
 the card (t to rtol 1e-5 / atol 1e-6, ids and flags equal) on all but 1e-4
-of the lanes, where a cull may decide at a box face, and skips without one.
+of the lanes, where a cull may decide at a box face: on random rays over two
+soups, and on ray sets that drive its warp-level walk and leaf schedules
+(tests/test_torch_grid_kernel.py's ``schedule_rays``: one live lane per
+warp, full warps, any-hit rays occluded mid-cell, the house's shadow rays),
+and skip without a card.  A CPU test checks that the wrapper refuses rows
+the kernel cannot stage (not on a 16-byte boundary).
 """
 from __future__ import annotations
 
 import numpy as np
 import pytest
 import torch
-from test_torch_grid_kernel import assert_closest_agree, rays
+from test_torch_grid_kernel import assert_closest_agree, card_schedule_case, rays
 from test_torch_scdense import both, cone_field, cone_rays, port_soup, query_both
 
 from pine_tpu_torch.accel import dense_traverse as DT
@@ -110,6 +115,26 @@ def test_wrapper_refuses_a_tree_deeper_than_its_stack():
     with pytest.raises(NotImplementedError, match="stack"):
         ST.sctree_cuda(g["tid"], g["rows"], sct, ro, rd, tmin, tmax, tmax,
                        torch.full((16,), -1, dtype=torch.int32), False)
+
+
+def test_wrapper_refuses_unaligned_rows():
+    pacc = port_soup(700, 26)
+    g = pacc["groups"][0]
+    DT.prepare(g, "sctree")
+    rows = g["rows"]
+    shifted = torch.empty(rows.numel() + 1, dtype=rows.dtype)[1:].view(rows.shape)
+    shifted.copy_(rows)
+    ro, rd, tmin, tmax = (torch.from_numpy(x) for x in rays(16, 27))
+    with pytest.raises(ValueError, match="16-byte"):
+        ST.sctree_cuda(g["tid"], shifted, g["sctree"], ro, rd, tmin, tmax, tmax,
+                       torch.full((16,), -1, dtype=torch.int32), False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one live lane", "full warps", "mid-cell occluders",
+                                  "shadow rays"])
+def test_warp_walk_schedules_match_plain_on_card(case):
+    card_schedule_case(case, "sctree")
 
 
 @pytest.mark.cuda
