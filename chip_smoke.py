@@ -13,8 +13,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 2. Kernel against its plain PyTorch version on the card, 65,536 rays with dead
    lanes, far-away lanes and a prepared running best:
    a. the dense traversal for each of the nine prim types, closest-hit and
-      any-hit, groups of 1, 16 and 424 prims, plus the benchmark Cornell
-      box's own three groups;
+      any-hit, groups of 1, 16 and 424 prims (OBB and cone also 1,300, more
+      than the kernel stages at once), plus the benchmark Cornell box's own
+      three groups;
    b. the grid traversal on triangle soups of 300 (no coarse level), 3,000
       and 20,000 triangles and on the 99,458-triangle terrain's own group,
       and on that group three ray sets that drive its two leaf schedules
@@ -60,7 +61,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
       lane hit by only one of the two).
    In b, c, f, g, i and j lanes may differ where a cull decides at a box
    face; at most GRID_MISMATCH_SHARE of them, and the counts are printed.
-   In a, d, e, h and k no lane may differ.
+   In a, d, e, h and k no lane may differ, by the tolerance nor bit for bit
+   (``lanes_differ_bits``: the dense kernel's gate beside its tolerance).
 3. Render parity, card (kernels) against CPU (plain versions): the reduced
    Cornell box (36 cones), the reduced terrain (grid 40, 3,042 triangles,
    the card also with the coherence sort forced on), a reduced rock field
@@ -101,7 +103,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    field's instanced group through the instanced kernel and its MXU leaf
    form.  The kernel line times each kernel form on every launch the main
    path gives it in a 1-spp render (the plain version, over the 2 M group
-   seconds a call, on the first launch of each form only); kernel 7's
+   seconds a call, on the first launch of each form only), and the dense
+   kernel's launches on the terrain, the 2 M terrain and the rock field too
+   (entries ``dense_traverse.<path>.*``, each launch held to the plain
+   version bit for bit); kernel 7's
    library column is the "mxu" route on the same launches.  The
    ``coherence_sort`` record times the launches of a 1-spp render with the
    sort on (the terrains: the octant key, on by default; rock field: the
@@ -254,10 +259,15 @@ def module(kind):
     return importlib.import_module("pine_tpu_torch.accel." + KERNELS[kind][0])
 
 
-def group_args(kind, g):
-    """The leading arguments a wrapper of ``kind`` takes for group ``g``."""
+def group_args(kind, g, plain=False):
+    """The leading arguments a wrapper of ``kind`` takes for group ``g``: the
+    dense kernel takes the rows padded as it reads them, its plain version
+    the group's own rows, so that the comparison also covers the padding."""
     table = KERNELS[kind][3]
-    return (g,) if table is None else (g["tid"], g["rows"], g[table])
+    if table is None:
+        return (g,)
+    rows = module("dense").dense_rows(g) if kind == "dense" and not plain else g["rows"]
+    return (g["tid"], rows, g[table])
 
 
 def launch(kind, g, args, any_hit, plain=False, **kw):
@@ -269,7 +279,7 @@ def launch(kind, g, args, any_hit, plain=False, **kw):
         fn = getattr(importlib.import_module("pine_tpu_torch.accel." + name), fn)
     else:
         fn = getattr(module(kind), KERNELS[kind][1])
-    return fn(*group_args(kind, g), *args, any_hit, **kw)
+    return fn(*group_args(kind, g, plain), *args, any_hit, **kw)
 
 
 def all_groups(cs):
@@ -296,7 +306,10 @@ def group_desc(g):
 
 def check_outputs(kind, out_k, out_p, any_hit):
     """Kernel vs plain outputs -> (max |t error| on the lanes compared, t
-    mismatches, id mismatches, lanes that differ, lanes allowed to differ).
+    mismatches, id mismatches, lanes that differ, lanes allowed to differ,
+    lanes whose t or id differ bit for bit).  A kernel allowed no differing
+    lane must also equal its plain version bit for bit: the dense kernel's
+    gate, beside its tolerance.
     The tree walks (sctree, bvh) test other prims than their plain version,
     the row-order sweep: a closest-hit lane that both leave without a hit
     below the miss sentinel BIG carries, where its window ended above BIG,
@@ -306,6 +319,7 @@ def check_outputs(kind, out_k, out_p, any_hit):
     import torch
 
     (t_k, e_k), (t_p, e_p) = out_k, out_p
+    bits = int(((t_k.view(torch.int32) != t_p.view(torch.int32)) | (e_k != e_p)).sum())
     close = torch.isclose(t_k, t_p, rtol=T_RTOL, atol=T_ATOL) | (t_k == t_p)
     if kind in ("lattice", "scdense", "mxup"):  # the same rounded arithmetic: bit for bit
         close = t_k.view(torch.int32) == t_p.view(torch.int32)
@@ -316,7 +330,7 @@ def check_outputs(kind, out_k, out_p, any_hit):
         t_k, t_p = t_k[~miss], t_p[~miss]
     err = float((t_k - t_p).abs().max()) if t_k.numel() else 0.0
     return (err, int((~close).sum()), int((~same_e).sum()), int((~close | ~same_e).sum()),
-            ALLOWED_SHARE[kind] * out_k[0].shape[0])
+            ALLOWED_SHARE[kind] * out_k[0].shape[0], bits)
 
 
 def timed_plain(kind, g, args, any_hit, counts=None):
@@ -399,12 +413,13 @@ def compare(kind, g, args, any_hit, time_it, what):
     """Kernel vs plain on one group and one set of inputs -> record."""
     out_k = launch(kind, g, args, any_hit)
     out_p, plain_ms = timed_plain(kind, g, args, any_hit)
-    err, t_bad, e_bad, differ, allowed = check_outputs(kind, out_k, out_p, any_hit)
+    err, t_bad, e_bad, differ, allowed, bits = check_outputs(kind, out_k, out_p, any_hit)
     t_k, e_k = out_k
     rec = dict(
         group=what, type=TYPE_NAMES[g["tid"]], rows=int(g["rows"].shape[0]),
         form="any_hit" if any_hit else "closest", rays=int(t_k.shape[0]),
         max_abs_err=err, t_mismatch=t_bad, id_mismatch=e_bad, lanes_differ=differ,
+        lanes_differ_bits=bits,
         hits=int((e_k > 0).sum()) if any_hit else int((t_k < 1e30).sum()),
     )
     if kind == "grid":
@@ -418,7 +433,7 @@ def compare(kind, g, args, any_hit, time_it, what):
     if time_it:
         rec["ms"] = cuda_ms(lambda: launch(kind, g, args, any_hit), 20)
         rec["plain_ms"] = plain_ms
-    if differ > allowed:
+    if differ > allowed or (allowed == 0 and bits):
         fail(f"{kind} kernel disagrees with its plain version beyond {allowed:g} lanes: {rec}")
     return rec
 
@@ -434,7 +449,9 @@ def phase_dense_vs_plain(dev):
 
     recs = []
     for tid in sorted(TYPE_NAMES):
-        for n in (1, 16, 424):
+        # a forced dense route on 1,300 rows: three of the kernel's 512-row
+        # tiles, the OBB's above the default shared-memory limit
+        for n in (1, 16, 424) + ((1300,) if tid in (S.BOX_OBB, S.CONE) else ()):
             rng = np.random.default_rng(1000 * tid + n)
             prims = []
             for i in range(n):
@@ -654,7 +671,7 @@ def lattice_vs_dense(g, args, any_hit):
 
     DT = module("dense")
     t_l, e_l = launch("lattice", g, args, any_hit)
-    t_d, e_d = DT.dense_cuda(g["tid"], g["rows"], g["gbox"], *args, any_hit)
+    t_d, e_d = launch("dense", g, args, any_hit)
     if any_hit:
         return dict(flags_differ=int((e_l != e_d).sum()))
     # a hit lowers t below the running best and the miss sentinel BIG
@@ -685,8 +702,7 @@ def phase_lattice_vs_plain(dev):
             rec = compare("lattice", g, args, any_hit, time_it=k < 2, what=what)
             rec["vs_dense"] = lattice_vs_dense(g, args, any_hit)
             if k < 2:
-                rec["dense_ms"] = cuda_ms(lambda: module("dense").dense_cuda(
-                    g["tid"], g["rows"], g["gbox"], *args, any_hit), 20)
+                rec["dense_ms"] = cuda_ms(lambda: launch("dense", g, args, any_hit), 20)
             recs.append(rec)
     return recs
 
@@ -1012,7 +1028,8 @@ def phase_probe_vs_plain(dev):
                 fail(f"cone_probe.{v} differs from probe_plain on {rayset} rays: {recs[-1]}")
         # full is the dense kernel's sweep without its cull
         t_f, e_f = out["full"]
-        t_d, e_d = DT.dense_cuda(g["tid"], rows, g["gbox"], ro, rd, tmin, bt, bt, be, False)
+        t_d, e_d = DT.dense_cuda(g["tid"], DT.dense_rows(g), g["gbox"], ro, rd, tmin, bt, bt, be,
+                                 False)
         hit = (t_f < 1e30) | (t_d < 1e30)
         bad = ~(torch.isclose(t_f, t_d, rtol=T_RTOL, atol=T_ATOL) | (t_f == t_d)) \
             | (hit & (e_f != e_d))
@@ -1446,7 +1463,7 @@ def kernel_line_entry(kind, form, calls, launches, checked=None, label=None):
     any_hit = form == "any_hit"
     ms_each, plain_each, lib_each = [], [], []
     bound = err = 0.0
-    ops = nbytes = differ = 0
+    ops = nbytes = differ = bits = 0
     sums, by_group = {}, {}
     for i, (g, args, _) in enumerate(calls):
         ms_each.append(cuda_ms(lambda: launch(kind, g, args, any_hit), 10))
@@ -1460,11 +1477,11 @@ def kernel_line_entry(kind, form, calls, launches, checked=None, label=None):
             counts = None if kind in ("dense", "mxup") else {}
             out_p, p_ms = timed_plain(kind, g, args, any_hit, counts)
             plain_each.append(p_ms)
-            c_err, _, _, c_differ, allowed = check_outputs(kind, out_k, out_p, any_hit)
-            if c_differ > allowed:
-                fail(f"{kind}.{form}: {c_differ} lanes disagree with the plain version "
-                     "on main-path inputs")
-            err, differ = max(err, c_err), differ + c_differ
+            c_err, _, _, c_differ, allowed, c_bits = check_outputs(kind, out_k, out_p, any_hit)
+            if c_differ > allowed or (allowed == 0 and c_bits):
+                fail(f"{kind}.{form}: {c_differ} lanes ({c_bits} bit for bit) disagree with the "
+                     "plain version on main-path inputs")
+            err, differ, bits = max(err, c_err), differ + c_differ, bits + c_bits
         if kind in ("grid", "grid_mxu"):
             c_ops, c_bytes, c = grid_work(g, args, any_hit, out_p, counts)
         elif kind in ("inst", "inst_mxu"):
@@ -1509,7 +1526,8 @@ def kernel_line_entry(kind, form, calls, launches, checked=None, label=None):
         + f" x {calls[0][1][0].shape[0]} rays; means per launch over the {k} launches "
           "of one 1-spp render, work counts summed over them; the plain version on "
           + (f"the first {len(plain_each)} of them" if len(plain_each) < k else "each"),
-        ms_each=ms_each, lanes_differ=differ, **{f"{key}_sum": v for key, v in sums.items()},
+        ms_each=ms_each, lanes_differ=differ, lanes_differ_bits=bits,
+        **{f"{key}_sum": v for key, v in sums.items()},
         by_group=by_group,
     )
     return entry
@@ -1607,7 +1625,8 @@ def record_launches(cs, kinds, render):
             if kind is not None:
                 n_lead = 3 if KERNELS[kind][3] else 1
                 lead, rays, any_hit = a[:n_lead], a[n_lead:n_lead + 6], a[n_lead + 6]
-                g = lead[0] if n_lead == 1 else next(g for g in groups if g["rows"] is lead[1])
+                g = lead[0] if n_lead == 1 else next(
+                    g for g in groups if lead[1] is g["rows"] or lead[1] is g.get("drows"))
                 recorded[(kind, any_hit)].append(
                     (g, tuple(x.clone() for x in rays), current["inv"]))
             return reals[w](*a, **kw)
@@ -1627,13 +1646,15 @@ def record_launches(cs, kinds, render):
 
 def phase_main_path(dev_name, tag, what, scene, groups_want, heavy_want, kinds,
                     size=MAIN_SIZE, spp=MAIN_SPP, depth=MAIN_DEPTH, kernels=None, checked=None,
-                    label=None):
+                    label=None, also=()):
     """One main path at full width: compile on the card (routed under the
     forced-kernel settings ``kernels``), record the kernels' inputs, warm up,
     three timed renders (launch counts zeroed just before the first, read
     just after), the image checked and saved, a profile, and the kernel
     line's entries for ``kinds`` (the plain version on the first ``checked``
-    launches of each form, or on all; ``label`` as kernel_line_entry's).
+    launches of each form, or on all; ``label`` as kernel_line_entry's) and
+    for the path's other kernels ``also`` (the plain version on every
+    launch, the entries labelled with the path's tag).
     -> (entries, compiled scene)."""
     import numpy as np
     import torch
@@ -1652,7 +1673,7 @@ def phase_main_path(dev_name, tag, what, scene, groups_want, heavy_want, kinds,
     sampler = BlueSampler(spp)
     render = lambda s: render_wavefront(cs, scene.camera, W, H, sampler, s, depth)  # noqa: E731
 
-    recorded, _ = record_launches(cs, kinds, lambda: render(1))
+    recorded, _ = record_launches(cs, [*kinds, *also], lambda: render(1))
     torch.cuda.synchronize()
 
     render(spp)  # warm-up
@@ -1691,8 +1712,10 @@ def phase_main_path(dev_name, tag, what, scene, groups_want, heavy_want, kinds,
     profile_render(tag, lambda: render(2))
 
     entries = [kernel_line_entry(kind, form, recorded[(kind, any_hit)],
-                                 launches[f"{kind}.{form}"], checked, label)
-               for kind in kinds for form, any_hit in (("closest", False), ("any_hit", True))]
+                                 launches[f"{kind}.{form}"], *((checked, label) if kind in kinds
+                                                               else (None, tag)))
+               for kind in (*kinds, *also)
+               for form, any_hit in (("closest", False), ("any_hit", True))]
     if (cs.heavy_traversal or cs.inst_traversal) and not kernels:
         emit(coherence_sort_record(cs, tag, kinds, lambda: render(1), W * H))
     return entries, cs
@@ -2049,6 +2072,7 @@ def main():
         emit(dict(phase="kernel_vs_plain", kernel=kind, cases=len(recs),
                   max_abs_err=max(r["max_abs_err"] for r in recs),
                   lanes_differ=sum(r["lanes_differ"] for r in recs),
+                  lanes_differ_bits=sum(r.get("lanes_differ_bits", 0) for r in recs),
                   timed=[{k: v for k, v in r.items() if k in ("group", "form", "depth") or
                           k.endswith("_ms") or k == "ms" or k.startswith("vs_")}
                          for r in recs if "ms" in r],
@@ -2074,14 +2098,14 @@ def main():
     terrain = scenes.terrain((W, H))
     entries, cs = phase_main_path(
         name, "terrain", "bench_mesh terrain, 99,458 triangles + 1 rect", terrain,
-        [("dense", 1, 1), ("grid", 6, 99458)], True, ["grid"])
+        [("dense", 1, 1), ("grid", 6, 99458)], True, ["grid"], also=["dense"])
     kernels += entries
     kernel_ab_record(cs, terrain, "bench_mesh terrain", 6, ["grid", "sctree", "bvh", "grid_mxu"])
     field = scenes.instanced((INST_SIZE, INST_SIZE))
     entries, cs = phase_main_path(
         name, "instanced", "bench_instanced rock field, 1,024 x 4,802 triangles + plane + rect",
         field, [("dense", 1, 1), ("dense", 3, 1), ("inst", 6, 1024)], False, ["inst"],
-        INST_SIZE, INST_SPP, INST_DEPTH)
+        INST_SIZE, INST_SPP, INST_DEPTH, also=["dense"])
     kernels += entries
     kernel_ab_record(cs, field, "bench_instanced rock field", 6, ["inst", "inst_mxu"],
                      INST_SIZE, INST_DEPTH)
@@ -2092,7 +2116,7 @@ def main():
     kernels += phase_main_path(
         name, "terrain2m", "bench_mesh terrain at grid 1002, 2,004,002 triangles + 1 rect",
         scenes.terrain((W, H), 1002), [("dense", 1, 1), ("bvh", 6, 2004002)], True, ["bvh"],
-        checked=1)[0]
+        checked=1, also=["dense"])[0]
     torch.cuda.empty_cache()
     kernels += phase_main_path(
         name, "terrain_sctree", "bench_mesh terrain, 99,458 triangles + 1 rect, "

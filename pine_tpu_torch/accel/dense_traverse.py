@@ -312,11 +312,8 @@ def dense_plain(tid, rows, gbox, ro, rd, tmin, tmax, best_t, best_e, any_hit):
 # the kernel
 # --------------------------------------------------------------------------
 
-def _library():
-    from pine_tpu_torch import cuda_build
-
-    lib = cuda_build.load("dense_traverse")
-    fn = lib.pine_dense_traverse
+def bind(fn):
+    """Give a library's ``pine_dense_traverse`` its C signature."""
     if fn.argtypes is None:
         fn.argtypes = (
             [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
@@ -324,6 +321,12 @@ def _library():
         )
         fn.restype = ctypes.c_int
     return fn
+
+
+def _library():
+    from pine_tpu_torch import cuda_build
+
+    return bind(cuda_build.load("dense_traverse").pine_dense_traverse)
 
 
 def _check(x, dtype, shape, device, name):
@@ -335,6 +338,12 @@ def _check(x, dtype, shape, device, name):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _aligned(x, name):
+    """The kernels stage rows and table strips by 16-byte copies."""
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel needs a 16-byte-aligned table")
+
+
 def check_stack(need, cap, what):
     """Refuse a walk that may need more stack entries than its kernel has."""
     if need > cap:
@@ -342,12 +351,33 @@ def check_stack(need, cap, what):
             f"{what} needs a traversal stack of {need} entries; the kernel has {cap}")
 
 
+def padded_width(tid):
+    """The width of a prim row of type ``tid`` as the dense kernel reads it: a
+    multiple of 4 floats, so that each row is whole 16-byte vectors."""
+    return -(-S.PARAM_WIDTH[tid] // 4) * 4
+
+
+def dense_rows(g):
+    """The group's rows as the dense kernel reads them (``g["drows"]``): each
+    row zero-padded to ``padded_width`` floats, the rows themselves where the
+    width is already a multiple of 4; built once, at the group's first
+    dense query on the card.  The pad columns are never read as data, so
+    ``dense_plain`` takes either table."""
+    if "drows" not in g:
+        rows = g["rows"]
+        pad = padded_width(g["tid"]) - rows.shape[1]
+        g["drows"] = torch.nn.functional.pad(rows, (0, pad)).contiguous() if pad else rows
+    return g["drows"]
+
+
 def dense_cuda(tid, rows, gbox, ro, rd, tmin, tmax, best_t, best_e, any_hit):
-    """Launch csrc/dense_traverse.cu on the current stream."""
+    """Launch csrc/dense_traverse.cu on the current stream, over ``rows``
+    padded as ``dense_rows`` pads a group's."""
     n = ro.shape[0]
     dev = ro.device
     f32, i32 = torch.float32, torch.int32
-    _check(rows, f32, (rows.shape[0], S.PARAM_WIDTH[tid]), dev, "rows")
+    _check(rows, f32, (rows.shape[0], padded_width(tid)), dev, "rows")
+    _aligned(rows, "rows")
     _check(gbox, f32, (6,), dev, "gbox")
     for x, name in ((ro, "ro"), (rd, "rd")):
         _check(x, f32, (n, 3), dev, name)
@@ -459,8 +489,11 @@ def group_query(g, ro, rd, tmin, tmax, best_t, best_e, any_hit=False, variant=No
         fn = lattice_cuda if ro.is_cuda else lattice_plain
         return fn(g, ro, rd, tmin, tmax, best_t, best_e, any_hit)
     if variant == "dense":
-        fn = dense_cuda if ro.is_cuda else dense_plain
-        return fn(g["tid"], g["rows"], g["gbox"], ro, rd, tmin, tmax, best_t, best_e, any_hit)
+        if ro.is_cuda:
+            return dense_cuda(g["tid"], dense_rows(g), g["gbox"], ro, rd, tmin, tmax, best_t,
+                              best_e, any_hit)
+        return dense_plain(g["tid"], g["rows"], g["gbox"], ro, rd, tmin, tmax, best_t, best_e,
+                           any_hit)
     from pine_tpu_torch.accel import bvh_traverse, grid_traverse, mxu_sweep, scdense_traverse
     from pine_tpu_torch.accel import sctree_traverse
 

@@ -41,7 +41,9 @@ import ctypes
 import numpy as np
 import torch
 
-from pine_tpu_torch.accel.dense_traverse import BIG, LAUNCHES, PRIM_TESTS, _check, _safe_inv
+from pine_tpu_torch.accel.dense_traverse import (
+    BIG, LAUNCHES, PRIM_TESTS, _aligned, _check, _safe_inv,
+)
 from pine_tpu_torch.scene.shapes import PARAM_WIDTH
 
 SUPER = 128  # prims per supercell
@@ -266,12 +268,6 @@ def mxu_table(grid):
     if grid.get("mxu") is None:
         raise ValueError("the MXU form needs the group's coefficient table (route grid_mxu)")
     return grid["mxu"]
-
-
-def _aligned(x, name):
-    """The kernel stages rows and table strips by 16-byte copies."""
-    if x.data_ptr() % 16:
-        raise ValueError(f"{name}: the kernel needs a 16-byte-aligned table")
 
 
 def grid_cuda(tid, rows, grid, ro, rd, tmin, tmax, best_t, best_e, any_hit, mxu=False):

@@ -12,7 +12,10 @@ the instances' world boxes.  A ray walks the instance tree in world space;
 at each instance it may reach it goes into the instance's frame through the
 3x4 inverse transform (directions unnormalized, so local t is world t) and
 walks the mesh's supercell tree there.  Hits carry virtual ids
-``vbase + instance * stride + tri``.
+``vbase + instance * stride + tri``.  On the card a warp walks both trees
+together, as the TPU kernel's (8,128) ray block did: one stack per warp,
+a node, instance or cell taken when any of its rays reaches it
+(csrc/inst_traverse.cu).
 
 Contract (``inst_query``), as inst_kernel_intersect / inst_kernel_any_hit:
 
@@ -25,8 +28,8 @@ Contract (``inst_query``), as inst_kernel_intersect / inst_kernel_any_hit:
   passes through; a lane with ``tmax <= tmin`` never becomes occluded.
 
 What was TPU-only is dropped: ``INST_KERNEL_MAX`` (an SMEM budget), the
-(8,128) block-shared stack and its lane mask ``imask``, the lane-padded
-table and the ``PINE_INST_PROBE`` probes.
+lane mask ``imask``, the lane-padded table and the ``PINE_INST_PROBE``
+probes.
 
 The MXU leaf form (``inst_cuda`` and ``inst_plain`` with ``mxu=True``;
 ``CompiledScene.inst_kernel = "mxu"``, the counterpart of
@@ -54,13 +57,13 @@ import ctypes
 import numpy as np
 import torch
 
-from pine_tpu_torch.accel.dense_traverse import BIG, LAUNCHES, _check, _safe_inv, check_stack
-from pine_tpu_torch.accel.grid_traverse import (
-    CELL, SUPER, grid_layout, grid_plain, upload_layout,
+from pine_tpu_torch.accel.dense_traverse import (
+    BIG, LAUNCHES, _aligned, _check, _safe_inv, check_stack,
 )
+from pine_tpu_torch.accel.grid_traverse import CELL, SUPER, grid_layout, grid_plain, upload_layout
 from pine_tpu_torch.accel.sctree import TREE_LEAF, sc_tree_layout, tree_depth
 
-STACK_DEPTH = 128  # entries of the kernel's per-ray stack (csrc/inst_traverse.cu)
+STACK_DEPTH = 64  # entries of the kernel's per-warp stack (csrc/inst_traverse.cu)
 ENTRY_CHUNK = 1 << 24  # (lanes, instances) slab tests per block of the plain version
 # FP32 operations of entering one instance: its box's slab test (24), the 3x4
 # transform of origin and direction (18 + 15) and three divisions
@@ -68,20 +71,23 @@ ENTER_OPS = 24 + 33 + 3
 
 
 def stack_need(d_top, d_mesh):
-    """Stack entries a group's walk may need, pine_tpu's bound
-    (instanced_kernel.py:624-634): d_top * (1 + 2 * TREE_LEAF) + d_mesh + 4.
+    """Stack entries the kernel's warp walk may need for a group whose top
+    tree has ``d_top`` node levels and whose mesh tree ``d_mesh``:
+    d_top + 2 * TREE_LEAF + d_mesh - 2.
 
-    The kernel's push rule needs fewer.  A top node pushes at most
-    2 * TREE_LEAF entries (two inner children, one inner child and up to
-    TREE_LEAF instances, or the instances of two leaf children), its
-    instances last, so they are all popped before its inner children: below
-    a node at depth k lie at most k - 1 deferred siblings.  An instance pops
-    and runs the mesh walk in its place, which holds at most d_mesh entries
-    (a deferred sibling for each mesh level above the current node plus two
-    children).  The worst case, d_top - 1 + 2 * TREE_LEAF - 1 + d_mesh, is
-    below pine_tpu's bound for every d_top >= 1, so that bound is the one
-    checked."""
-    return d_top * (1 + 2 * TREE_LEAF) + d_mesh + 4
+    A top node pops and pushes at most 2 * TREE_LEAF entries (two inner
+    children, one inner child and up to TREE_LEAF instances, or the
+    instances of two leaf children), its instances last, so they are all
+    popped before its inner children: below a node at depth k lie at most
+    k - 1 deferred siblings.  An instance pops, with at most
+    2 * TREE_LEAF - 1 of its node's entries still below it, and the mesh
+    walk runs above them; it holds at most d_mesh entries (one per level of
+    the mesh tree: a node pushes its two inner children, or one and opens
+    its leaf child, or opens one leaf child and defers the other).  The sum
+    is the bound; pine_tpu's walk, which pushes every taken child, checks
+    the larger d_top * (1 + 2 * TREE_LEAF) + d_mesh + 4
+    (instanced_kernel.py:624-634)."""
+    return d_top + 2 * TREE_LEAF + d_mesh - 2
 
 
 def upload_inst_group(g, device):
@@ -221,10 +227,8 @@ def inst_plain(g, ro, rd, tmin, tmax, best_t, best_e, any_hit, counts=None, mxu=
 # the kernel
 # --------------------------------------------------------------------------
 
-def _library():
-    from pine_tpu_torch import cuda_build
-
-    fn = cuda_build.load("inst_traverse").pine_inst_traverse
+def bind(fn):
+    """Give a library's ``pine_inst_traverse`` its C signature."""
     if fn.argtypes is None:
         fn.argtypes = (
             [ctypes.c_int] * 2 + [ctypes.c_void_p] + [ctypes.c_int] * 2
@@ -233,6 +237,12 @@ def _library():
         )
         fn.restype = ctypes.c_int
     return fn
+
+
+def _library():
+    from pine_tpu_torch import cuda_build
+
+    return bind(cuda_build.load("inst_traverse").pine_inst_traverse)
 
 
 def mesh_table(g):
@@ -254,6 +264,7 @@ def inst_cuda(g, ro, rd, tmin, tmax, best_t, best_e, any_hit, mxu=False):
     sct = g["sctree"]
     n_super, n_nodes, n_top = sct["n_super"], sct["boxes"].shape[0], g["tboxes"].shape[0]
     _check(g["rows"], f32, (g["n_tris"] + TREE_LEAF, 12), dev, "rows")
+    _aligned(g["rows"], "rows")
     for k, shape in (("sc_boxes", (n_super, 6)), ("cell_boxes", (n_super * (SUPER // CELL), 6)),
                      ("boxes", (n_nodes, 2, 6))):
         _check(sct[k], f32, shape, dev, k)
@@ -274,6 +285,7 @@ def inst_cuda(g, ro, rd, tmin, tmax, best_t, best_e, any_hit, mxu=False):
     if mxu:
         tab = mesh_table(g)
         _check(tab["W"], f32, (n_super * 8, tab["m"] * SUPER), dev, "mxu W")
+        _aligned(tab["W"], "mxu W")
         w_ptr = tab["W"].data_ptr()
     out_t = torch.empty(n, dtype=f32, device=dev)
     out_e = torch.empty(n, dtype=i32, device=dev)

@@ -6,11 +6,12 @@ Counterpart of pine_tpu/accel/pallas_traverse.py::_sc_tree_layout and
 second SAH tree, built by the C++ builder over the supercell boxes, orders
 the supercells.  A walk descends that tree near-first, gates each supercell
 of a leaf it reaches by its box, then each of its four cells, and tests the
-prims of the cells that pass.  The supercell-tree kernel
-(accel/sctree_traverse.py, csrc/sctree_traverse.cu) walks it a warp at a
-time over a group; the two-level instanced kernel, one ray per thread
-(``sctree_walk`` in csrc/sctree_walk.cuh), over the
-shared mesh of an instanced group in each instance's frame.
+prims of the cells that pass.  Both kernels that walk it do so a warp at a
+time (csrc/tree_walk.cuh): the supercell-tree kernel
+(accel/sctree_traverse.py, csrc/sctree_traverse.cu) over a group, the
+two-level instanced kernel (accel/inst_traverse.py,
+csrc/inst_traverse.cu) over the shared mesh of an instanced group in each
+instance's frame.
 
 Tables (``sc_tree_layout``), all uploaded once at compile():
 

@@ -38,8 +38,8 @@ import ctypes
 
 import torch
 
-from pine_tpu_torch.accel.dense_traverse import LAUNCHES, _check, check_stack
-from pine_tpu_torch.accel.grid_traverse import CELL, SUPER, _aligned
+from pine_tpu_torch.accel.dense_traverse import LAUNCHES, _aligned, _check, check_stack
+from pine_tpu_torch.accel.grid_traverse import CELL, SUPER
 from pine_tpu_torch.accel.sctree import TREE_LEAF
 from pine_tpu_torch.scene import shapes as S
 

@@ -2,7 +2,8 @@
 // (mxu_sweep.cu: TPU kernel 7, pine_tpu/accel/mxu_sweep.py::
 // _make_fused_kernel) and the MXU leaf forms of the grid kernel
 // (grid_traverse.cu: kernel 5m, pallas_traverse.py::_make_grid_kernel with
-// mxu_m > 0) and the instanced kernel (sctree_walk.cuh: kernel 8m).
+// mxu_m > 0) and the instanced kernel (inst_traverse.cu through
+// warp_leaf.cuh's warp_cells_mxu: kernel 8m).
 //
 // Counterpart of pine_tpu/accel/mxu_sweep.py::_pair_t_vals and of
 // pine_tpu_torch/accel/mxu_sweep.py (pair_t_vals, features, ordered_values).
@@ -18,14 +19,14 @@
 // from the MXU, one matmul per block; here a triangle pair costs six 8-term
 // sums (90 FP32 operations unfused, 48 table reads) before an epilogue of
 // about 10 and one IEEE division, where the VPU test takes 52 and 12 reads.
-// The tables are read from shared memory where a kernel stages them: kernel
-// 7 its 128-prim tiles, kernel 5m each taken supercell's strip (one bulk
-// asynchronous copy per block, grid_traverse.cu); kernel 8m reads global
-// memory (mesh_pair_t).  The tensor cores were weighed for the sums
-// (mma.sync.m16n8k8 in TF32 with the 3xTF32 split): emulated on the CPU
-// (tests/test_torch_mxu.py) they put 1.2e-3 of a reduced terrain render's
-// bounce rays outside the 1e-4 gate against the ordered sums, so the sums
-// stay on the CUDA cores; the exact three-way TF32 split (six products per
+// The tables are read from shared memory, where each kernel stages them:
+// kernel 7 its 128-prim tiles, kernel 5m each taken supercell's strip (one
+// bulk asynchronous copy per block, grid_traverse.cu), kernel 8m each taken
+// cell's slice (cp.async per warp, warp_leaf.cuh).  The tensor cores were
+// weighed for the sums (mma.sync.m16n8k8 in TF32 with the 3xTF32 split):
+// emulated on the CPU (tests/test_torch_mxu.py) they put 1.2e-3 of a
+// reduced terrain render's bounce rays outside the 1e-4 gate against the
+// ordered sums, so the sums stay on the CUDA cores; the exact three-way TF32 split (six products per
 // value) meets it (5.4e-5) and is the lead for a later tensor-core leaf.
 #pragma once
 
@@ -182,15 +183,6 @@ __device__ __forceinline__ float strip_pair_t(const float* strip, int e, const R
   float val[M];
   pair_values<M>(r, strip + e, M * 128, 128, val);
   return mxu_pair_t<TID>(val, r, tmin, limit);
-}
-
-// The MXU leaf test of prim e of a supercell-major table (n_super * 8,
-// M * 128) in global memory (accel/mxu_tables.build_mesh_tables).
-template <int TID>
-__device__ __forceinline__ float mesh_pair_t(const float* __restrict__ wm, int e,
-                                             const RayFeat& r, float tmin, float limit) {
-  constexpr int M = mxu_m<TID>();
-  return strip_pair_t<TID>(wm + (size_t)(e / 128) * RAY_FEATS * M * 128, e % 128, r, tmin, limit);
 }
 
 }  // namespace pine

@@ -12,9 +12,17 @@
 // The tests read the row through an accessor ``r(c)`` -> column c, as the TPU
 // kernels pass ``fetch`` to PRIM_TESTS: ``prim_test<TID>(const float* row)``
 // reads a row of a table in global memory (GlobalRow, through the read-only
-// cache); the grid and supercell-tree kernels pass rows they staged in
-// shared memory (SharedRow, warp_leaf.cuh); the lattice kernel passes a row
-// it rebuilds in registers.
+// cache); the grid, supercell-tree and instanced kernels pass rows they
+// staged in shared memory, the dense kernel its rows padded to 16 bytes
+// (SharedRow); the lattice kernel passes a row it rebuilds in registers.
+//
+// EARLY (the dense kernel's form, prim_test_row<TID, true>): the exact early
+// misses.  A cone or sphere whose discriminant is not positive, a cylinder
+// whose discriminant is negative (each test's own ok condition, so NaN
+// misses too) returns BIG before its square root and divisions, and a rect
+// whose plane t lies outside (tmin, tmax) before the divisions of u and v:
+// finish would return BIG for each of them, so every result is the same.
+// The other kernels call the tests with EARLY false, without them.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -61,7 +69,28 @@ struct GlobalRow {
   __device__ __forceinline__ float operator()(int c) const { return __ldg(p + c); }
 };
 
-template <class R>
+// A prim row of W floats staged in shared memory, read into registers once:
+// as 16-byte vectors when W is a multiple of 4 (the row then starts on a
+// 16-byte boundary), else float by float.
+template <int W>
+struct SharedRow {
+  float v[W];
+  __device__ __forceinline__ explicit SharedRow(const float* s) {
+    if constexpr (W % 4 == 0) {
+#pragma unroll
+      for (int q = 0; q < W / 4; ++q) {
+        float4 x = reinterpret_cast<const float4*>(s)[q];
+        v[4 * q] = x.x; v[4 * q + 1] = x.y; v[4 * q + 2] = x.z; v[4 * q + 3] = x.w;
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < W; ++c) v[c] = s[c];
+    }
+  }
+  __device__ __forceinline__ float operator()(int c) const { return v[c]; }
+};
+
+template <bool EARLY = false, class R>
 __device__ __forceinline__ float test_rect(const R& r, V3 o, V3 d, float tmin, float tmax) {
   float px = r(0), py = r(1), pz = r(2);
   float exx = r(3), exy = r(4), exz = r(5);
@@ -71,6 +100,7 @@ __device__ __forceinline__ float test_rect(const R& r, V3 o, V3 d, float tmin, f
   float denom = d.x * nx + d.y * ny + d.z * nz;
   denom = denom == 0.0f ? 1e-12f : denom;
   float t = ((px - o.x) * nx + (py - o.y) * ny + (pz - o.z) * nz) / denom;
+  if (EARLY && !(t > tmin && t < tmax)) return BIG;
   float hx = o.x + t * d.x - px;
   float hy = o.y + t * d.y - py;
   float hz = o.z + t * d.z - pz;
@@ -80,13 +110,14 @@ __device__ __forceinline__ float test_rect(const R& r, V3 o, V3 d, float tmin, f
   return finish(t, ok, tmin, tmax);
 }
 
-template <class R>
+template <bool EARLY = false, class R>
 __device__ __forceinline__ float test_sphere(const R& r, V3 o, V3 d, float tmin, float tmax) {
   float cx = r(0), cy = r(1), cz = r(2), rad = r(3);
   float rx = o.x - cx, ry = o.y - cy, rz = o.z - cz;
   float b = rx * d.x + ry * d.y + rz * d.z;
   float cc = rx * rx + ry * ry + rz * rz - rad * rad;
   float disc = b * b - cc;
+  if (EARLY && !(disc > 0.0f)) return BIG;
   float sq = sqrtf(vmax(disc, 0.0f));
   float t0 = -b - sq;
   float t = t0 < tmin ? -b + sq : t0;
@@ -114,7 +145,7 @@ __device__ __forceinline__ float test_triangle(const R& r, V3 o, V3 d, float tmi
   return finish(t, ok, tmin, tmax);
 }
 
-template <class R>
+template <bool EARLY = false, class R>
 __device__ __forceinline__ float test_cone(const R& r, V3 o, V3 d, float tmin, float tmax) {
   float ax = r(0), ay = r(1), az = r(2);
   float nx = r(3), ny = r(4), nz = r(5);
@@ -129,6 +160,7 @@ __device__ __forceinline__ float test_cone(const R& r, V3 o, V3 d, float tmin, f
   float b = 2.0f * (-A2 * on * dn + od);
   float c = -A2 * on * on + oo;
   float disc = b * b - 4.0f * a * c;
+  if (EARLY && !(disc > 0.0f)) return BIG;
   float sq = sqrtf(vmax(disc, 0.0f));
   float a_safe = a == 0.0f ? 1e-6f : a;
   float t0 = (-b - sq) / (2.0f * a_safe);
@@ -210,7 +242,7 @@ __device__ __forceinline__ float test_plane(const R& r, V3 o, V3 d, float tmin, 
   return finish(t, true, tmin, tmax);
 }
 
-template <class R>
+template <bool EARLY = false, class R>
 __device__ __forceinline__ float test_cylinder(const R& r, V3 o, V3 d, float tmin, float tmax) {
   float px = r(0), py = r(1), pz = r(2);
   float qx = r(3), qy = r(4), qz = r(5);
@@ -225,6 +257,7 @@ __device__ __forceinline__ float test_cylinder(const R& r, V3 o, V3 d, float tmi
   float b = 2.0f * (vx * wx + vy * wy + vz * wz);
   float c = wx * wx + wy * wy + wz * wz - rad * rad;
   float disc = b * b - 4.0f * a * c;
+  if (EARLY && !(disc >= 0.0f)) return BIG;
   float sq = sqrtf(vmax(disc, 0.0f));
   float a_safe = a == 0.0f ? 1e-6f : a;
   float t0 = (-b - sq) / (2.0f * a_safe);
@@ -235,18 +268,19 @@ __device__ __forceinline__ float test_cylinder(const R& r, V3 o, V3 d, float tmi
   return finish(t, ok, tmin, tmax);
 }
 
-// The test of shape type TID on the row behind accessor r.
-template <int TID, class R>
+// The test of shape type TID on the row behind accessor r (with EARLY, the
+// early misses above).
+template <int TID, bool EARLY = false, class R>
 __device__ __forceinline__ float prim_test_row(const R& r, V3 o, V3 d, float tmin, float tmax) {
-  if constexpr (TID == SPHERE) return test_sphere(r, o, d, tmin, tmax);
-  else if constexpr (TID == RECT) return test_rect(r, o, d, tmin, tmax);
+  if constexpr (TID == SPHERE) return test_sphere<EARLY>(r, o, d, tmin, tmax);
+  else if constexpr (TID == RECT) return test_rect<EARLY>(r, o, d, tmin, tmax);
   else if constexpr (TID == DISK) return test_disk(r, o, d, tmin, tmax);
   else if constexpr (TID == PLANE) return test_plane(r, o, d, tmin, tmax);
   else if constexpr (TID == BOX_AABB) return test_aabb(r, o, d, tmin, tmax);
   else if constexpr (TID == BOX_OBB) return test_obb(r, o, d, tmin, tmax);
   else if constexpr (TID == TRIANGLE) return test_triangle(r, o, d, tmin, tmax);
-  else if constexpr (TID == CONE) return test_cone(r, o, d, tmin, tmax);
-  else return test_cylinder(r, o, d, tmin, tmax);
+  else if constexpr (TID == CONE) return test_cone<EARLY>(r, o, d, tmin, tmax);
+  else return test_cylinder<EARLY>(r, o, d, tmin, tmax);
 }
 
 // The test of shape type TID on a row of a table in global memory.
@@ -277,6 +311,14 @@ __device__ __forceinline__ bool slab_near(const float* __restrict__ box, V3 o, V
   near = vmax(vmax(vmin(t0x, t1x), vmin(t0y, t1y)), vmax(vmin(t0z, t1z), tmin));
   float far = vmin(vmin(vmax(t0x, t1x), vmax(t0y, t1y)), vmin(vmax(t0z, t1z), lim));
   return near <= far;
+}
+
+// One 16-byte asynchronous copy (cp.async) from global into shared memory;
+// the bytes past ``bytes`` are zero-filled.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+  unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes)
+               : "memory");
 }
 
 // Push onto a per-thread stack of CAP entries.  Each wrapper checks the

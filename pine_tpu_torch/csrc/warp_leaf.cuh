@@ -1,10 +1,10 @@
 // The warp-level leaf of the culling traversal kernels: a warp's rays, the
 // cells of 32 prims the warp takes, staged in shared memory and tested.
 // Shared by the grid kernel (grid_traverse.cu: kernel 5, and the lane and
-// leaf parts by its MXU form, 5m) and the supercell-tree kernel
-// (sctree_traverse.cu: kernel 6).  The instanced kernels (inst_traverse.cu,
-// 8 and 8m) run the per-thread walk of sctree_walk.cuh instead; no source
-// includes both headers.
+// leaf parts by its MXU form, 5m), the supercell-tree kernel
+// (sctree_traverse.cu: kernel 6) and the instanced kernel
+// (inst_traverse.cu: kernel 8, and its MXU form 8m, whose cells are slices
+// of the coefficient table), the last two through tree_walk.cuh.
 //
 // - Lane: one lane's ray and its running state.  Each lane culls its own ray
 //   with its own window (closest-hit: its running best; any-hit: tmax); the
@@ -20,7 +20,8 @@
 //   cp.async (16-byte chunks, coalesced) into its two-stage ring while the
 //   cell before it is tested; rows a multiple of 4 floats wide sit an odd
 //   number of 16-byte chunks apart, so that lanes reading different rows as
-//   vectors (SharedRow) hit distinct banks.
+//   vectors (SharedRow) hit distinct banks.  warp_cells_mxu stages and tests
+//   a cell's slice of the coefficient table instead.
 // Closest-hit keeps a (t, row) best compared lexicographically, and a row
 // replaces the incoming best only on a strict t < best_t; any-hit sets the
 // lane's flag at its first hit.
@@ -53,27 +54,6 @@ constexpr unsigned FULL = 0xffffffffu;
 #ifndef GRID_PRIMS_MAX_K
 #define GRID_PRIMS_MAX_K 20
 #endif
-
-// A prim row of W floats staged in shared memory, read into registers once:
-// as 16-byte vectors when W is a multiple of 4 (the row then starts on a
-// 16-byte boundary), else float by float.
-template <int W>
-struct SharedRow {
-  float v[W];
-  __device__ __forceinline__ explicit SharedRow(const float* s) {
-    if constexpr (W % 4 == 0) {
-#pragma unroll
-      for (int q = 0; q < W / 4; ++q) {
-        float4 x = reinterpret_cast<const float4*>(s)[q];
-        v[4 * q] = x.x; v[4 * q + 1] = x.y; v[4 * q + 2] = x.z; v[4 * q + 3] = x.w;
-      }
-    } else {
-#pragma unroll
-      for (int c = 0; c < W; ++c) v[c] = s[c];
-    }
-  }
-  __device__ __forceinline__ float operator()(int c) const { return v[c]; }
-};
 
 // What a prim test reads of a ray; broadcast whole in the lanes-over-prims
 // schedule.
@@ -242,12 +222,6 @@ struct CellLayout {
   static constexpr int FLOATS = CELL * STRIDE;
 };
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
-  unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes)
-               : "memory");
-}
-
 // The warp copies the cnt rows of a cell (contiguous in global memory) into
 // dst in 16-byte chunks, coalesced; the last chunk of a partial cell is
 // zero-filled past its rows.
@@ -293,38 +267,84 @@ __device__ int next_cell(Cells& cs, const float* cell_boxes, int n_prims,
 }
 
 // The warp's leaf loop: each cell that next(mask) yields (-1: the end) is
-// staged into the warp's two-stage ring (2 * CellLayout<W>::FLOATS floats,
-// 16-byte aligned) while the cell before it is tested, then tested by the
-// lanes of its mask still live.  The walk that yields a cell culls it with
-// windows one cell behind, which can only take more cells, never fewer.
-template <int TID, bool ANY, class Next>
-__device__ __forceinline__ void warp_cells(float* ring, const float* rows, int n_prims, Lane& l,
-                                           int lane, Next&& next) {
-  constexpr int W = prim_width<TID>();
-  using L = CellLayout<W>;
+// staged into the warp's two-stage ring (2 * FLOATS floats, 16-byte
+// aligned) by stage_fn(dst, cell, cnt) while the cell before it is tested, then
+// tested by the lanes of its mask still live, test(staged, j, ray) being its
+// prim j; hit ids are id_base + row.  The walk that yields a cell culls it
+// with windows one cell behind, which can only take more cells, never fewer.
+template <bool ANY, bool MXU, int FLOATS, class Next, class Stage, class Test>
+__device__ __forceinline__ void staged_cells(float* ring, int n_prims, Lane& l, int lane,
+                                             int id_base, Next&& next, const Stage& stage_fn,
+                                             const Test& test) {
   unsigned m_cur, m_next;
   int cur = next(m_cur), stage = 0;
-  if (cur >= 0) stage_cell<W>(ring, rows, cur, min(CELL, n_prims - cur * CELL), lane);
+  if (cur >= 0) stage_fn(ring, cur, min(CELL, n_prims - cur * CELL));
   asm volatile("cp.async.commit_group;\n" ::: "memory");
   while (cur >= 0) {
     int nxt = next(m_next);
-    if (nxt >= 0)
-      stage_cell<W>(ring + (stage ^ 1) * L::FLOATS, rows, nxt, min(CELL, n_prims - nxt * CELL),
-                    lane);
+    if (nxt >= 0) stage_fn(ring + (stage ^ 1) * FLOATS, nxt, min(CELL, n_prims - nxt * CELL));
     asm volatile("cp.async.commit_group;\n" ::: "memory");
     asm volatile("cp.async.wait_group 1;\n" ::: "memory");
     __syncwarp();
-    const float* st = ring + stage * L::FLOATS;
+    const float* st = ring + stage * FLOATS;
     int p0 = cur * CELL;
     unsigned mask = m_cur & __ballot_sync(FULL, live<ANY>(l));  // any-hit: drop rays occluded since
-    leaf<ANY, false, GRID_PRIMS_MAX_K>(
-        l, mask, p0, min(CELL, n_prims - p0), lane, [&](int j, const RayArg& r) {
-          return prim_test_row<TID>(SharedRow<W>(st + j * L::STRIDE), r.o, r.d, r.tmin, r.lim);
-        });
+    leaf<ANY, MXU, GRID_PRIMS_MAX_K>(l, mask, id_base + p0, min(CELL, n_prims - p0), lane,
+                                     [&](int j, const RayArg& r) { return test(st, j, r); });
     cur = nxt;
     m_cur = m_next;
     stage ^= 1;
   }
+}
+
+// staged_cells over the prim rows of type TID (kernels 5, 6 and 8): a cell
+// is its rows (CellLayout<W>), each tested by prim_test_row.
+template <int TID, bool ANY, class Next>
+__device__ __forceinline__ void warp_cells(float* ring, const float* rows, int n_prims, Lane& l,
+                                           int lane, Next&& next, int id_base = 0) {
+  constexpr int W = prim_width<TID>();
+  using L = CellLayout<W>;
+  staged_cells<ANY, false, L::FLOATS>(
+      ring, n_prims, l, lane, id_base, next,
+      [&](float* dst, int cell, int cnt) { stage_cell<W>(dst, rows, cell, cnt, lane); },
+      [&](const float* st, int j, const RayArg& r) {
+        return prim_test_row<TID>(SharedRow<W>(st + j * L::STRIDE), r.o, r.d, r.tmin, r.lim);
+      });
+}
+
+// A 32-prim cell's slice of a supercell-major coefficient table (kernel 8m):
+// for each feature f and pair value v the cell's 32 coefficients, at
+// (f * M + v) * CELL + j.
+template <int TID>
+struct SliceLayout {
+  static constexpr int M = mxu_m<TID>();
+  static constexpr int FLOATS = RAY_FEATS * M * CELL;
+};
+
+// staged_cells over the supercell-major coefficient table w of a group of
+// type TID (accel/mxu_tables.build_mesh_tables: (n_super * 8, M * 128), row
+// 8 * s + f, column v * 128 + e): a cell is its slice (SliceLayout), copied
+// in 16-byte chunks of its 8 * M runs of 32 coefficients, and prim j is
+// tested by the 5m leaf's pair values and epilogue (mxu_epilogue.cuh).
+template <int TID, bool ANY, class Next>
+__device__ __forceinline__ void warp_cells_mxu(float* ring, const float* w, int n_prims, Lane& l,
+                                               int lane, Next&& next, int id_base) {
+  constexpr int M = mxu_m<TID>();
+  staged_cells<ANY, true, SliceLayout<TID>::FLOATS>(
+      ring, n_prims, l, lane, id_base, next,
+      [&](float* dst, int cell, int) {
+        const float* strip =
+            w + (size_t)(cell / CELLS) * RAY_FEATS * M * SUPER + (cell % CELLS) * CELL;
+        for (int q = lane; q < RAY_FEATS * M * (CELL / 4); q += 32) {
+          int fv = q / (CELL / 4), part = q % (CELL / 4);
+          cp_async16(dst + fv * CELL + 4 * part, strip + fv * SUPER + 4 * part, 16);
+        }
+      },
+      [&](const float* st, int j, const RayArg& r) {
+        float val[M];
+        pair_values<M>(r.rf, st + j, M * CELL, CELL, val);
+        return mxu_pair_t<TID>(val, r.rf, r.tmin, r.lim);
+      });
 }
 
 }  // namespace pine

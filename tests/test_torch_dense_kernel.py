@@ -271,6 +271,125 @@ def test_lattice_rows_snap_like_pine_tpu(jx):
     assert not np.array_equal(raw, np.stack([prows[g] for g in sorted(prows)]))
 
 
+def _premise_rays(seed, n=4096):
+    """make_rays' lanes, with a quarter of them grazing: each aimed at a
+    random point at unit distance from the origin, across the prims' field,
+    and every 16th lane's origin or direction NaN or infinite."""
+    ro, rd, tmin, tmax = make_rays(seed, n)
+    rng = np.random.default_rng(seed + 1)
+    q = n // 4
+    tgt = rng.normal(size=(q, 3))
+    tgt /= np.linalg.norm(tgt, axis=1, keepdims=True)
+    rd[-q:] = tgt - ro[-q:]
+    rd[-q:] /= np.linalg.norm(rd[-q:], axis=1, keepdims=True)
+    bad = np.array([np.nan, np.inf, -np.inf], np.float32)
+    ro[::32, 0] = bad[rng.integers(0, 3, len(ro[::32]))]
+    rd[16::32, 1] = bad[rng.integers(0, 3, len(rd[16::32]))]
+    return ro, rd, tmin, tmax
+
+
+def _quadric_disc(tid, r, o, d):
+    """The discriminant of the sphere, cone and cylinder tests of
+    dense_traverse.PRIM_TESTS, the same rounded operations in the same
+    order, and the condition each test puts on it."""
+    if tid == PS.SPHERE:
+        rx, ry, rz = o[0] - r(0), o[1] - r(1), o[2] - r(2)
+        b = rx * d[0] + ry * d[1] + rz * d[2]
+        cc = rx * rx + ry * ry + rz * rz - r(3) * r(3)
+        disc = b * b - cc
+        return disc, disc > 0.0
+    if tid == PS.CONE:
+        ox, oy, oz = o[0] - r(0), o[1] - r(1), o[2] - r(2)
+        nx, ny, nz, A2 = r(3), r(4), r(5), r(6)
+        dn = d[0] * nx + d[1] * ny + d[2] * nz
+        on = ox * nx + oy * ny + oz * nz
+        dd = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+        od = ox * d[0] + oy * d[1] + oz * d[2]
+        oo = ox * ox + oy * oy + oz * oz
+        a = -A2 * dn * dn + dd
+        b = 2.0 * (-A2 * on * dn + od)
+        c = -A2 * on * on + oo
+        disc = b * b - 4.0 * a * c
+        return disc, disc > 0.0
+    px, py, pz, nx, ny, nz = r(0), r(1), r(2), r(6), r(7), r(8)
+    mx, my, mz = o[0] - px, o[1] - py, o[2] - pz
+    dn = d[0] * nx + d[1] * ny + d[2] * nz
+    vx, vy, vz = d[0] - dn * nx, d[1] - dn * ny, d[2] - dn * nz
+    mn = mx * nx + my * ny + mz * nz
+    wx, wy, wz = mx - mn * nx, my - mn * ny, mz - mn * nz
+    a = vx * vx + vy * vy + vz * vz
+    b = 2.0 * (vx * wx + vy * wy + vz * wz)
+    c = wx * wx + wy * wy + wz * wz - r(9) * r(9)
+    disc = b * b - 4.0 * a * c
+    return disc, disc >= 0.0
+
+
+@pytest.mark.parametrize("name", ["sphere", "cone", "cylinder", "rect"])
+def test_early_misses_are_exact(name):
+    """The premise of the dense kernel's early misses (csrc/prim_tests.cuh,
+    EARLY): every (lane, row) pair that fails its test's discriminant
+    condition (> 0 for the sphere and the cone, >= 0 for the cylinder), or
+    whose rect plane t lies outside (tmin, tmax), gets BIG from the plain
+    test, on random and grazing rays, rays whose discriminant is exactly
+    zero, and NaN or infinite rays; so returning BIG before the square root
+    and the divisions changes no result."""
+    tid = TYPES[name]
+    g = make_group(tid, 16, seed=60 + tid)
+    rows = g["rows"]
+    ro, rd, tmin, tmax = (torch.from_numpy(x) for x in _premise_rays(70 + tid))
+    if tid == PS.SPHERE:  # lanes tangent to each sphere: a discriminant of exactly zero
+        c, rad = rows[:, 0:3], rows[:, 3]
+        k = torch.arange(rows.shape[0])
+        ro[k] = c + torch.stack([-5.0 * torch.ones_like(rad), rad, 0.0 * rad], 1)
+        rd[k] = torch.tensor([1.0, 0.0, 0.0])
+    else:  # lanes with a zero direction: a = b = 0, so a discriminant of exactly zero
+        rd[1030:1040] = 0.0
+    o = tuple(ro[:, a, None] for a in range(3))
+    d = tuple(rd[:, a, None] for a in range(3))
+
+    def r(col):
+        return rows[None, :, col]
+
+    t = DT.PRIM_TESTS[tid](r, o, d, tmin[:, None], tmax[:, None])
+    if tid == PS.RECT:
+        nx, ny, nz = r(9), r(10), r(11)
+        denom = d[0] * nx + d[1] * ny + d[2] * nz
+        denom = torch.where(denom == 0.0, 1e-12, denom)
+        tp = ((r(0) - o[0]) * nx + (r(1) - o[1]) * ny + (r(2) - o[2]) * nz) / denom
+        skipped = ~((tp > tmin[:, None]) & (tp < tmax[:, None]))
+    else:
+        disc, ok = _quadric_disc(tid, r, o, d)
+        skipped = ~ok
+        assert bool((disc == 0.0).any()) and bool(torch.isnan(disc).any())
+    assert 0.2 < float(skipped.float().mean()) < 1.0
+    assert bool((t < BIG).any()), "some pairs must hit"
+    assert bool((t[skipped] == BIG).all())
+
+
+@pytest.mark.parametrize("name", list(TYPES))
+def test_padded_rows_are_the_rows(name):
+    """The dense kernel's table (dense_rows): each row zero-padded to a
+    multiple of 4 floats, built once and kept; dense_plain over it equals
+    dense_plain over the rows bit for bit, so the pad is never read as
+    data."""
+    tid = TYPES[name]
+    g = make_group(tid, 16, seed=90 + tid)
+    w = PS.PARAM_WIDTH[tid]
+    padded = DT.dense_rows(g)
+    assert padded is DT.dense_rows(g)
+    assert padded.shape == (g["rows"].shape[0], DT.padded_width(tid))
+    assert DT.padded_width(tid) % 4 == 0 and 0 <= DT.padded_width(tid) - w < 4
+    assert torch.equal(padded[:, :w], g["rows"]) and not padded[:, w:].any()
+    ro, rd, tmin, tmax = (torch.from_numpy(x) for x in make_rays(95 + tid))
+    bt, be = (torch.from_numpy(x) for x in prepared_closest(96 + tid, tmax.numpy(), 16))
+    occ = torch.from_numpy(prepared_occ(97 + tid, N_RAYS))
+    for any_hit, state in ((False, (bt, be)), (True, (tmax, occ))):
+        want = DT.dense_plain(tid, g["rows"], g["gbox"], ro, rd, tmin, tmax, *state, any_hit)
+        got = DT.dense_plain(tid, padded, g["gbox"], ro, rd, tmin, tmax, *state, any_hit)
+        assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+        assert torch.equal(got[1], want[1])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("any_hit", [False, True])
 def test_kernel_matches_plain_on_card(any_hit):
@@ -289,4 +408,28 @@ def test_kernel_matches_plain_on_card(any_hit):
         t_p, e_p = DT.dense_plain(g["tid"], g["rows"], g["gbox"], *args, any_hit)
         torch.cuda.synchronize()
         torch.testing.assert_close(t_k, t_p, rtol=1e-5, atol=1e-6, msg=name)
+        assert torch.equal(e_k, e_p), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["obb", "cone"])
+def test_kernel_tiles_match_plain_on_card(name):
+    """A group of more than the 512 rows the kernel stages at once (a forced
+    dense route): 1,300 rows in three tiles, the OBB's 32-float rows above
+    the default shared-memory limit, bit for bit dense_plain."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    dev = torch.device("cuda")
+    tid = TYPES[name]
+    (g,) = PPK.build_packet_accel(make_prims(tid, 1300, seed=30 + tid))["groups"]
+    g = upload_group(g, dev)
+    ro, rd, tmin, tmax = make_rays(710 + tid)
+    for any_hit in (False, True):
+        state = (tmax, prepared_occ(810 + tid, N_RAYS)) if any_hit else \
+            prepared_closest(810 + tid, tmax, 1300)
+        args = [torch.from_numpy(np.array(x)).to(dev) for x in (ro, rd, tmin, tmax, *state)]
+        t_k, e_k = DT.dense_cuda(tid, DT.dense_rows(g), g["gbox"], *args, any_hit)
+        t_p, e_p = DT.dense_plain(tid, g["rows"], g["gbox"], *args, any_hit)
+        torch.cuda.synchronize()
+        assert torch.equal(t_k.view(torch.int32), t_p.view(torch.int32)), name
         assert torch.equal(e_k, e_p), name

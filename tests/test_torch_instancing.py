@@ -187,7 +187,9 @@ def test_sctree_layout_matches_pine_tpu(lazy):
 @pytest.mark.parametrize("n_side, need", [(32, 81), (101, 117)])
 def test_stack_need_matches_pine_tpu(n_side, need):
     """The benchmark's fields (its rock, its transforms) in both packages'
-    accel builders: the same instance tree, the same need."""
+    accel builders: the same instance tree, so the same tree depths under
+    pine_tpu's bound d_top * (1 + 2 * TREE_LEAF) + d_mesh + 4, which the
+    port's warp walk (stack_need) never exceeds."""
     from pine_tpu.accel.instanced_kernel import _stack_need
 
     V, F = scenes.make_rock()
@@ -197,7 +199,9 @@ def test_stack_need_matches_pine_tpu(n_side, need):
     (pg,) = PPK.build_packet_accel([], [], [rec])["inst_groups"]
     np.testing.assert_array_equal(pg["ic_node"], jg["inst_np"]["ic_node"])
     g = IT.upload_inst_group(pg, "cpu")
-    assert g["need"] == _stack_need(jg) == need <= IT.STACK_DEPTH
+    assert _stack_need(jg) == need == g["d_top"] * (1 + 2 * IT.TREE_LEAF) + g["d_mesh"] + 4
+    assert g["need"] == IT.stack_need(g["d_top"], g["d_mesh"]) < need
+    assert g["need"] <= IT.STACK_DEPTH
     assert g["vbase"] + g["n_inst"] * g["stride"] < 2**31
 
 
