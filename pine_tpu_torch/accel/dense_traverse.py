@@ -352,17 +352,27 @@ def check_stack(need, cap, what):
 
 
 def padded_width(tid):
-    """The width of a prim row of type ``tid`` as the dense kernel reads it: a
-    multiple of 4 floats, so that each row is whole 16-byte vectors."""
+    """The width of a prim row of type ``tid`` as the dense, scdense and BVH
+    kernels read it: a multiple of 4 floats, so that each row is whole
+    16-byte vectors."""
     return -(-S.PARAM_WIDTH[tid] // 4) * 4
 
 
+PADDED = frozenset({"dense", "scdense", "bvh"})  # the kernels that read ``dense_rows``
+
+
+def kernel_rows(g, variant):
+    """The rows the kernel of ``variant`` reads for group ``g``: ``dense_rows``
+    for the kernels in PADDED, else the group's own."""
+    return dense_rows(g) if variant in PADDED else g["rows"]
+
+
 def dense_rows(g):
-    """The group's rows as the dense kernel reads them (``g["drows"]``): each
-    row zero-padded to ``padded_width`` floats, the rows themselves where the
-    width is already a multiple of 4; built once, at the group's first
-    dense query on the card.  The pad columns are never read as data, so
-    ``dense_plain`` takes either table."""
+    """The group's rows as the dense, scdense and BVH kernels read them
+    (``g["drows"]``): each row zero-padded to ``padded_width`` floats, the
+    rows themselves where the width is already a multiple of 4; built once,
+    at the group's first such query on the card.  The pad columns are never
+    read as data, so ``dense_plain`` takes either table."""
     if "drows" not in g:
         rows = g["rows"]
         pad = padded_width(g["tid"]) - rows.shape[1]
@@ -490,8 +500,8 @@ def group_query(g, ro, rd, tmin, tmax, best_t, best_e, any_hit=False, variant=No
         return fn(g, ro, rd, tmin, tmax, best_t, best_e, any_hit)
     if variant == "dense":
         if ro.is_cuda:
-            return dense_cuda(g["tid"], dense_rows(g), g["gbox"], ro, rd, tmin, tmax, best_t,
-                              best_e, any_hit)
+            return dense_cuda(g["tid"], kernel_rows(g, variant), g["gbox"], ro, rd, tmin, tmax,
+                              best_t, best_e, any_hit)
         return dense_plain(g["tid"], g["rows"], g["gbox"], ro, rd, tmin, tmax, best_t, best_e,
                            any_hit)
     from pine_tpu_torch.accel import bvh_traverse, grid_traverse, mxu_sweep, scdense_traverse
@@ -506,5 +516,7 @@ def group_query(g, ro, rd, tmin, tmax, best_t, best_e, any_hit=False, variant=No
         "scdense": ("scd", scdense_traverse.scdense_cuda, scdense_traverse.scdense_plain),
         "sctree": ("sctree", sctree_traverse.sctree_cuda, grid_traverse.supercell_plain),
         "bvh": ("bvh", bvh_traverse.bvh_cuda, grid_traverse.supercell_plain)}[variant]
-    fn = kernel if ro.is_cuda else plain
-    return fn(g["tid"], g["rows"], g[table], ro, rd, tmin, tmax, best_t, best_e, any_hit)
+    if not ro.is_cuda:
+        return plain(g["tid"], g["rows"], g[table], ro, rd, tmin, tmax, best_t, best_e, any_hit)
+    return kernel(g["tid"], kernel_rows(g, variant), g[table], ro, rd, tmin, tmax, best_t, best_e,
+                  any_hit)

@@ -18,6 +18,12 @@ and 16-prim cell of the group's leaf-order prim boxes; cells past the last
 prim are the empty box.  ``cell_boxes`` equals the first n_super * 8 rows of
 ``_grid_layout``'s ``scd_cell_boxes``.
 
+The kernel reads the rows padded to a multiple of 4 floats
+(``dense_traverse.dense_rows``) and stages them with the boxes in shared
+memory; a lane whose incoming window reaches no supercell box does nothing
+in the sweep, so the kernel writes it back and sweeps the others
+(csrc/scdense_traverse.cu).
+
 ``scdense_plain`` makes the same culls in the same order with the same slab
 arithmetic (a supercell's cull against the best after the supercells before
 it, a cell's against the best after the cells before it), and tests each
@@ -32,9 +38,10 @@ import ctypes
 import numpy as np
 import torch
 
-from pine_tpu_torch.accel.dense_traverse import BIG, LAUNCHES, PRIM_TESTS, _check, _safe_inv
+from pine_tpu_torch.accel.dense_traverse import (
+    BIG, LAUNCHES, PRIM_TESTS, _aligned, _check, _safe_inv, padded_width,
+)
 from pine_tpu_torch.accel.grid_traverse import SUPER, _boxes, _slab
-from pine_tpu_torch.scene import shapes as S
 
 SCD_CELL = 16  # prims per cull cell (pallas_traverse.SCD_CELL)
 
@@ -120,26 +127,32 @@ def scdense_plain(tid, rows, scd, ro, rd, tmin, tmax, best_t, best_e, any_hit, c
 # the kernel
 # --------------------------------------------------------------------------
 
-def _library():
-    from pine_tpu_torch import cuda_build
-
-    fn = cuda_build.load("scdense_traverse").pine_scdense_traverse
+def bind(fn):
+    """Give a library's ``pine_scdense_traverse`` its C signature."""
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] + [ctypes.c_int] * 2
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] + [ctypes.c_int] * 3
                        + [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
+def _library():
+    from pine_tpu_torch import cuda_build
+
+    return bind(cuda_build.load("scdense_traverse").pine_scdense_traverse)
+
+
 def scdense_cuda(tid, rows, scd, ro, rd, tmin, tmax, best_t, best_e, any_hit):
-    """Launch csrc/scdense_traverse.cu on the current stream."""
+    """Launch csrc/scdense_traverse.cu on the current stream, over ``rows``
+    padded as ``dense_traverse.dense_rows`` pads a group's."""
     n = ro.shape[0]
     dev = ro.device
     f32, i32 = torch.float32, torch.int32
     n_super = scd["n_super"]
     if rows.shape[0] < scd["n_prims"]:
         raise ValueError(f"rows: {rows.shape[0]} rows for {scd['n_prims']} prims")
-    _check(rows, f32, (rows.shape[0], S.PARAM_WIDTH[tid]), dev, "rows")
+    _check(rows, f32, (rows.shape[0], padded_width(tid)), dev, "rows")
+    _aligned(rows, "rows")
     _check(scd["sc_boxes"], f32, (n_super, 6), dev, "sc_boxes")
     _check(scd["cell_boxes"], f32, (n_super * (SUPER // SCD_CELL), 6), dev, "cell_boxes")
     for x, name in ((ro, "ro"), (rd, "rd")):
@@ -150,9 +163,9 @@ def scdense_cuda(tid, rows, scd, ro, rd, tmin, tmax, best_t, best_e, any_hit):
     out_t = torch.empty(n, dtype=f32, device=dev)
     out_e = torch.empty(n, dtype=i32, device=dev)
     err = _library()(
-        tid, int(any_hit), rows.data_ptr(), scd["n_prims"], n_super, scd["sc_boxes"].data_ptr(),
-        scd["cell_boxes"].data_ptr(), ro.data_ptr(), rd.data_ptr(), tmin.data_ptr(),
-        tmax.data_ptr(), best_t.data_ptr(), best_e.data_ptr(), out_t.data_ptr(),
+        tid, int(any_hit), rows.data_ptr(), rows.shape[1], scd["n_prims"], n_super,
+        scd["sc_boxes"].data_ptr(), scd["cell_boxes"].data_ptr(), ro.data_ptr(), rd.data_ptr(),
+        tmin.data_ptr(), tmax.data_ptr(), best_t.data_ptr(), best_e.data_ptr(), out_t.data_ptr(),
         out_e.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:

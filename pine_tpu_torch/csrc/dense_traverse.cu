@@ -59,11 +59,6 @@ constexpr int BLOCK = 256;
 constexpr int TILE = 512;  // rows staged at once: accel/dense_traverse.DENSE_DEFAULT_MAX
 constexpr unsigned FULL = 0xffffffffu;
 
-// A row of shape type TID as the kernel reads it: its width rounded up to a
-// multiple of 4 floats.
-template <int TID>
-__host__ __device__ constexpr int padded_width() { return (prim_width<TID>() + 3) / 4 * 4; }
-
 // The block copies cnt padded rows into dst, 16 bytes a thread at a time.
 template <int WP>
 __device__ __forceinline__ void stage_rows(float* dst, const float* src, int cnt) {

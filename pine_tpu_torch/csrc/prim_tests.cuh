@@ -12,17 +12,20 @@
 // The tests read the row through an accessor ``r(c)`` -> column c, as the TPU
 // kernels pass ``fetch`` to PRIM_TESTS: ``prim_test<TID>(const float* row)``
 // reads a row of a table in global memory (GlobalRow, through the read-only
-// cache); the grid, supercell-tree and instanced kernels pass rows they
-// staged in shared memory, the dense kernel its rows padded to 16 bytes
-// (SharedRow); the lattice kernel passes a row it rebuilds in registers.
+// cache); the BVH kernel reads its rows padded to 16 bytes from global
+// memory as vectors (GlobalRowV); the grid, supercell-tree and instanced
+// kernels pass rows they staged in shared memory, the dense and scdense
+// kernels their rows padded to 16 bytes (SharedRow); the lattice kernel
+// passes a row it rebuilds in registers.
 //
-// EARLY (the dense kernel's form, prim_test_row<TID, true>): the exact early
-// misses.  A cone or sphere whose discriminant is not positive, a cylinder
-// whose discriminant is negative (each test's own ok condition, so NaN
-// misses too) returns BIG before its square root and divisions, and a rect
-// whose plane t lies outside (tmin, tmax) before the divisions of u and v:
-// finish would return BIG for each of them, so every result is the same.
-// The other kernels call the tests with EARLY false, without them.
+// EARLY (prim_test_row<TID, true>, the form of the dense, scdense and BVH
+// kernels): the exact early misses.  A cone or sphere whose discriminant is
+// not positive, a cylinder whose discriminant is negative (each test's own
+// ok condition, so NaN misses too) returns BIG before its square root and
+// divisions, and a rect whose plane t lies outside (tmin, tmax) before the
+// divisions of u and v: finish would return BIG for each of them, so every
+// result is the same.  The other kernels call the tests with EARLY false,
+// without them.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -43,6 +46,11 @@ __host__ __device__ constexpr int prim_width() {
        : TID == BOX_AABB ? 6 : TID == BOX_OBB ? 30 : TID == TRIANGLE ? 12 : TID == CONE ? 12
        : 10;
 }
+
+// A row of shape type TID as the dense, scdense and BVH kernels read it: its
+// width rounded up to a multiple of 4 floats (dense_traverse.padded_width).
+template <int TID>
+__host__ __device__ constexpr int padded_width() { return (prim_width<TID>() + 3) / 4 * 4; }
 
 // jnp.maximum / torch.maximum propagate NaN; fmaxf does not.
 __device__ __forceinline__ float vmax(float a, float b) {
@@ -67,6 +75,24 @@ __device__ __forceinline__ float ld(const float* r, int c) { return __ldg(r + c)
 struct GlobalRow {
   const float* p;
   __device__ __forceinline__ float operator()(int c) const { return __ldg(p + c); }
+};
+
+// A prim row of W floats (a multiple of 4) in global memory, starting on a
+// 16-byte boundary, read into registers as 16-byte vectors through the
+// read-only path (ld.global.nc.v4): W / 4 loads where GlobalRow issues W.
+// ``load`` only issues them, so several rows can be in flight at once.
+template <int W>
+struct GlobalRowV {
+  static_assert(W % 4 == 0, "a vector row is whole 16-byte vectors");
+  float v[W];
+  __device__ __forceinline__ void load(const float* g) {
+#pragma unroll
+    for (int q = 0; q < W / 4; ++q) {
+      float4 x = __ldg(reinterpret_cast<const float4*>(g) + q);
+      v[4 * q] = x.x; v[4 * q + 1] = x.y; v[4 * q + 2] = x.z; v[4 * q + 3] = x.w;
+    }
+  }
+  __device__ __forceinline__ float operator()(int c) const { return v[c]; }
 };
 
 // A prim row of W floats staged in shared memory, read into registers once:
@@ -289,17 +315,36 @@ __device__ __forceinline__ float prim_test(const float* row, V3 o, V3 d, float t
   return prim_test_row<TID>(GlobalRow{row}, o, d, tmin, tmax);
 }
 
-// Slab test of one box (lo xyz, hi xyz) against a ray with inverse direction
-// inv: true when the ray's window (tmin, lim) reaches the box.  The same
-// formula as the Pallas kernels' culls (pallas_traverse.py:878-910).
-__device__ __forceinline__ bool slab_hit(const float* __restrict__ box, V3 o, V3 inv,
-                                         float tmin, float lim) {
-  float t0x = (__ldg(box + 0) - o.x) * inv.x, t1x = (__ldg(box + 3) - o.x) * inv.x;
-  float t0y = (__ldg(box + 1) - o.y) * inv.y, t1y = (__ldg(box + 4) - o.y) * inv.y;
-  float t0z = (__ldg(box + 2) - o.z) * inv.z, t1z = (__ldg(box + 5) - o.z) * inv.z;
+// Slab test of one box (lo xyz, hi xyz, behind accessor b: b(c) -> its
+// coordinate c) against a ray with inverse direction inv: true when the
+// ray's window (tmin, lim) reaches the box.  The same formula as the Pallas
+// kernels' culls (pallas_traverse.py:878-910).
+template <class B>
+__device__ __forceinline__ bool slab_test(const B& b, V3 o, V3 inv, float tmin, float lim) {
+  float t0x = (b(0) - o.x) * inv.x, t1x = (b(3) - o.x) * inv.x;
+  float t0y = (b(1) - o.y) * inv.y, t1y = (b(4) - o.y) * inv.y;
+  float t0z = (b(2) - o.z) * inv.z, t1z = (b(5) - o.z) * inv.z;
   float near = vmax(vmax(vmin(t0x, t1x), vmin(t0y, t1y)), vmax(vmin(t0z, t1z), tmin));
   float far = vmin(vmin(vmax(t0x, t1x), vmax(t0y, t1y)), vmin(vmax(t0z, t1z), lim));
   return near <= far;
+}
+
+// slab_test on a box in global memory, read through the read-only cache.
+__device__ __forceinline__ bool slab_hit(const float* __restrict__ box, V3 o, V3 inv,
+                                         float tmin, float lim) {
+  return slab_test(GlobalRow{box}, o, inv, tmin, lim);
+}
+
+// A box held in registers, for a kernel that reads its boxes as vectors.
+struct BoxV {
+  float v[6];
+  __device__ __forceinline__ float operator()(int c) const { return v[c]; }
+};
+
+// slab_test on a box given by value (lo xyz, hi xyz).
+__device__ __forceinline__ bool slab_hit_v(float lx, float ly, float lz, float hx, float hy,
+                                           float hz, V3 o, V3 inv, float tmin, float lim) {
+  return slab_test(BoxV{{lx, ly, lz, hx, hy, hz}}, o, inv, tmin, lim);
 }
 
 // slab_hit that also returns the entry distance.

@@ -5,11 +5,13 @@ the card.
 
 PARENT is a checkout of an earlier version of the repository (for example
 ``git archive`` of the parent commit unpacked under ``build/``).  For each
-kernel named (``sctree``, ``mxup``, ``grid``, ``dense``, ``inst`` and
-``inst_mxu``; all six by default) its earlier build (PARENT's source, built
-by PARENT's own cuda_build into PARENT/build) and this checkout's are timed
-in the order earlier, this, this, earlier on the same inputs, through the
-same C signature, and each is held to the kernel's plain version:
+kernel named (``sctree``, ``mxup``, ``grid``, ``dense``, ``inst``,
+``inst_mxu``, ``bvh`` and ``scdense``; all eight by default) its earlier
+build (PARENT's source, built by PARENT's own cuda_build into PARENT/build)
+and this checkout's are timed in the order earlier, this, this, earlier on
+the same inputs, each through its own C signature (the earlier BVH and
+scdense builds may read other tables: PARENT's wrapper says which), and
+each is held to the kernel's plain version:
 
 - ``sctree`` and ``grid``: the mesh benchmark's 99,458-triangle group,
   closest-hit and any-hit, on ``grid_crossover``'s four ray sets of 65,536
@@ -31,14 +33,28 @@ same C signature, and each is held to the kernel's plain version:
   of its main path at 640x640, depth 4) and of the instancing benchmark's
   plane and rect groups (512x512, depth 3); and each of these groups on
   one ray (``floor``: the time of a call with next to no work); held to
-  ``dense_traverse.dense_plain`` bit for bit; the earlier kernel reads the
-  rows unpadded, this one padded (``dense_rows``);
+  ``dense_traverse.dense_plain`` bit for bit; both builds read the padded
+  rows (``dense_rows``);
 - ``inst`` and ``inst_mxu`` (kernels 8 and 8m): the instancing benchmark's
   group (1,024 instances of its 4,802-triangle rock) on every launch of a
   1-spp render of its main path at 512x512, depth 3 (depths 0-2
   closest-hit, 0-1 shadow rays), held to ``inst_traverse.inst_plain``
   (with ``mxu`` for 8m) on all but 1e-4 of the lanes; each build gets its
-  own stack depth.
+  own stack depth;
+- ``bvh`` (kernel 2): every launch of a 1-spp render of the 2 M terrain's
+  main path (640x640, depth 4) and the mesh benchmark's 99,458-triangle
+  group forced to "bvh" on ``grid_crossover``'s four ray sets, held to
+  ``grid_traverse.supercell_plain`` on all but 1e-4 of the lanes (the
+  closest-hit lanes both leave without a hit below BIG not compared), each
+  reference computed once; an earlier build that reads the unpacked node
+  arrays (``boxes``, ``cnode``, ``cstart``, ``ccount``) and the group's own
+  rows gets them, decoded from the node records;
+- ``scdense`` (kernel 3): the benchmark box's three groups under
+  ``small_kernel="scdense"`` with the same 409,600 rays of the lab's three
+  sets over each group's box, and each group's depth-1 launches of the
+  box's main path (a 1-spp render at 640x640, depth 4), held to
+  ``scdense_traverse.scdense_plain`` bit for bit; an earlier build that
+  reads the group's own rows gets them, this one the padded ones.
 
 One more mode, ``sass``, builds every source by PARENT and by this
 checkout and compares each kernel's SASS (``cuobjdump -sass``, instruction
@@ -74,7 +90,8 @@ import torch
 BOX_RAYS = 640 * 640
 SPIN_CYCLES = 20_000_000  # about 10 ms of the card's clock: longer than the host's REPS calls
 SOURCES = {"sctree": "sctree_traverse", "mxup": "mxu_sweep", "grid": "grid_traverse",
-           "dense": "dense_traverse", "inst": "inst_traverse", "inst_mxu": "inst_traverse"}
+           "dense": "dense_traverse", "inst": "inst_traverse", "inst_mxu": "inst_traverse",
+           "bvh": "bvh_traverse", "scdense": "scdense_traverse"}
 MODES = (*SOURCES, "sass")
 TYPE_NAMES = ("sphere", "rect", "disk", "plane", "aabb", "obb", "triangle", "cone", "cylinder")
 
@@ -262,7 +279,7 @@ def dense_cases(dev, libs):
 
     def query(case, any_hit, build):
         g, args = case
-        rows = g["rows"] if build == "earlier" else DT.dense_rows(g)
+        rows = DT.kernel_rows(g, "dense")
         n = args[0].shape[0]
         out_t = torch.empty(n, dtype=torch.float32, device=dev)
         out_e = torch.empty(n, dtype=torch.int32, device=dev)
@@ -277,6 +294,153 @@ def dense_cases(dev, libs):
     def check(out, case, any_hit):
         g, args = case
         n = lanes_differ(out, DT.dense_plain(g["tid"], g["rows"], g["gbox"], *args, any_hit))
+        return n == 0, n
+
+    return query, check, cases
+
+
+def earlier_reads(parent, module, marker):
+    """Whether PARENT's wrapper ``accel/<module>.py`` names ``marker``: how a
+    kernel's earlier build is called (its C signature and tables).  Only a
+    PARENT from before the BVH's node records and scdense's padded rows
+    needs the other signature; when no PARENT in use predates them, this
+    and the branches it selects in ``bvh_cases`` and ``scdense_cases`` go."""
+    return marker in (Path(parent) / "pine_tpu_torch" / "accel" / f"{module}.py").read_text()
+
+
+def bvh_cases(dev, libs, packed):
+    """terrain_cases' counterpart for kernel 2, a case being (group, ray
+    arguments): every launch of a 1-spp render of the 2 M terrain's main path
+    (640x640, depth 4) and the 99,458-triangle terrain's group forced to
+    "bvh" on grid_crossover's four ray sets.  ``packed``: whether the
+    earlier build reads the 64-byte node records and padded rows (else the
+    unpacked node arrays and the group's own rows, through its own C
+    signature)."""
+    import ctypes
+
+    from pine_tpu_torch import scenes
+    from pine_tpu_torch.accel import bvh_traverse as BT
+    from pine_tpu_torch.accel import dense_traverse as DT
+    from pine_tpu_torch.accel import grid_traverse as GT
+    from pine_tpu_torch.lab.grid_crossover import lab_rays, terrain_rays
+    from pine_tpu_torch.lab.kernel_lab import RAYSETS, build_terrain_group
+
+    cases = {}
+    cs, render = render_1spp(scenes.terrain((640, 640), 1002), 640, 4, dev)
+    calls = [a for a, _ in main_path_launches(BT, "bvh_cuda", render)]
+    (big,) = [g for g in cs.unified["groups"] if g["variant"] == "bvh"]
+    for any_hit in (False, True):
+        for k, a in enumerate(a for a in calls if a[-1] == any_hit):
+            cases[(f"terrain2m depth{k}", any_hit)] = (big, a[3:9])
+    del calls
+    g, lo, hi = build_terrain_group(dev)
+    DT.prepare(g, "bvh")
+    sets = {"phase2b_terrain": terrain_rays(g, dev),
+            **{name: lab_rays(name, lo, hi, dev) for name in RAYSETS}}
+    for rs, a in sets.items():
+        for any_hit in (False, True):
+            cases[(f"terrain {rs}", any_hit)] = (g, a[any_hit])
+    refs, unpacked = {}, {}
+    if not packed:
+        libs["earlier"].argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 13
+                                    + [ctypes.c_int, ctypes.c_void_p])
+        libs["earlier"].restype = ctypes.c_int
+
+    def query(case, any_hit, build):
+        g, args = case
+        if build != "earlier" or packed:
+            real = BT._library
+            BT._library = lambda: libs[build]
+            try:
+                return BT.bvh_cuda(g["tid"], DT.kernel_rows(g, "bvh"), g["bvh"], *args, any_hit)
+            finally:
+                BT._library = real
+        if id(g) not in unpacked:
+            unpacked[id(g)] = {k: v.contiguous() for k, v in
+                               BT.unpack_nodes(g["bvh"]["nodes"]).items()}
+        t = unpacked[id(g)]
+        n = args[0].shape[0]
+        out_t = torch.empty(n, dtype=torch.float32, device=dev)
+        out_e = torch.empty(n, dtype=torch.int32, device=dev)
+        err = libs[build](
+            g["tid"], int(any_hit), BT.STACK_DEPTH, g["rows"].data_ptr(),
+            *(t[k].data_ptr() for k in ("boxes", "cnode", "cstart", "ccount")),
+            *(x.data_ptr() for x in args), out_t.data_ptr(), out_e.data_ptr(), n,
+            torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"bvh_traverse (earlier build) launch failed: CUDA error {err}")
+        return out_t, out_e
+
+    def check(out, case, any_hit):
+        g, args = case
+        key = (id(case), any_hit)
+        if key not in refs:
+            refs[key] = GT.supercell_plain(g["tid"], g["rows"], g["bvh"], *args, any_hit)
+        return within_gate(out, refs[key], any_hit, tree=True), lanes_differ(out, refs[key])
+
+    return query, check, cases
+
+
+def scdense_cases(dev, libs, padded):
+    """terrain_cases' counterpart for kernel 3, a case being (group, ray
+    arguments): the benchmark box's three groups under
+    ``small_kernel="scdense"`` with 409,600 rays of the lab's three sets
+    over each group's box (``box_rays``), and each group's depth-1 launches
+    of the box's main path (a 1-spp render at 640x640, depth 4); held to
+    ``scdense_plain`` bit for bit.  ``padded``: whether the earlier build
+    reads the padded rows (else the group's own, through its own C
+    signature)."""
+    import ctypes
+
+    from pine_tpu_torch import scenes
+    from pine_tpu_torch.accel import dense_traverse as DT
+    from pine_tpu_torch.accel import scdense_traverse as SD
+
+    cs, render = render_1spp(scenes.cbox(), 640, 4, dev, small_kernel="scdense")
+    calls = [a for a, _ in main_path_launches(SD, "scdense_cuda", render)]
+    cases, refs = {}, {}
+    for g in cs.unified["groups"]:
+        name = f"{TYPE_NAMES[g['tid']]}{g['rows'].shape[0]}"
+        for rs, args in box_rays(g, dev).items():
+            for any_hit in (False, True):
+                cases[(f"{name} {rs}", any_hit)] = (g, args)
+        for any_hit in (False, True):
+            mine = [a[3:9] for a in calls if a[0] == g["tid"] and a[-1] == any_hit]
+            cases[(f"{name} depth1", any_hit)] = (g, mine[1])
+    if not padded:
+        libs["earlier"].argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] + [ctypes.c_int] * 2
+                                    + [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_void_p])
+        libs["earlier"].restype = ctypes.c_int
+
+    def query(case, any_hit, build):
+        g, args = case
+        scd = g["scd"]
+        if build != "earlier" or padded:
+            real = SD._library
+            SD._library = lambda: libs[build]
+            try:
+                return SD.scdense_cuda(g["tid"], DT.kernel_rows(g, "scdense"), scd, *args,
+                                       any_hit)
+            finally:
+                SD._library = real
+        n = args[0].shape[0]
+        out_t = torch.empty(n, dtype=torch.float32, device=dev)
+        out_e = torch.empty(n, dtype=torch.int32, device=dev)
+        err = libs[build](
+            g["tid"], int(any_hit), g["rows"].data_ptr(), scd["n_prims"], scd["n_super"],
+            scd["sc_boxes"].data_ptr(), scd["cell_boxes"].data_ptr(),
+            *(x.data_ptr() for x in args), out_t.data_ptr(), out_e.data_ptr(), n,
+            torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"scdense_traverse (earlier build) launch failed: CUDA error {err}")
+        return out_t, out_e
+
+    def check(out, case, any_hit):
+        g, args = case
+        key = (id(case), any_hit)
+        if key not in refs:
+            refs[key] = SD.scdense_plain(g["tid"], g["rows"], g["scd"], *args, any_hit)
+        n = lanes_differ(out, refs[key])
         return n == 0, n
 
     return query, check, cases
@@ -331,18 +495,28 @@ def earlier_stack_depth(parent):
 
 
 def run(kernel, dev, parent):
+    from pine_tpu_torch.accel import bvh_traverse as BT
     from pine_tpu_torch.accel import dense_traverse as DT
     from pine_tpu_torch.accel import grid_traverse as GT
     from pine_tpu_torch.accel import inst_traverse as IT
     from pine_tpu_torch.accel import mxu_sweep as MS
+    from pine_tpu_torch.accel import scdense_traverse as SD
     from pine_tpu_torch.accel import sctree_traverse as ST
     from pine_tpu_torch.lab.grid_crossover import REPS, timed
 
     source = SOURCES[kernel]
-    mod = {"sctree": ST, "mxup": MS, "grid": GT, "dense": DT, "inst": IT, "inst_mxu": IT}[kernel]
-    libs = {"this": mod._library(),
-            "earlier": mod.bind(getattr(earlier_module(parent).load(source), "pine_" + source))}
-    if kernel in ("sctree", "grid"):
+    mod = {"sctree": ST, "mxup": MS, "grid": GT, "dense": DT, "inst": IT, "inst_mxu": IT,
+           "bvh": BT, "scdense": SD}[kernel]
+    earlier = getattr(earlier_module(parent).load(source), "pine_" + source)
+    # an earlier BVH or scdense build of another C signature is bound by its cases
+    same = {"bvh": ("bvh_traverse", "pack_nodes"), "scdense": ("scdense_traverse", "padded_width")}
+    alike = kernel not in same or earlier_reads(parent, *same[kernel])
+    libs = {"this": mod._library(), "earlier": mod.bind(earlier) if alike else earlier}
+    if kernel == "bvh":
+        query, check, cases = bvh_cases(dev, libs, alike)
+    elif kernel == "scdense":
+        query, check, cases = scdense_cases(dev, libs, alike)
+    elif kernel in ("sctree", "grid"):
         query, check, cases = terrain_cases(dev, kernel, libs)
     elif kernel == "mxup":
         query, check, cases = mxup_cases(dev, libs)

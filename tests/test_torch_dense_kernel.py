@@ -433,3 +433,16 @@ def test_kernel_tiles_match_plain_on_card(name):
         torch.cuda.synchronize()
         assert torch.equal(t_k.view(torch.int32), t_p.view(torch.int32)), name
         assert torch.equal(e_k, e_p), name
+
+
+@pytest.mark.parametrize("variant", ["dense", "scdense", "bvh", "grid", "sctree", "mxup"])
+def test_kernel_rows_are_padded_for_the_padded_kernels(variant):
+    """``kernel_rows``: the dense, scdense and BVH kernels get the padded
+    table (on a rect group, 15 floats padded to 16), the others the group's
+    own rows."""
+    g = make_group(TYPES["rect"], 16, seed=98)
+    rows = DT.kernel_rows(g, variant)
+    padded = variant in ("dense", "scdense", "bvh")
+    assert (variant in DT.PADDED) == padded
+    assert rows is (DT.dense_rows(g) if padded else g["rows"])
+    assert rows.shape[1] == (16 if padded else 15)

@@ -251,7 +251,7 @@ def test_reduced_terrain_forced_bvh_matches_pine_tpu(jax_terrain, monkeypatch):
                                      mesh_kernel="bvh")
     assert [g["variant"] for g in pcs.unified["groups"]] == ["dense", "bvh"]
     nodes = jcs.unified["groups"][1]["nodes_np"]
-    assert pcs.unified["groups"][1]["bvh"]["boxes"].shape[0] == len(nodes["c_node"])
+    assert pcs.unified["groups"][1]["bvh"]["nodes"].shape[0] == len(nodes["c_node"])
     got, pstats = render_wavefront(pcs, None, 32, 32, BlueSampler(4), 4, 4, return_stats=True)
     assert_renders_agree(got.numpy(), want, pstats["traced_rays"], rays_want)
 

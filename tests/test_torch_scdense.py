@@ -27,8 +27,13 @@ It is held against:
 - the host tables: the 16-prim cell boxes equal ``_grid_layout``'s
   ``scd_cell_boxes`` and the supercell boxes its ``sc_boxes``.
 
-The GPU test holds the CUDA kernel to ``scdense_plain`` on the card bit for
-bit (t, ids and flags) and skips without one.
+The premise of the kernel's compaction is held here too: a lane whose
+incoming window reaches no supercell box gets its input state back from
+``scdense_plain`` bit for bit.
+
+The GPU test holds the CUDA kernel (over the padded rows it reads) to
+``scdense_plain`` on the card bit for bit (t, ids and flags) and skips
+without one.
 """
 from __future__ import annotations
 
@@ -184,6 +189,39 @@ def test_plain_is_the_dense_sweep(case):
         assert any_hit or int((got[1] != be).sum()) > 100
 
 
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_lanes_that_reach_no_supercell_pass_through(case):
+    """The premise of the kernel's compaction (csrc/scdense_traverse.cu): a
+    lane whose incoming window (closest-hit: (tmin, best_t); any-hit: (tmin,
+    tmax), none once occluded) reaches no supercell box gets its input state
+    back from scdense_plain bit for bit, so the kernel writes it back and
+    sweeps only the others."""
+    from pine_tpu_torch.accel.grid_traverse import _slab
+
+    _, pacc = CASES[case]()
+    g = pacc["groups"][0]
+    DT.prepare(g, "scdense")
+    ro, rd, tmin, tmax = (torch.from_numpy(x) for x in (
+        cone_rays(2048, 14) if case.startswith("cones") else rays(2048, 15)))
+    rng = np.random.default_rng(16)
+    held = torch.from_numpy(rng.uniform(size=2048) < 0.3)
+    bt = torch.where(held, torch.from_numpy(rng.uniform(0.5, 4, 2048).astype(np.float32)), tmax)
+    be = torch.where(held, 7, -1).to(torch.int32)
+    occ = torch.from_numpy((rng.uniform(size=2048) < 0.2).astype(np.int32))
+    o = [ro[:, a] for a in range(3)]
+    inv = [DT._safe_inv(rd[:, a]) for a in range(3)]
+    for any_hit, state in ((False, (bt, be)), (True, (torch.where(tmax > 0, 2.5, -1.0), occ))):
+        args = (ro, rd, tmin, state[0] if any_hit else tmax, *state)
+        window = args[3] if any_hit else bt
+        reach = torch.stack([_slab(box, o, inv, tmin, window) for box in g["scd"]["sc_boxes"]])
+        live = reach.any(0) & (((occ == 0) & (args[3] > tmin)) if any_hit else True)
+        t, e = SD.scdense_plain(g["tid"], g["rows"], g["scd"], *args, any_hit)
+        assert int((~live).sum()) > 100 and int(live.sum()) > 100
+        assert torch.equal(t[~live].view(torch.int32), state[0][~live].view(torch.int32))
+        assert torch.equal(e[~live], state[1][~live])
+        assert int((e[live] != state[1][live]).sum()) > 50
+
+
 def test_tables_match_pine_tpu():
     from pine_tpu.accel import pallas_traverse as PT
 
@@ -250,7 +288,7 @@ def test_kernel_matches_plain_on_card(case):
     occ = torch.from_numpy((rng.uniform(size=8192) < 0.2).astype(np.int32)).to(dev)
     for any_hit, state in ((False, (bt, be)), (True, (torch.where(tmax > 0, 2.5, -1.0), occ))):
         args = (ro, rd, tmin, state[0] if any_hit else tmax, *state)
-        t_k, e_k = SD.scdense_cuda(g["tid"], g["rows"], g["scd"], *args, any_hit)
+        t_k, e_k = SD.scdense_cuda(g["tid"], DT.kernel_rows(g, "scdense"), g["scd"], *args, any_hit)
         t_p, e_p = SD.scdense_plain(g["tid"], g["rows"], g["scd"], *args, any_hit)
         torch.cuda.synchronize()
         assert torch.equal(t_k.view(torch.int32), t_p.view(torch.int32))
