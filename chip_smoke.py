@@ -125,7 +125,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    pine_tpu_torch.lab.cone_probe`` runs them, launch counts zeroed just
    before and read just after; its kernel-line entries (one per variant)
    carry those times, each variant's own bound (its operations,
-   ``cone_probe.VARIANT_OPS``) beside the full sweep's, and phase 2k's
+   ``cone_probe.VARIANT_OPS`` a ray-row pair and ``EARLY_OPS`` a pair
+   whose discriminant rules out a hit, counted on these rays by
+   ``cone_probe.early_misses``) beside the full sweep's, and phase 2k's
    plain times.
 5. The CLI: the benchmark box's script plus a render and a save, run as
    ``python -m pine_tpu_torch cbox.pine`` in a subprocess on the card; its
@@ -259,6 +261,11 @@ def module(kind):
     return importlib.import_module("pine_tpu_torch.accel." + KERNELS[kind][0])
 
 
+def lab():
+    """The kernel lab: the query state, lattice groups and rays the checks share."""
+    return importlib.import_module("pine_tpu_torch.lab.kernel_lab")
+
+
 def group_args(kind, g, plain=False):
     """The leading arguments a wrapper of ``kind`` takes for group ``g``: a
     kernel the rows it reads (``dense_traverse.kernel_rows``: padded for the
@@ -381,33 +388,6 @@ def random_shape(S, V, tid, rng):
     return S.Cylinder(c, c + unit() * rng.uniform(0.1, 0.5), rng.uniform(0.03, 0.15))
 
 
-def random_rays(rng, dev, n_prims):
-    """Rays around the unit cube: a quarter start far out and point away,
-    every 7th lane is dead (tmax = -1), some carry a prepared best."""
-    import numpy as np
-    import torch
-
-    n = N_RAYS
-    ro = rng.uniform(-3, 3, (n, 3)).astype(np.float32)
-    rd = rng.normal(size=(n, 3)).astype(np.float32)
-    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
-    ro[: n // 4] = [500.0, 0.0, 0.0]
-    rd[: n // 4] = [1.0, 0.0, 0.0]
-    tmin = np.where(rng.uniform(size=n) < 0.5, 0.0, rng.uniform(0, 0.3, n)).astype(np.float32)
-    tmax = np.where(rng.uniform(size=n) < 0.3, rng.uniform(1, 6, n),
-                    np.finfo(np.float32).max).astype(np.float32)
-    tmax[::7] = -1.0
-    held = rng.uniform(size=n) < 0.3
-    bt = np.where(held, np.minimum(rng.uniform(0.5, 4, n), tmax), tmax).astype(np.float32)
-    be = np.where(held, rng.integers(0, max(n_prims, 1), n), -1).astype(np.int32)
-    occ = (rng.uniform(size=n) < 0.2).astype(np.int32)
-    t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
-    return dict(ro=t(ro), rd=t(rd), tmin=t(tmin), tmax=t(tmax), bt=t(bt), be=t(be), occ=t(occ))
-
-
-def ray_args(r, any_hit):
-    state = (r["tmax"], r["occ"]) if any_hit else (r["bt"], r["be"])
-    return (r["ro"], r["rd"], r["tmin"], r["tmax"], *state)
 
 
 def compare(kind, g, args, any_hit, time_it, what):
@@ -460,20 +440,20 @@ def phase_dense_vs_plain(dev):
                 prims.append((tid, s.params(), i, s.get_aabb()))
             (g,) = build_packet_accel(prims)["groups"]
             g = upload_group(g, dev)
-            r = random_rays(rng, dev, n)
+            r = lab().random_rays(rng, dev, n)
             for any_hit in (False, True):
-                recs.append(compare("dense", g, ray_args(r, any_hit), any_hit,
+                recs.append(compare("dense", g, lab().ray_args(r, any_hit), any_hit,
                                     time_it=(n == 424), what=f"{TYPE_NAMES[tid]}[{n}]"))
     # the benchmark box's own groups, fed rays from inside the box
     a = scene_arrays(scenes.cbox())
     rng = np.random.default_rng(7)
-    r = random_rays(rng, dev, 424)
+    r = lab().random_rays(rng, dev, 424)
     r["ro"] = (r["ro"] * 0.3 + r["ro"].new_tensor([0.0, 1.0, 1.0])).contiguous()
     for i in range(int(a["n_groups"])):
         keys = ("tid", "kind", "base", "rows", "prim_aabbs", "lattice")
         g = upload_group({k: a[f"group.{i}.{k}"] for k in keys}, dev)
         for any_hit in (False, True):
-            recs.append(compare("dense", g, ray_args(r, any_hit), any_hit, time_it=True,
+            recs.append(compare("dense", g, lab().ray_args(r, any_hit), any_hit, time_it=True,
                                 what=f"cbox.{i}"))
     return recs
 
@@ -555,7 +535,8 @@ def phase_grid_vs_plain(dev):
     for n_tri in (300, 3000, 20000):
         g = soup_group(n_tri, dev)
         prepare(g, "grid")  # a soup of 300 takes the dense kernel in a scene; test the grid anyway
-        cases.append((f"soup{n_tri}", g, random_rays(np.random.default_rng(n_tri + 1), dev, n_tri)))
+        r = lab().random_rays(np.random.default_rng(n_tri + 1), dev, n_tri)
+        cases.append((f"soup{n_tri}", g, r))
     g = terrain_group(dev)
     cases.append(("terrain", g, terrain_rays(np.random.default_rng(5), dev, g)))
     cases += [(f"terrain, {name}", g, r)
@@ -563,7 +544,7 @@ def phase_grid_vs_plain(dev):
     recs = []
     for what, g, r in cases:
         for any_hit in (False, True):
-            recs.append(compare("grid", g, ray_args(r, any_hit), any_hit,
+            recs.append(compare("grid", g, lab().ray_args(r, any_hit), any_hit,
                                 time_it=what.startswith(("soup20000", "terrain")), what=what))
     return recs
 
@@ -591,7 +572,7 @@ def field_rays(rng, dev, n_side, vbase):
     import numpy as np
     import torch
 
-    r = random_rays(rng, dev, vbase)
+    r = lab().random_rays(rng, dev, vbase)
     n, q = N_RAYS, N_RAYS // 4
     lo = np.array([-0.8 * n_side - 0.5, 0.0, 1.5])
     hi = np.array([0.8 * n_side - 1.0, 1.2, 1.6 * n_side + 2.5])
@@ -616,52 +597,11 @@ def phase_inst_vs_plain(dev):
         g = inst_group(n_side, dev)
         r = field_rays(np.random.default_rng(n_side), dev, n_side, g["vbase"])
         for any_hit in (False, True):
-            recs.append(compare("inst", g, ray_args(r, any_hit), any_hit, time_it=n_side == 32,
-                                what=f"rock field {n_side}x{n_side}"))
+            recs.append(compare("inst", g, lab().ray_args(r, any_hit), any_hit,
+                                time_it=n_side == 32, what=f"rock field {n_side}x{n_side}"))
     return recs
 
 
-def lattice_field(dev, tid, ni, nj, spacing, size):
-    """An ni x nj field of cones (radius ``size``, height 0.05) or spheres
-    (radius ``size``) on the floor plane y = 0, from x = -1.25 and z = 0.25,
-    as one compiled group on ``dev``."""
-    from pine_tpu_torch.accel.packet import build_packet_accel
-    from pine_tpu_torch.convert import upload_group
-    from pine_tpu_torch.scene import shapes as S
-
-    prims = []
-    for i in range(ni):
-        for j in range(nj):
-            p = [-1.25 + spacing * j, 0.0, 0.25 + spacing * i]
-            shape = (S.Cone(p, [0, 1, 0], size, 0.05) if tid == S.CONE
-                     else S.Sphere([p[0], size, p[2]], size))
-            prims.append((tid, shape.params(), 0, shape.get_aabb()))
-    (g,) = build_packet_accel(prims)["groups"]
-    if g["lattice"] is None:
-        fail(f"the {ni}x{nj} {TYPE_NAMES[tid]} field is not detected as a lattice")
-    return upload_group(g, dev)
-
-
-def lattice_rays(rng, dev, g):
-    """random_rays' lanes (far, dead, windows, prepared best); past the far
-    quarter, half aimed from above at points of the group's box, of which
-    every 7th starts just above the floor and grazes it."""
-    import numpy as np
-    import torch
-
-    r = random_rays(rng, dev, int(g["rows"].shape[0]))
-    n, q = N_RAYS, N_RAYS // 4
-    box = g["gbox"].cpu().numpy().astype(np.float64)
-    h = (n - q) // 2
-    tgt = rng.uniform(box[:3], box[3:], (h, 3))
-    ro = tgt + rng.uniform([-1.5, 0.3, -1.5], [1.5, 2.5, 1.5], (h, 3))
-    ro[::7, 1] = rng.uniform(0.0, 0.06, len(ro[::7]))
-    rd = tgt - ro
-    rd[::7, 1] = rng.normal(scale=0.02, size=len(rd[::7]))
-    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
-    r["ro"][q:q + h] = torch.from_numpy(ro.astype(np.float32)).to(dev)
-    r["rd"][q:q + h] = torch.from_numpy(rd.astype(np.float32)).to(dev)
-    return r
 
 
 def lattice_vs_dense(g, args, any_hit):
@@ -693,13 +633,13 @@ def phase_lattice_vs_plain(dev):
     forest = scenes.prl_scene(scenes.CONE_FOREST_PRL).compile(dev).unified["groups"][2]
     cbox = scenes.cbox().compile(dev).unified["groups"][2]
     cases = [("cone forest 40x40", forest), ("bench cbox 21x20, lattice forced", cbox),
-             ("cones 1x600", lattice_field(dev, S.CONE, 1, 600, 1 / 256, 0.0025)),
-             ("spheres 24x24", lattice_field(dev, S.SPHERE, 24, 24, 0.1, 0.04))]
+             ("cones 1x600", lab().lattice_field(dev, S.CONE, 1, 600, 1 / 256, 0.0025)),
+             ("spheres 24x24", lab().lattice_field(dev, S.SPHERE, 24, 24, 0.1, 0.04))]
     recs = []
     for k, (what, g) in enumerate(cases):
-        r = lattice_rays(np.random.default_rng(40 + k), dev, g)
+        r = lab().lattice_rays(np.random.default_rng(40 + k), dev, g)
         for any_hit in (False, True):
-            args = ray_args(r, any_hit)
+            args = lab().ray_args(r, any_hit)
             rec = compare("lattice", g, args, any_hit, time_it=k < 2, what=what)
             rec["vs_dense"] = lattice_vs_dense(g, args, any_hit)
             if k < 2:
@@ -734,7 +674,7 @@ def compare_beside(kind, other, g, r, what, time_it=True):
     prepare(g, other)
     recs = []
     for any_hit in (False, True):
-        args = ray_args(r, any_hit)
+        args = lab().ray_args(r, any_hit)
         rec = compare(kind, g, args, any_hit, time_it, what)
         rec[f"vs_{other}_lanes_differ"] = hits_differ(
             launch(kind, g, args, any_hit), launch(other, g, args, any_hit), any_hit)
@@ -755,7 +695,7 @@ def soup_group(n_tri, dev):
 def terrain_rays(rng, dev, g):
     """random_rays' lanes moved around the terrain's box (x in [-4, 4], y about
     [-2, 2], z in [0, 8])."""
-    r = random_rays(rng, dev, len(g["prim_aabbs"]))
+    r = lab().random_rays(rng, dev, len(g["prim_aabbs"]))
     r["ro"] = (r["ro"] * r["ro"].new_tensor((1.3, 0.6, 1.3)) + r["ro"].new_tensor((0.0, 0.5, 4.0)))
     r["ro"] = r["ro"].contiguous()
     return r
@@ -772,14 +712,14 @@ def phase_scdense_vs_plain(dev):
     recs = []
     rng = np.random.default_rng(70)
     for i, g in enumerate(scenes.cbox().compile(dev).unified["groups"]):
-        r = random_rays(rng, dev, int(g["rows"].shape[0]))
+        r = lab().random_rays(rng, dev, int(g["rows"].shape[0]))
         r["ro"] = (r["ro"] * 0.3 + r["ro"].new_tensor([0.0, 1.0, 1.0])).contiguous()
         recs += compare_beside("scdense", "dense", g, r, f"cbox.{i}")
     forest = scenes.prl_scene(scenes.CONE_FOREST_PRL).compile(dev).unified["groups"][2]
-    recs += compare_beside("scdense", "dense", forest, lattice_rays(rng, dev, forest),
+    recs += compare_beside("scdense", "dense", forest, lab().lattice_rays(rng, dev, forest),
                            "cone forest 40x40")
     g = soup_group(3000, dev)
-    recs += compare_beside("scdense", "dense", g, random_rays(rng, dev, 3000), "soup3000")
+    recs += compare_beside("scdense", "dense", g, lab().random_rays(rng, dev, 3000), "soup3000")
     return recs
 
 
@@ -794,7 +734,7 @@ def phase_tree_vs_plain(dev, kind, big):
     rng = np.random.default_rng(80)
     for n_tri in (3000, 20000):
         g = soup_group(n_tri, dev)
-        recs += compare_beside(kind, "grid", g, random_rays(rng, dev, n_tri), f"soup{n_tri}",
+        recs += compare_beside(kind, "grid", g, lab().random_rays(rng, dev, n_tri), f"soup{n_tri}",
                                time_it=n_tri == 20000)
     terrain = terrain_group(dev)
     groups = [("terrain", terrain)] + ([("terrain 2M", big)] if big else [])
@@ -871,7 +811,7 @@ def compare_mxu(kind, others, g, r, what, time_it):
         prep(g, k)
     recs = []
     for any_hit in (False, True):
-        args = ray_args(r, any_hit)
+        args = lab().ray_args(r, any_hit)
         rec = compare(kind, g, args, any_hit, time_it, what)
         out_k = launch(kind, g, args, any_hit)
         for other in others:
@@ -907,11 +847,11 @@ def phase_mxup_vs_plain(dev):
                 prims.append((tid, s.params(), i, s.get_aabb()))
             (g,) = build_packet_accel(prims)["groups"]
             g = upload_group(g, dev)
-            recs += compare_mxu("mxup", ("dense", "mxu"), g, random_rays(rng, dev, n),
+            recs += compare_mxu("mxup", ("dense", "mxu"), g, lab().random_rays(rng, dev, n),
                                 f"{TYPE_NAMES[tid]}[{n}]", time_it=n == 424)
     a = scene_arrays(scenes.cbox())
     rng = np.random.default_rng(8)
-    r = random_rays(rng, dev, 424)
+    r = lab().random_rays(rng, dev, 424)
     r["ro"] = (r["ro"] * 0.3 + r["ro"].new_tensor([0.0, 1.0, 1.0])).contiguous()
     for i in (0, 2):  # the rect and cone groups (the OBB boxes have no table)
         g = upload_group({k: a[f"group.{i}.{k}"] for k in GROUP_KEYS}, dev)
@@ -929,7 +869,7 @@ def phase_grid_mxu_vs_plain(dev):
     rng = np.random.default_rng(90)
     for n_tri in (3000, 20000):
         recs += compare_mxu("grid_mxu", ("grid",), soup_group(n_tri, dev),
-                            random_rays(rng, dev, n_tri), f"soup{n_tri}", n_tri == 20000)
+                            lab().random_rays(rng, dev, n_tri), f"soup{n_tri}", n_tri == 20000)
     g = terrain_group(dev)
     recs += compare_mxu("grid_mxu", ("grid",), g, terrain_rays(rng, dev, g), "terrain", True)
     for name, r in schedule_rays(np.random.default_rng(6), dev, g).items():
@@ -1001,7 +941,7 @@ def phase_probe_vs_plain(dev):
 
     DT = module("dense")
     g, lo, hi = KL.build_cone_group(dev)
-    rows = g["rows"]
+    rows = DT.kernel_rows(g, "dense")  # the cone rows as the dense kernel reads them
     recs = []
     for rayset in KL.RAYSETS:
         o, d = KL.synth_rays(N_RAYS, rayset, lo, hi)
@@ -1819,8 +1759,9 @@ def phase_lab(dev_name, probe_recs):
     from pine_tpu_torch.lab import cone_probe as CP
 
     inputs = CP.probe_inputs(torch.device("cuda"))
+    misses = CP.early_misses(*inputs[:3])  # pairs that leave at the discriminant, for the bound
     CP.reset_launches()
-    recs = [CP.time_variant(v, inputs)[0] for v in CP.VARIANTS]
+    recs = [CP.time_variant(v, inputs, misses)[0] for v in CP.VARIANTS]
     launches = dict(CP.LAUNCHES)
     emit(dict(phase="lab", device=dev_name, what="cone probe chains, box cone group, "
               f"{N_RAYS} coherent rays, chain {CP.CHAIN}, min of 3", records=recs,
@@ -1836,8 +1777,10 @@ def phase_lab(dev_name, probe_recs):
                  inputs=f"cone[424] x {N_RAYS} coherent rays, no cull; ms the mean of 10 "
                         "launches back to back (phase 2k), chain_ms per link of the probe's "
                         f"chains of {CP.CHAIN}, min of 3; bound_ms the variant's own "
-                        "operations (cone_probe.VARIANT_OPS), full_bound_ms the full sweep's",
+                        "operations (cone_probe.VARIANT_OPS a pair, EARLY_OPS a pair that "
+                        "leaves at the early miss), full_bound_ms the full sweep's",
                  chain_ms=r["per_call_ms"], full_bound_ms=r["full_bound_ms"],
+                 early_miss_share=r["early_miss_share"],
                  x_bound=checked[r["variant"]]["ms"] / r["bound_ms"],
                  ns_per_pair=checked[r["variant"]]["ms"] * 1e6 / (N_RAYS * r["n_prims"]))
             for r in recs]

@@ -166,10 +166,8 @@ def lattice_plain(g, ro, rd, tmin, tmax, best_t, best_e, any_hit, counts=None):
 # the kernel
 # --------------------------------------------------------------------------
 
-def _library():
-    from pine_tpu_torch import cuda_build
-
-    fn = cuda_build.load("lattice_traverse").pine_lattice_traverse
+def bind(fn):
+    """Give a library's ``pine_lattice_traverse`` its C signature."""
     if fn.argtypes is None:
         fn.argtypes = (
             [ctypes.c_int] * 2 + [ctypes.c_void_p] + [ctypes.c_int] * 5
@@ -177,6 +175,12 @@ def _library():
         )
         fn.restype = ctypes.c_int
     return fn
+
+
+def _library():
+    from pine_tpu_torch import cuda_build
+
+    return bind(cuda_build.load("lattice_traverse").pine_lattice_traverse)
 
 
 def lattice_cuda(g, ro, rd, tmin, tmax, best_t, best_e, any_hit):

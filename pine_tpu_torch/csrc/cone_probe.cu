@@ -21,14 +21,29 @@
 // What bounds it: arithmetic.  Each ray runs the cone test on every row (a
 // few dozen FP32 operations with IEEE divisions and a square root) and
 // reads 36 bytes of ray state; the rows are a few kilobytes shared by all
-// rays.
+// rays.  Its first form, one thread per ray reading each row by scalar
+// loads through the read-only cache, every pair paying its square root and
+// divisions, issued some 150 instructions a pair and ran at 7.8x the full
+// sweep's bound (H100 80GB HBM3, 700 W).
 //
-// Design: the dense kernel's (csrc/dense_traverse.cu), so that the probe
-// decomposes that kernel's time: one thread per ray, 256 threads a block,
-// the rows read through the read-only cache (every thread of a warp reads
-// the same row address at the same step, so the loads broadcast; no shared
-// memory), one kernel instantiated per variant.  ``full`` and ``noselect``
-// call prim_tests.cuh::test_cone itself.  Built as the dense kernel is,
+// Design: the dense kernel's since its redesign (csrc/dense_traverse.cu,
+// which the probe decomposes), less the group-box cull and the live-lane
+// queue, which the probe by definition has not:
+// - the rows (12 floats, a multiple of 4: accel/dense_traverse's
+//   padded_width, so the dense kernel's table) are staged once per block
+//   into shared memory by cp.async, up to TILE rows at a time, and read as
+//   16-byte vectors that broadcast across the warp (SharedRow);
+// - the exact early misses: ``full`` and ``noselect`` call
+//   prim_tests.cuh::test_cone<EARLY>, as the dense kernel does; ``inva``,
+//   ``nodiv``, ``nosqrt`` and ``rawmath`` return BIG where !(disc > 0),
+//   before their root and divisions (each requires disc > 0 to hit, so the
+//   result is the same, NaN included); ``onefetch`` has no discriminant.
+// Measured and not kept (H100 80GB HBM3, 700 W, the sum below the block
+// size): two or four rows in flight per thread, their selects applied in
+// row order (which keeps the result), 1.902 / 1.828 ms against one row's
+// 1.752: with at least 48 warps an SM to hide latency the sweep gains
+// nothing from the overlap, and pays for the registers and guards.
+// One kernel is instantiated per variant.  Built as the dense kernel is,
 // without fast math and with -fmad=false (cuda_build.NVCC_FLAGS): the
 // arithmetic is the plain PyTorch version's rounded sequence
 // (lab/cone_probe.py), and a build with fused multiply-adds would time
@@ -42,11 +57,18 @@ using namespace pine;
 
 enum { FULL = 0, INVA = 1, NODIV = 2, NOSQRT = 3, RAWMATH = 4, ONEFETCH = 5, NOSELECT = 6 };
 
-template <int V>
-__device__ __forceinline__ float probe_test(const GlobalRow& r, V3 o, V3 d, float tmin,
-                                            float tmax) {
+// Rays per block.  Measured on H100 80GB HBM3, 700 W, summed card time of
+// the seven variants on the lab's three ray sets of 65,536: 256 rays 1.752
+// and 1.762 ms in two runs, 128 rays 1.762 and 1.751; at least 8 blocks of
+// 256 per SM (32 registers) 1.748.
+constexpr int BLOCK = 256;
+constexpr int WP = padded_width<CONE>();  // 12
+constexpr int TILE = 512;                 // rows staged at once, as the dense kernel
+
+template <int V, class R>
+__device__ __forceinline__ float probe_test(const R& r, V3 o, V3 d, float tmin, float tmax) {
   if constexpr (V == FULL || V == NOSELECT) {
-    return test_cone(r, o, d, tmin, tmax);
+    return test_cone<true>(r, o, d, tmin, tmax);
   } else if constexpr (V == ONEFETCH) {
     float ax = r(0);
     float t = (o.x - ax) * d.x + (o.y - ax) * d.y + (o.z - ax) * d.z;
@@ -65,6 +87,7 @@ __device__ __forceinline__ float probe_test(const GlobalRow& r, V3 o, V3 d, floa
     float b = 2.0f * (-A2 * on * dn + od);
     float c = -A2 * on * on + oo;
     float disc = b * b - 4.0f * a * c;
+    if (!(disc > 0.0f)) return BIG;  // the early miss
     if constexpr (V == RAWMATH) {
       return finish(disc + dn + od, disc > 0.0f, tmin, tmax);
     } else {
@@ -89,56 +112,91 @@ __device__ __forceinline__ float probe_test(const GlobalRow& r, V3 o, V3 d, floa
   }
 }
 
+// The block copies cnt rows into dst, 16 bytes a thread at a time.
+__device__ __forceinline__ void stage_rows(float* dst, const float* src, int cnt) {
+  for (int q = threadIdx.x; q < cnt * (WP / 4); q += BLOCK)
+    cp_async16(dst + 4 * q, src + 4 * q, 16);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void rows_staged() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+}
+
 template <int V>
-__global__ void __launch_bounds__(256)
-probe_kernel(const float* __restrict__ rows, int width, int n_prims,
+__global__ void __launch_bounds__(BLOCK)
+probe_kernel(const float* __restrict__ rows, int n_prims,
              const float* __restrict__ ro, const float* __restrict__ rd,
              const float* __restrict__ tmin_in, const float* __restrict__ bt_in,
              const int* __restrict__ be_in, float* __restrict__ bt_out,
              int* __restrict__ be_out, int n) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  V3 o = {ro[3 * i], ro[3 * i + 1], ro[3 * i + 2]};
-  V3 d = {rd[3 * i], rd[3 * i + 1], rd[3 * i + 2]};
-  float tmin = tmin_in[i];
-  float bt = bt_in[i];
-  int be = be_in[i];
+  extern __shared__ __align__(16) float srows[];  // min(n_prims, TILE) rows of WP floats
+  stage_rows(srows, rows, min(n_prims, TILE));    // in flight while the rays load
+  int i = blockIdx.x * BLOCK + threadIdx.x;
+  bool active = i < n;
+  V3 o{}, d{};
+  float tmin = 0.0f, bt = 0.0f;
+  int be = 0;
+  if (active) {
+    o = {ro[3 * i], ro[3 * i + 1], ro[3 * i + 2]};
+    d = {rd[3 * i], rd[3 * i + 1], rd[3 * i + 2]};
+    tmin = tmin_in[i];
+    bt = bt_in[i];
+    be = be_in[i];
+  }
   float acc = bt;
-  for (int e = 0; e < n_prims; ++e) {
-    float tt = probe_test<V>(GlobalRow{rows + e * width}, o, d, tmin, bt);
-    if (V == NOSELECT) {
-      acc = acc + tt;  // keeps the test live without the select
-    } else if (tt < bt) {
-      bt = tt;
-      be = e;
+  for (int t0 = 0; t0 < n_prims; t0 += TILE) {
+    int cnt = min(TILE, n_prims - t0);
+    if (t0 > 0) {  // a group of more than TILE rows: its next tile
+      __syncthreads();
+      stage_rows(srows, rows + (size_t)t0 * WP, cnt);
+    }
+    rows_staged();
+    if (!active) continue;
+    for (int e = 0; e < cnt; ++e) {
+      float tt = probe_test<V>(SharedRow<WP>(srows + e * WP), o, d, tmin, bt);
+      if (V == NOSELECT) {
+        acc = acc + tt;  // keeps the test live without the select
+      } else if (tt < bt) {
+        bt = tt;
+        be = t0 + e;
+      }
     }
   }
-  bt_out[i] = V == NOSELECT ? acc * 1e-30f + bt : bt;
-  be_out[i] = be;
+  if (active) {
+    bt_out[i] = V == NOSELECT ? acc * 1e-30f + bt : bt;
+    be_out[i] = be;
+  }
 }
 
 template <int V>
-void launch(const float* rows, int width, int n_prims, const float* ro, const float* rd,
-            const float* tmin, const float* bt_in, const int* be_in, float* bt_out,
-            int* be_out, int n, cudaStream_t stream) {
-  probe_kernel<V><<<(n + 255) / 256, 256, 0, stream>>>(rows, width, n_prims, ro, rd, tmin,
-                                                       bt_in, be_in, bt_out, be_out, n);
+cudaError_t launch(const float* rows, int n_prims, const float* ro, const float* rd,
+                   const float* tmin, const float* bt_in, const int* be_in, float* bt_out,
+                   int* be_out, int n, cudaStream_t stream) {
+  int smem = min(n_prims, TILE) * WP * 4;  // at most 24 KB: below the default 48 KB
+  probe_kernel<V><<<(n + BLOCK - 1) / BLOCK, BLOCK, smem, stream>>>(
+      rows, n_prims, ro, rd, tmin, bt_in, be_in, bt_out, be_out, n);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// C interface.  Returns cudaGetLastError() after the launch (0 on success);
-// an unknown variant returns cudaErrorInvalidValue without launching.
+// C interface.  ``rows`` (n_prims x width floats, 16-byte aligned) is the
+// cone group's table as the dense kernel reads it.  Returns the launch's
+// error (0 on success); an unknown variant, or rows of another width than
+// the cone's padded width (12), return cudaErrorInvalidValue without
+// launching.
 extern "C" int pine_cone_probe(int variant, const float* rows, int width, int n_prims,
                                const float* ro, const float* rd, const float* tmin,
                                const float* bt_in, const int* be_in, float* bt_out,
                                int* be_out, int n, void* stream) {
   if (n <= 0) return cudaSuccess;
+  if (width != WP) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PINE_CASE(V)                                                                     \
-  case V:                                                                                \
-    launch<V>(rows, width, n_prims, ro, rd, tmin, bt_in, be_in, bt_out, be_out, n, s); \
-    break;
+#define PINE_CASE(V) \
+  case V:            \
+    return launch<V>(rows, n_prims, ro, rd, tmin, bt_in, be_in, bt_out, be_out, n, s);
   switch (variant) {
     PINE_CASE(FULL)
     PINE_CASE(INVA)
@@ -151,5 +209,4 @@ extern "C" int pine_cone_probe(int variant, const float* rows, int width, int n_
       return cudaErrorInvalidValue;
   }
 #undef PINE_CASE
-  return cudaGetLastError();
 }

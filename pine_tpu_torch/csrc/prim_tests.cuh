@@ -18,14 +18,14 @@
 // kernels their rows padded to 16 bytes (SharedRow); the lattice kernel
 // passes a row it rebuilds in registers.
 //
-// EARLY (prim_test_row<TID, true>, the form of the dense, scdense and BVH
-// kernels): the exact early misses.  A cone or sphere whose discriminant is
-// not positive, a cylinder whose discriminant is negative (each test's own
-// ok condition, so NaN misses too) returns BIG before its square root and
-// divisions, and a rect whose plane t lies outside (tmin, tmax) before the
-// divisions of u and v: finish would return BIG for each of them, so every
-// result is the same.  The other kernels call the tests with EARLY false,
-// without them.
+// EARLY (prim_test_row<TID, true>, the form of the dense, scdense, BVH and
+// lattice kernels and of the cone-sweep probe): the exact early misses.  A
+// cone or sphere whose discriminant is not positive, a cylinder whose
+// discriminant is negative (each test's own ok condition, so NaN misses
+// too) returns BIG before its square root and divisions, and a rect whose
+// plane t lies outside (tmin, tmax) before the divisions of u and v: finish
+// would return BIG for each of them, so every result is the same.  The
+// other kernels call the tests with EARLY false, without them.
 #pragma once
 
 #include <cuda_runtime.h>

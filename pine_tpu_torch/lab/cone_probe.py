@@ -16,16 +16,23 @@ purpose: they only time.
 ``probe_cuda`` launches the kernel; ``probe_plain`` is its plain PyTorch
 version, the same per-row loop over the wavefront in the same rounded
 arithmetic; ``probe`` takes the kernel for CUDA tensors and the plain
-version for CPU tensors.
+version for CPU tensors.  The kernel mirrors the dense kernel's design
+since its redesign (csrc/dense_traverse.cu, less its cull and live-lane
+queue): the rows, the dense kernel's own table (``dense_traverse
+.kernel_rows``, 12 floats a row), staged in shared memory and read as
+16-byte vectors, and the exact early misses (BIG before the root and
+divisions where the discriminant rules out a hit); so its variants split
+the time of the dense kernel as it now is.
 
 ``main`` prints, per variant, one JSON line: ``per_call_ms`` over PROBE_CHAIN
 (8) dependent launches, by CUDA events, min of 3 after a warm-up;
 ``ns_per_pair`` (per ray-row pair) and ``x_bound``, the time over the least
 time the card could take for that variant's sweep (``bound``: the
-variant's own FP32 operations per ray-row pair, VARIANT_OPS, at the H100's
-FP32 rate, against the bytes of the rays and rows at its memory rate), and
-``full_bound_ms``, the full sweep's bound, against which the variants'
-times split the full sweep's; for ``inva``, ``max_dev_vs_full``, its
+variant's own FP32 operations, VARIANT_OPS per ray-row pair and EARLY_OPS
+per pair that leaves at the early miss, ``early_miss_share`` of them, at
+the H100's FP32 rate, against the bytes of the rays and rows at its memory
+rate), and ``full_bound_ms``, the full sweep's bound, against which the
+variants' times split the full sweep's; for ``inva``, ``max_dev_vs_full``, its
 largest deviation from ``full`` on the lanes ``full`` hits.  It needs the
 card; without one it exits with status 1.
 """
@@ -38,7 +45,8 @@ import sys
 
 import torch
 
-from pine_tpu_torch.accel.dense_traverse import BIG, _check, _test_cone
+from pine_tpu_torch.accel.dense_traverse import BIG, _aligned, _check, _test_cone, padded_width
+from pine_tpu_torch.scene.shapes import CONE
 
 VARIANTS = ("full", "inva", "nodiv", "nosqrt", "rawmath", "onefetch", "noselect")
 N_RAYS = int(os.environ.get("PROBE_RAYS", 65536))
@@ -53,6 +61,11 @@ CHAIN = int(os.environ.get("PROBE_CHAIN", 8))
 # two sums; noselect the full test and the running sum
 VARIANT_OPS = {"full": 56, "inva": 57, "nodiv": 56, "nosqrt": 55, "rawmath": 47,
                "onefetch": 8, "noselect": 57}
+# FP32 operations of a pair whose discriminant rules out a hit
+# (!(disc > 0)): every variant but onefetch leaves there, after the 45 of
+# the discriminant (three differences, five dot products, a, b, c and disc);
+# noselect still adds the miss to its running sum
+EARLY_OPS = {"full": 45, "inva": 45, "nodiv": 45, "nosqrt": 45, "rawmath": 45, "noselect": 46}
 FP32_OPS_PER_S = 67e12  # one H100 SXM at 700 W (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 
@@ -85,19 +98,8 @@ def variant_test(name):
         raise ValueError(f"unknown probe variant {name!r}: one of {VARIANTS}")
 
     def cone(r, o, d, tmin, tmax):
-        ax, ay, az = r(0), r(1), r(2)
-        nx, ny, nz = r(3), r(4), r(5)
-        A2, h = r(6), r(10)
-        ox, oy, oz = o[0] - ax, o[1] - ay, o[2] - az
-        dn = d[0] * nx + d[1] * ny + d[2] * nz
-        on = ox * nx + oy * ny + oz * nz
-        dd = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
-        od = ox * d[0] + oy * d[1] + oz * d[2]
-        oo = ox * ox + oy * oy + oz * oz
-        a = -A2 * dn * dn + dd
-        b = 2.0 * (-A2 * on * dn + od)
-        c = -A2 * on * on + oo
-        disc = b * b - 4.0 * a * c
+        a, b, disc, dn, on, od = _quadratic(r, o, d)
+        h = r(10)
         if name == "rawmath":
             return _finish(disc + dn + od, disc > 0.0, tmin, tmax)
         sq = disc * 0.5 if name == "nosqrt" else torch.sqrt(torch.clamp_min(disc, 0.0))
@@ -119,6 +121,35 @@ def variant_test(name):
     return cone
 
 
+def _quadratic(r, o, d):
+    """The cone test's quadratic in t up to its discriminant, in the kernel's
+    rounded sequence -> (a, b, disc, dn, on, od)."""
+    ax, ay, az = r(0), r(1), r(2)
+    nx, ny, nz = r(3), r(4), r(5)
+    A2 = r(6)
+    ox, oy, oz = o[0] - ax, o[1] - ay, o[2] - az
+    dn = d[0] * nx + d[1] * ny + d[2] * nz
+    on = ox * nx + oy * ny + oz * nz
+    dd = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+    od = ox * d[0] + oy * d[1] + oz * d[2]
+    oo = ox * ox + oy * oy + oz * oz
+    a = -A2 * dn * dn + dd
+    b = 2.0 * (-A2 * on * dn + od)
+    c = -A2 * on * on + oo
+    return a, b, b * b - 4.0 * a * c, dn, on, od
+
+
+def early_misses(rows, ro, rd):
+    """The ray-row pairs of a sweep whose discriminant rules out a hit,
+    !(disc > 0) (NaN included): those that leave at the exact early miss.
+    The discriminant depends on the ray and the row alone, so the count is
+    every variant's, in any link of a chain."""
+    o = (ro[:, 0], ro[:, 1], ro[:, 2])
+    d = (rd[:, 0], rd[:, 1], rd[:, 2])
+    return sum(int((~(_quadratic(rows[e].__getitem__, o, d)[2] > 0.0)).sum())
+               for e in range(rows.shape[0]))
+
+
 def probe_plain(variant, rows, ro, rd, tmin, best_t, best_e):
     """The probe's sweep in plain PyTorch: every row in order, no cull; the
     running best is each test's tmax -> (best_t, best_e)."""
@@ -137,10 +168,8 @@ def probe_plain(variant, rows, ro, rd, tmin, best_t, best_e):
     return (acc * 1e-30 + bt if variant == "noselect" else bt), be
 
 
-def _library():
-    from pine_tpu_torch import cuda_build
-
-    fn = cuda_build.load("cone_probe").pine_cone_probe
+def bind(fn):
+    """Give a library's ``pine_cone_probe`` its C signature."""
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
                        + [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p])
@@ -148,11 +177,20 @@ def _library():
     return fn
 
 
+def _library():
+    from pine_tpu_torch import cuda_build
+
+    return bind(cuda_build.load("cone_probe").pine_cone_probe)
+
+
 def probe_cuda(variant, rows, ro, rd, tmin, best_t, best_e):
-    """Launch csrc/cone_probe.cu on the current stream."""
+    """Launch csrc/cone_probe.cu on the current stream, over the cone rows as
+    the dense kernel reads them (``padded_width``: 12 floats, 16-byte
+    aligned)."""
     n, dev = ro.shape[0], ro.device
     f32 = torch.float32
-    _check(rows, f32, (rows.shape[0], 12), dev, "rows")
+    _check(rows, f32, (rows.shape[0], padded_width(CONE)), dev, "rows")
+    _aligned(rows, "rows")
     for x, name in ((ro, "ro"), (rd, "rd")):
         _check(x, f32, (n, 3), dev, name)
     for x, name in ((tmin, "tmin"), (best_t, "best_t")):
@@ -180,15 +218,18 @@ def probe(variant, rows, ro, rd, tmin, best_t, best_e):
 
 
 def probe_inputs(device, n_rays=N_RAYS, rayset="coherent", src=None):
-    """The probe's inputs on ``device``: the cone group's rows
-    (``build_cone_group(device, src)``: the box's by default) and ``n_rays``
-    rays of ``rayset``, tmin 1e-3, best_t BIG, best_e 0 -> (rows, ro, rd,
-    tmin, best_t, best_e)."""
+    """The probe's inputs on ``device``: the cone group's rows as the dense
+    kernel reads them (``build_cone_group(device, src)``: the box's by
+    default; ``dense_traverse.kernel_rows``) and ``n_rays`` rays of
+    ``rayset``, tmin 1e-3, best_t BIG, best_e 0 -> (rows, ro, rd, tmin,
+    best_t, best_e)."""
+    from pine_tpu_torch.accel.dense_traverse import kernel_rows
     from pine_tpu_torch.lab.kernel_lab import build_cone_group, synth_rays
 
     g, lo, hi = build_cone_group(device, src)
     o, d = synth_rays(n_rays, rayset, lo, hi)
-    return (g["rows"], torch.as_tensor(o, device=device), torch.as_tensor(d, device=device),
+    return (kernel_rows(g, "dense"), torch.as_tensor(o, device=device),
+            torch.as_tensor(d, device=device),
             torch.full((n_rays,), 1e-3, device=device),
             torch.full((n_rays,), BIG, device=device),
             torch.zeros(n_rays, dtype=torch.int32, device=device))
@@ -203,20 +244,28 @@ def probe_chain(variant, rows, ro, rd, tmin, best_t, best_e, chain=CHAIN):
     return bt, be
 
 
-def bound(n_rays, rows, variant="full"):
+def bound(n_rays, rows, variant="full", misses=0):
     """The least time of one sweep of ``variant`` on an H100 at 700 W -> (ms,
     "operations" or "bytes", whichever bounds it): the larger of its FP32
-    operations (VARIANT_OPS per ray-row pair) over the FP32 rate and its
-    bytes (each ray's o, d, tmin, best_t, best_e read and best_t, best_e
-    written; the rows read once) over the memory rate."""
-    ops_s = n_rays * rows.shape[0] * VARIANT_OPS[variant] / FP32_OPS_PER_S
+    operations over the FP32 rate and its bytes (each ray's o, d, tmin,
+    best_t, best_e read and best_t, best_e written; the rows read once) over
+    the memory rate.  A pair costs VARIANT_OPS; of the sweep's pairs,
+    ``misses`` (``early_misses``) cost EARLY_OPS in a variant that leaves at
+    the early miss."""
+    pairs = n_rays * rows.shape[0]
+    if variant in EARLY_OPS:
+        ops = (pairs - misses) * VARIANT_OPS[variant] + misses * EARLY_OPS[variant]
+    else:
+        ops = pairs * VARIANT_OPS[variant]
+    ops_s = ops / FP32_OPS_PER_S
     bytes_s = (n_rays * 11 * 4 + rows.numel() * 4) / HBM_BYTES_PER_S
     return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
 
 
-def time_variant(variant, inputs, chain=CHAIN):
+def time_variant(variant, inputs, misses, chain=CHAIN):
     """One variant on the card: a warm-up chain, then three timed chains ->
-    (record, the last chain's outputs)."""
+    (record, the last chain's outputs); ``misses``, the inputs'
+    ``early_misses``, for the bound."""
     rows, ro = inputs[0], inputs[1]
     out = probe_chain(variant, *inputs, chain=chain)
     torch.cuda.synchronize(ro.device)
@@ -231,10 +280,11 @@ def time_variant(variant, inputs, chain=CHAIN):
         walls.append(start.elapsed_time(end))
     ms = min(walls) / chain
     n, n_prims = ro.shape[0], rows.shape[0]
-    b_ms, b_by = bound(n, rows, variant)
+    b_ms, b_by = bound(n, rows, variant, misses)
     rec = dict(variant=variant, n_prims=n_prims, rays=n, per_call_ms=ms,
                ns_per_pair=ms * 1e6 / (n * n_prims), bound_ms=b_ms, bound_by=b_by,
-               x_bound=ms / b_ms, full_bound_ms=bound(n, rows)[0])
+               x_bound=ms / b_ms, full_bound_ms=bound(n, rows, "full", misses)[0],
+               early_miss_share=misses / (n * n_prims))
     return rec, out
 
 
@@ -255,9 +305,10 @@ def main(argv=None):
     print(json.dumps({"device": torch.cuda.get_device_name(dev), "rays": N_RAYS,
                       "chain": CHAIN}), flush=True)
     inputs = probe_inputs(dev)
+    misses = early_misses(*inputs[:3])
     ref_t = None
     for name in variants:
-        rec, out = time_variant(name, inputs)
+        rec, out = time_variant(name, inputs, misses)
         if name == "full":
             ref_t = out[0]
         elif name == "inva" and ref_t is not None:

@@ -17,7 +17,10 @@ data-dependent), by CUDA events, min of 3 after a warm-up.  Workloads:
 Ray sets (``synth_rays``, bit for bit the script's): coherent (a pinhole
 fan from outside the group's box), incoherent (random origins and
 directions) and local (1,024-ray blocks sharing an origin cell and a
-direction octant).  Prints one JSON line per (workload, route, ray set);
+direction octant).  ``random_rays`` / ``ray_args``, ``lattice_field`` and
+``lattice_rays`` make the query state, lattice groups and aimed rays that
+``chip_smoke.py``'s kernel checks and ``lab.redesign_ab`` share.  Prints one
+JSON line per (workload, route, ray set);
 a route the group cannot take (``dense_traverse.RouteRefused``) prints an
 error record instead; any other failure ends the run.  LAB_RAYS
 (65,536), LAB_CHAIN (8) and LAB_VARIANTS (a comma list of routes) as the
@@ -99,6 +102,75 @@ def build_terrain_group(device=None, grid=None):
 
     scene = scenes.terrain() if grid is None else scenes.terrain(grid=grid)
     return _largest_group(scene, device)
+
+
+def random_rays(rng, dev, n_prims, n=65536):
+    """``n`` rays on ``dev`` around the unit cube, as a dict of query state:
+    a quarter start far out and point away, every 7th lane is dead
+    (tmax = -1), some carry a prepared best (an id below ``n_prims``)."""
+    ro = rng.uniform(-3, 3, (n, 3)).astype(np.float32)
+    rd = rng.normal(size=(n, 3)).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    ro[: n // 4] = [500.0, 0.0, 0.0]
+    rd[: n // 4] = [1.0, 0.0, 0.0]
+    tmin = np.where(rng.uniform(size=n) < 0.5, 0.0, rng.uniform(0, 0.3, n)).astype(np.float32)
+    tmax = np.where(rng.uniform(size=n) < 0.3, rng.uniform(1, 6, n),
+                    np.finfo(np.float32).max).astype(np.float32)
+    tmax[::7] = -1.0
+    held = rng.uniform(size=n) < 0.3
+    bt = np.where(held, np.minimum(rng.uniform(0.5, 4, n), tmax), tmax).astype(np.float32)
+    be = np.where(held, rng.integers(0, max(n_prims, 1), n), -1).astype(np.int32)
+    occ = (rng.uniform(size=n) < 0.2).astype(np.int32)
+    t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    return dict(ro=t(ro), rd=t(rd), tmin=t(tmin), tmax=t(tmax), bt=t(bt), be=t(be), occ=t(occ))
+
+
+def ray_args(r, any_hit):
+    """A group query's ray arguments (ro, rd, tmin, tmax, best_t, best_e)
+    from ``random_rays``' state; any-hit takes the occlusion flags."""
+    state = (r["tmax"], r["occ"]) if any_hit else (r["bt"], r["be"])
+    return (r["ro"], r["rd"], r["tmin"], r["tmax"], *state)
+
+
+def lattice_field(dev, tid, ni, nj, spacing, size):
+    """An ni x nj field of cones (radius ``size``, height 0.05) or spheres
+    (radius ``size``) on the floor plane y = 0, from x = -1.25 and z = 0.25,
+    as one compiled lattice group on ``dev``; raises ValueError where the
+    field is not detected as a lattice."""
+    from pine_tpu_torch.accel.packet import build_packet_accel
+    from pine_tpu_torch.convert import upload_group
+    from pine_tpu_torch.scene import shapes as S
+
+    prims = []
+    for i in range(ni):
+        for j in range(nj):
+            p = [-1.25 + spacing * j, 0.0, 0.25 + spacing * i]
+            shape = (S.Cone(p, [0, 1, 0], size, 0.05) if tid == S.CONE
+                     else S.Sphere([p[0], size, p[2]], size))
+            prims.append((tid, shape.params(), 0, shape.get_aabb()))
+    (g,) = build_packet_accel(prims)["groups"]
+    if g["lattice"] is None:
+        raise ValueError(f"the {ni}x{nj} field of shape type {tid} is not detected as a lattice")
+    return upload_group(g, dev)
+
+
+def lattice_rays(rng, dev, g, n=65536):
+    """random_rays' lanes (far, dead, windows, prepared best); past the far
+    quarter, half aimed from above at points of the group's box, of which
+    every 7th starts just above the floor and grazes it."""
+    r = random_rays(rng, dev, int(g["rows"].shape[0]), n)
+    q = n // 4
+    box = g["gbox"].cpu().numpy().astype(np.float64)
+    h = (n - q) // 2
+    tgt = rng.uniform(box[:3], box[3:], (h, 3))
+    ro = tgt + rng.uniform([-1.5, 0.3, -1.5], [1.5, 2.5, 1.5], (h, 3))
+    ro[::7, 1] = rng.uniform(0.0, 0.06, len(ro[::7]))
+    rd = tgt - ro
+    rd[::7, 1] = rng.normal(scale=0.02, size=len(rd[::7]))
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    r["ro"][q:q + h] = torch.from_numpy(ro.astype(np.float32)).to(dev)
+    r["rd"][q:q + h] = torch.from_numpy(rd.astype(np.float32)).to(dev)
+    return r
 
 
 def chain_query(g, variant, ro, rd, tmin, tmax, chain=CHAIN):

@@ -6,11 +6,12 @@ the card.
 PARENT is a checkout of an earlier version of the repository (for example
 ``git archive`` of the parent commit unpacked under ``build/``).  For each
 kernel named (``sctree``, ``mxup``, ``grid``, ``dense``, ``inst``,
-``inst_mxu``, ``bvh`` and ``scdense``; all eight by default) its earlier
-build (PARENT's source, built by PARENT's own cuda_build into PARENT/build)
-and this checkout's are timed in the order earlier, this, this, earlier on
-the same inputs, each through its own C signature (the earlier BVH and
-scdense builds may read other tables: PARENT's wrapper says which), and
+``inst_mxu``, ``bvh``, ``scdense``, ``lattice`` and ``probe``; all ten by
+default) its earlier build (PARENT's source, built by PARENT's own
+cuda_build into PARENT/build) and this checkout's are timed in the order
+earlier, this, this, earlier on the same inputs, both through this
+checkout's wrapper and C signature (PARENT must have the same: since the
+BVH's node records and scdense's padded rows, every kernel's has), and
 each is held to the kernel's plain version:
 
 - ``sctree`` and ``grid``: the mesh benchmark's 99,458-triangle group,
@@ -46,15 +47,24 @@ each is held to the kernel's plain version:
   group forced to "bvh" on ``grid_crossover``'s four ray sets, held to
   ``grid_traverse.supercell_plain`` on all but 1e-4 of the lanes (the
   closest-hit lanes both leave without a hit below BIG not compared), each
-  reference computed once; an earlier build that reads the unpacked node
-  arrays (``boxes``, ``cnode``, ``cstart``, ``ccount``) and the group's own
-  rows gets them, decoded from the node records;
+  reference computed once;
 - ``scdense`` (kernel 3): the benchmark box's three groups under
   ``small_kernel="scdense"`` with the same 409,600 rays of the lab's three
   sets over each group's box, and each group's depth-1 launches of the
   box's main path (a 1-spp render at 640x640, depth 4), held to
-  ``scdense_traverse.scdense_plain`` bit for bit; an earlier build that
-  reads the group's own rows gets them, this one the padded ones.
+  ``scdense_traverse.scdense_plain`` bit for bit;
+- ``lattice`` (kernel 4): every launch of a 1-spp render of the cone
+  forest's main path (640x640, depth 4: its 1,604-row lattice group), and
+  ``chip_smoke.py`` phase 2d's other groups on its rays
+  (``kernel_lab.lattice_field`` / ``lattice_rays``, the same seeds):
+  the benchmark box's 21x20 cone group with the lattice march forced, a
+  1x600 field of cones and a 24x24 field of spheres, closest-hit and
+  any-hit; held to ``lattice_traverse.lattice_plain`` bit for bit, each
+  reference computed once;
+- ``probe`` (kernel 9): all seven variants of the cone-sweep probe on the
+  box's 424-row cone group and ``cone_probe.N_RAYS`` (65,536) rays of each
+  of the lab's three sets (``cone_probe.probe_inputs``), held to
+  ``cone_probe.probe_plain`` bit for bit.
 
 One more mode, ``sass``, builds every source by PARENT and by this
 checkout and compares each kernel's SASS (``cuobjdump -sass``, instruction
@@ -91,7 +101,8 @@ BOX_RAYS = 640 * 640
 SPIN_CYCLES = 20_000_000  # about 10 ms of the card's clock: longer than the host's REPS calls
 SOURCES = {"sctree": "sctree_traverse", "mxup": "mxu_sweep", "grid": "grid_traverse",
            "dense": "dense_traverse", "inst": "inst_traverse", "inst_mxu": "inst_traverse",
-           "bvh": "bvh_traverse", "scdense": "scdense_traverse"}
+           "bvh": "bvh_traverse", "scdense": "scdense_traverse", "lattice": "lattice_traverse",
+           "probe": "cone_probe"}
 MODES = (*SOURCES, "sass")
 TYPE_NAMES = ("sphere", "rect", "disk", "plane", "aabb", "obb", "triangle", "cone", "cylinder")
 
@@ -251,8 +262,7 @@ def mxup_cases(dev, libs):
 
 def dense_cases(dev, libs):
     """terrain_cases' counterpart for kernel 1, a case being (group, ray
-    arguments); build "earlier" reads the unpadded rows, this checkout's the
-    padded ones."""
+    arguments); both builds read the padded rows."""
     from pine_tpu_torch import scenes
     from pine_tpu_torch.accel import dense_traverse as DT
 
@@ -299,25 +309,11 @@ def dense_cases(dev, libs):
     return query, check, cases
 
 
-def earlier_reads(parent, module, marker):
-    """Whether PARENT's wrapper ``accel/<module>.py`` names ``marker``: how a
-    kernel's earlier build is called (its C signature and tables).  Only a
-    PARENT from before the BVH's node records and scdense's padded rows
-    needs the other signature; when no PARENT in use predates them, this
-    and the branches it selects in ``bvh_cases`` and ``scdense_cases`` go."""
-    return marker in (Path(parent) / "pine_tpu_torch" / "accel" / f"{module}.py").read_text()
-
-
-def bvh_cases(dev, libs, packed):
+def bvh_cases(dev, libs):
     """terrain_cases' counterpart for kernel 2, a case being (group, ray
     arguments): every launch of a 1-spp render of the 2 M terrain's main path
     (640x640, depth 4) and the 99,458-triangle terrain's group forced to
-    "bvh" on grid_crossover's four ray sets.  ``packed``: whether the
-    earlier build reads the 64-byte node records and padded rows (else the
-    unpacked node arrays and the group's own rows, through its own C
-    signature)."""
-    import ctypes
-
+    "bvh" on grid_crossover's four ray sets."""
     from pine_tpu_torch import scenes
     from pine_tpu_torch.accel import bvh_traverse as BT
     from pine_tpu_torch.accel import dense_traverse as DT
@@ -340,36 +336,16 @@ def bvh_cases(dev, libs, packed):
     for rs, a in sets.items():
         for any_hit in (False, True):
             cases[(f"terrain {rs}", any_hit)] = (g, a[any_hit])
-    refs, unpacked = {}, {}
-    if not packed:
-        libs["earlier"].argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 13
-                                    + [ctypes.c_int, ctypes.c_void_p])
-        libs["earlier"].restype = ctypes.c_int
+    refs = {}
 
     def query(case, any_hit, build):
         g, args = case
-        if build != "earlier" or packed:
-            real = BT._library
-            BT._library = lambda: libs[build]
-            try:
-                return BT.bvh_cuda(g["tid"], DT.kernel_rows(g, "bvh"), g["bvh"], *args, any_hit)
-            finally:
-                BT._library = real
-        if id(g) not in unpacked:
-            unpacked[id(g)] = {k: v.contiguous() for k, v in
-                               BT.unpack_nodes(g["bvh"]["nodes"]).items()}
-        t = unpacked[id(g)]
-        n = args[0].shape[0]
-        out_t = torch.empty(n, dtype=torch.float32, device=dev)
-        out_e = torch.empty(n, dtype=torch.int32, device=dev)
-        err = libs[build](
-            g["tid"], int(any_hit), BT.STACK_DEPTH, g["rows"].data_ptr(),
-            *(t[k].data_ptr() for k in ("boxes", "cnode", "cstart", "ccount")),
-            *(x.data_ptr() for x in args), out_t.data_ptr(), out_e.data_ptr(), n,
-            torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"bvh_traverse (earlier build) launch failed: CUDA error {err}")
-        return out_t, out_e
+        real = BT._library
+        BT._library = lambda: libs[build]
+        try:
+            return BT.bvh_cuda(g["tid"], DT.kernel_rows(g, "bvh"), g["bvh"], *args, any_hit)
+        finally:
+            BT._library = real
 
     def check(out, case, any_hit):
         g, args = case
@@ -381,17 +357,13 @@ def bvh_cases(dev, libs, packed):
     return query, check, cases
 
 
-def scdense_cases(dev, libs, padded):
+def scdense_cases(dev, libs):
     """terrain_cases' counterpart for kernel 3, a case being (group, ray
     arguments): the benchmark box's three groups under
     ``small_kernel="scdense"`` with 409,600 rays of the lab's three sets
     over each group's box (``box_rays``), and each group's depth-1 launches
     of the box's main path (a 1-spp render at 640x640, depth 4); held to
-    ``scdense_plain`` bit for bit.  ``padded``: whether the earlier build
-    reads the padded rows (else the group's own, through its own C
-    signature)."""
-    import ctypes
-
+    ``scdense_plain`` bit for bit."""
     from pine_tpu_torch import scenes
     from pine_tpu_torch.accel import dense_traverse as DT
     from pine_tpu_torch.accel import scdense_traverse as SD
@@ -407,33 +379,16 @@ def scdense_cases(dev, libs, padded):
         for any_hit in (False, True):
             mine = [a[3:9] for a in calls if a[0] == g["tid"] and a[-1] == any_hit]
             cases[(f"{name} depth1", any_hit)] = (g, mine[1])
-    if not padded:
-        libs["earlier"].argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] + [ctypes.c_int] * 2
-                                    + [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_void_p])
-        libs["earlier"].restype = ctypes.c_int
 
     def query(case, any_hit, build):
         g, args = case
-        scd = g["scd"]
-        if build != "earlier" or padded:
-            real = SD._library
-            SD._library = lambda: libs[build]
-            try:
-                return SD.scdense_cuda(g["tid"], DT.kernel_rows(g, "scdense"), scd, *args,
-                                       any_hit)
-            finally:
-                SD._library = real
-        n = args[0].shape[0]
-        out_t = torch.empty(n, dtype=torch.float32, device=dev)
-        out_e = torch.empty(n, dtype=torch.int32, device=dev)
-        err = libs[build](
-            g["tid"], int(any_hit), g["rows"].data_ptr(), scd["n_prims"], scd["n_super"],
-            scd["sc_boxes"].data_ptr(), scd["cell_boxes"].data_ptr(),
-            *(x.data_ptr() for x in args), out_t.data_ptr(), out_e.data_ptr(), n,
-            torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"scdense_traverse (earlier build) launch failed: CUDA error {err}")
-        return out_t, out_e
+        real = SD._library
+        SD._library = lambda: libs[build]
+        try:
+            return SD.scdense_cuda(g["tid"], DT.kernel_rows(g, "scdense"), g["scd"], *args,
+                                   any_hit)
+        finally:
+            SD._library = real
 
     def check(out, case, any_hit):
         g, args = case
@@ -441,6 +396,89 @@ def scdense_cases(dev, libs, padded):
         if key not in refs:
             refs[key] = SD.scdense_plain(g["tid"], g["rows"], g["scd"], *args, any_hit)
         n = lanes_differ(out, refs[key])
+        return n == 0, n
+
+    return query, check, cases
+
+
+def lattice_cases(dev, libs):
+    """terrain_cases' counterpart for kernel 4, a case being (group, ray
+    arguments): every launch of a 1-spp render of the cone forest's main
+    path (640x640, depth 4), and phase 2d's box, 1x600-cone and
+    24x24-sphere groups on its rays (``kernel_lab.lattice_field`` and
+    ``lattice_rays``, the same seeds); held to ``lattice_plain`` bit for
+    bit."""
+    import numpy as np
+
+    from pine_tpu_torch import scenes
+    from pine_tpu_torch.accel import lattice_traverse as LT
+    from pine_tpu_torch.lab import kernel_lab as KL
+    from pine_tpu_torch.scene import shapes as S
+
+    forest = scenes.prl_scene(scenes.CONE_FOREST_PRL, "<cone forest>")
+    _, render = render_1spp(forest, 640, 4, dev)
+    calls = [a for a, _ in main_path_launches(LT, "lattice_cuda", render)]
+    cases = {}
+    for any_hit in (False, True):
+        for k, a in enumerate(a for a in calls if a[-1] == any_hit):
+            cases[(f"forest depth{k}", any_hit)] = (a[0], a[1:7])
+    groups = (("cbox 21x20 lattice forced", scenes.cbox().compile(dev).unified["groups"][2]),
+              ("cones 1x600", KL.lattice_field(dev, S.CONE, 1, 600, 1 / 256, 0.0025)),
+              ("spheres 24x24", KL.lattice_field(dev, S.SPHERE, 24, 24, 0.1, 0.04)))
+    for k, (what, g) in enumerate(groups, start=1):  # phase 2d's seeds
+        r = KL.lattice_rays(np.random.default_rng(40 + k), dev, g)
+        for any_hit in (False, True):
+            cases[(what, any_hit)] = (g, KL.ray_args(r, any_hit))
+    refs = {}
+
+    def query(case, any_hit, build):
+        g, args = case
+        real = LT._library
+        LT._library = lambda: libs[build]
+        try:
+            return LT.lattice_cuda(g, *args, any_hit)
+        finally:
+            LT._library = real
+
+    def check(out, case, any_hit):
+        g, args = case
+        key = (id(case), any_hit)
+        if key not in refs:
+            refs[key] = LT.lattice_plain(g, *args, any_hit)
+        n = lanes_differ(out, refs[key])
+        return n == 0, n
+
+    return query, check, cases
+
+
+def probe_cases(dev, libs):
+    """terrain_cases' counterpart for kernel 9, a case being (variant, the
+    probe's inputs): every variant on the box's cone group and each of the
+    lab's three ray sets; held to ``probe_plain`` bit for bit."""
+    from pine_tpu_torch.lab import cone_probe as CP
+    from pine_tpu_torch.lab.kernel_lab import RAYSETS
+
+    cases = {}
+    for rs in RAYSETS:
+        inputs = CP.probe_inputs(dev, CP.N_RAYS, rs)
+        for v in CP.VARIANTS:
+            cases[(f"{v} {rs}", False)] = (v, inputs)
+    refs = {}
+
+    def query(case, any_hit, build):
+        v, inputs = case
+        real = CP._library
+        CP._library = lambda: libs[build]
+        try:
+            return CP.probe_cuda(v, *inputs)
+        finally:
+            CP._library = real
+
+    def check(out, case, any_hit):
+        v, inputs = case
+        if id(case) not in refs:
+            refs[id(case)] = CP.probe_plain(v, *inputs)
+        n = lanes_differ(out, refs[id(case)])
         return n == 0, n
 
     return query, check, cases
@@ -495,27 +533,32 @@ def earlier_stack_depth(parent):
 
 
 def run(kernel, dev, parent):
+    """Time KERNEL's earlier build against this one on its cases, each held
+    to the plain version."""
     from pine_tpu_torch.accel import bvh_traverse as BT
     from pine_tpu_torch.accel import dense_traverse as DT
     from pine_tpu_torch.accel import grid_traverse as GT
     from pine_tpu_torch.accel import inst_traverse as IT
+    from pine_tpu_torch.accel import lattice_traverse as LT
     from pine_tpu_torch.accel import mxu_sweep as MS
     from pine_tpu_torch.accel import scdense_traverse as SD
     from pine_tpu_torch.accel import sctree_traverse as ST
+    from pine_tpu_torch.lab import cone_probe as CP
     from pine_tpu_torch.lab.grid_crossover import REPS, timed
 
     source = SOURCES[kernel]
     mod = {"sctree": ST, "mxup": MS, "grid": GT, "dense": DT, "inst": IT, "inst_mxu": IT,
-           "bvh": BT, "scdense": SD}[kernel]
+           "bvh": BT, "scdense": SD, "lattice": LT, "probe": CP}[kernel]
     earlier = getattr(earlier_module(parent).load(source), "pine_" + source)
-    # an earlier BVH or scdense build of another C signature is bound by its cases
-    same = {"bvh": ("bvh_traverse", "pack_nodes"), "scdense": ("scdense_traverse", "padded_width")}
-    alike = kernel not in same or earlier_reads(parent, *same[kernel])
-    libs = {"this": mod._library(), "earlier": mod.bind(earlier) if alike else earlier}
+    libs = {"this": mod._library(), "earlier": mod.bind(earlier)}
     if kernel == "bvh":
-        query, check, cases = bvh_cases(dev, libs, alike)
+        query, check, cases = bvh_cases(dev, libs)
     elif kernel == "scdense":
-        query, check, cases = scdense_cases(dev, libs, alike)
+        query, check, cases = scdense_cases(dev, libs)
+    elif kernel == "lattice":
+        query, check, cases = lattice_cases(dev, libs)
+    elif kernel == "probe":
+        query, check, cases = probe_cases(dev, libs)
     elif kernel in ("sctree", "grid"):
         query, check, cases = terrain_cases(dev, kernel, libs)
     elif kernel == "mxup":

@@ -19,9 +19,13 @@ scripts_kernel_lab.py and scripts_cone_probe.py.
   per ray-row pair, counted on the plain version's torch calls.
 - ``run_workload``: a route the group cannot take prints an error record;
   any other failure propagates.
+- The premise of the probe kernel's early misses: every variant with a
+  discriminant returns BIG wherever !(disc > 0), on random, grazing,
+  zero-discriminant and NaN or infinite rays.
 
 The GPU test holds the kernel to ``probe_plain`` on the card bit for bit
-and skips without one.
+(rays that miss the group, NaN and infinite lanes, one-ray launches among
+them) and skips without one.
 """
 from __future__ import annotations
 
@@ -231,8 +235,8 @@ COUNTED_OPS = {"add", "sub", "mul", "div", "neg", "__add__", "__radd__", "__sub_
                "__neg__", "sqrt", "clamp_min", "clamp_max", "minimum", "maximum"}
 
 
-@pytest.mark.parametrize("variant", CP.VARIANTS)
-def test_variant_ops_are_the_tests_own(variant):
+def counted_ops(fn, *args):
+    """The counted arithmetic (COUNTED_OPS) of one call of ``fn``."""
     from torch.overrides import TorchFunctionMode
 
     class Count(TorchFunctionMode):
@@ -242,19 +246,70 @@ def test_variant_ops_are_the_tests_own(variant):
             self.n += getattr(func, "__name__", "") in COUNTED_OPS
             return func(*args, **(kwargs or {}))
 
+    with Count() as c:
+        fn(*args)
+    return c.n
+
+
+def random_pair():
+    """A cone row and 8 rays: (row accessor, o, d)."""
     rng = np.random.default_rng(3)
     row = torch.as_tensor(rng.random(12, dtype=np.float32))
     o = tuple(torch.as_tensor(rng.random(8, dtype=np.float32)) for _ in range(3))
     d = tuple(torch.as_tensor(rng.random(8, dtype=np.float32)) for _ in range(3))
-    with Count() as c:
-        CP.variant_test(variant)(row.__getitem__, o, d, torch.zeros(8), torch.full((8,), 1e30))
+    return row.__getitem__, o, d
+
+
+@pytest.mark.parametrize("variant", CP.VARIANTS)
+def test_variant_ops_are_the_tests_own(variant):
+    n = counted_ops(CP.variant_test(variant), *random_pair(), torch.zeros(8),
+                    torch.full((8,), 1e30))
     # noselect also sums every t into its accumulator
-    assert c.n + (variant == "noselect") == CP.VARIANT_OPS[variant]
+    assert n + (variant == "noselect") == CP.VARIANT_OPS[variant]
     rows = torch.zeros(424, 12)
     full_ms, _ = CP.bound(N, rows)
     ms, by = CP.bound(N, rows, variant)
     assert by == "operations"
     assert ms == pytest.approx(full_ms * CP.VARIANT_OPS[variant] / CP.VARIANT_OPS["full"])
+
+
+@pytest.mark.parametrize("variant", list(CP.EARLY_OPS))
+def test_early_ops_are_the_discriminants_own(variant):
+    """A pair that leaves at the early miss costs the discriminant's
+    operations (noselect: and its running sum), and the bound charges the
+    early-missing pairs that and the others the whole test."""
+    n = counted_ops(CP._quadratic, *random_pair())
+    assert n + (variant == "noselect") == CP.EARLY_OPS[variant]
+    rows = torch.zeros(424, 12)
+    pairs = N * 424
+    for misses in (0, pairs // 3, pairs):
+        ms, by = CP.bound(N, rows, variant, misses)
+        ops = (pairs - misses) * CP.VARIANT_OPS[variant] + misses * CP.EARLY_OPS[variant]
+        assert by == "operations"
+        assert ms == pytest.approx(ops / CP.FP32_OPS_PER_S * 1e3)
+    assert CP.bound(N, rows, "onefetch", pairs) == CP.bound(N, rows, "onefetch")
+
+
+@pytest.mark.parametrize("field", ["cones 1x600", "spheres 24x24"])
+def test_lattice_workloads(field):
+    """kernel_lab's lattice groups and rays (chip_smoke.py phase 2d's and
+    redesign_ab's lattice cases): the field is one lattice group, and the
+    rays aimed at it hit it, closest-hit and any-hit."""
+    from pine_tpu_torch.accel import lattice_traverse as LT
+    from pine_tpu_torch.scene import shapes as S
+
+    kind, shape = field.split()
+    ni, nj = map(int, shape.split("x"))
+    tid, spacing, size = (S.CONE, 1 / 256, 0.0025) if kind == "cones" else (S.SPHERE, 0.1, 0.04)
+    g = KL.lattice_field("cpu", tid, ni, nj, spacing, size)
+    assert g["lattice"] is not None and g["lat"]["slot"].shape[0] == ni * nj
+    assert DT.group_variant(g) == "lattice"
+    r = KL.lattice_rays(np.random.default_rng(41), "cpu", g, 4096)
+    assert all(x.shape[0] == 4096 for x in r.values())
+    for any_hit in (False, True):
+        args = KL.ray_args(r, any_hit)
+        _, e = LT.lattice_plain(g, *args, any_hit)
+        assert int((e != args[5]).sum()) > 20
 
 
 def test_lab_prints_refused_routes_and_raises_the_rest(monkeypatch, capsys):
@@ -292,15 +347,104 @@ def test_bvh_route_on_a_group_without_nodes_is_refused():
         DT.prepare(g, "bvh")
 
 
+def odd_rays(rows, n, seed):
+    """Rays about the cone group: random, a quarter grazing a cone's side
+    (aimed at a point on its rim, nearly level), every 16th with a zero
+    direction (a discriminant of exactly zero) and every 32nd with a NaN or
+    infinite origin or direction coordinate."""
+    rng = np.random.default_rng(seed)
+    lo, hi = rows[:, 0:3].min(0).values.numpy(), rows[:, 0:3].max(0).values.numpy()
+    ro = rng.uniform(lo - 0.5, hi + 0.5, (n, 3)).astype(np.float32)
+    rd = rng.normal(size=(n, 3)).astype(np.float32)
+    q = n // 4
+    apex = rows[rng.integers(0, rows.shape[0], q), 0:3].numpy()
+    tgt = apex + np.stack([rng.uniform(-0.06, 0.06, q), rng.uniform(-0.05, 0.0, q),
+                           rng.uniform(-0.06, 0.06, q)], 1)
+    ro[-q:] = tgt + rng.normal(size=(q, 3)) * [1.0, 0.01, 1.0]
+    rd[-q:] = tgt - ro[-q:]
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    rd[::16] = 0.0
+    bad = np.array([np.nan, np.inf, -np.inf], np.float32)
+    ro[1::32, 0] = bad[rng.integers(0, 3, len(ro[1::32]))]
+    rd[17::32, 2] = bad[rng.integers(0, 3, len(rd[17::32]))]
+    return torch.from_numpy(ro), torch.from_numpy(rd)
+
+
+def discriminants(rows, ro, rd):
+    """The cone test's discriminant of every (ray, row) pair, (n, rows),
+    written out as csrc/prim_tests.cuh::test_cone rounds it."""
+    o = tuple(ro[:, a, None] for a in range(3))
+    d = tuple(rd[:, a, None] for a in range(3))
+
+    def r(col):
+        return rows[None, :, col]
+
+    ox, oy, oz = o[0] - r(0), o[1] - r(1), o[2] - r(2)
+    nx, ny, nz, A2 = r(3), r(4), r(5), r(6)
+    dn = d[0] * nx + d[1] * ny + d[2] * nz
+    on = ox * nx + oy * ny + oz * nz
+    dd = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+    od = ox * d[0] + oy * d[1] + oz * d[2]
+    oo = ox * ox + oy * oy + oz * oz
+    a = -A2 * dn * dn + dd
+    b = 2.0 * (-A2 * on * dn + od)
+    c = -A2 * on * on + oo
+    return b * b - 4.0 * a * c
+
+
+@pytest.mark.parametrize("rays", ["coherent", "grazing, zero-discriminant and NaN"])
+def test_early_misses_count_the_pairs_that_leave(rays, inputs):
+    """early_misses, which the probe's bound charges only the
+    discriminant's operations, counts the pairs with !(disc > 0), NaN
+    included."""
+    rows = inputs[0]
+    ro, rd = inputs[1:3] if rays == "coherent" else odd_rays(rows, 2048, 8)
+    want = int((~(discriminants(rows, ro, rd) > 0.0)).sum())
+    assert 0 < want < ro.shape[0] * rows.shape[0]
+    assert CP.early_misses(rows, ro, rd) == want
+
+
+@pytest.mark.parametrize("variant", [v for v in CP.VARIANTS if v != "onefetch"])
+def test_probe_early_misses_are_exact(variant, inputs):
+    """The probe kernel returns BIG where !(disc > 0) before the square root
+    and divisions (``full`` and ``noselect`` through test_cone's EARLY
+    form): each variant's own test gives BIG on every such pair already, so
+    the early-miss form equals ``variant_test``.  ``onefetch`` has no
+    discriminant and no early miss."""
+    rows = inputs[0]
+    ro, rd = odd_rays(rows, 2048, 8)
+    tmin = torch.full((2048, 1), 1e-3)
+    o = tuple(ro[:, a, None] for a in range(3))
+    d = tuple(rd[:, a, None] for a in range(3))
+
+    def r(col):
+        return rows[None, :, col]
+
+    t = CP.variant_test(variant)(r, o, d, tmin, torch.full((2048, 1), BIG_T))
+    disc = discriminants(rows, ro, rd)
+    early = ~(disc > 0.0)
+    assert bool((disc == 0.0).any()) and bool(torch.isnan(disc).any())
+    assert 0.1 < float(early.float().mean()) < 0.9
+    assert bool((t[early] == 1e30).all())
+    assert bool((t < 1e30).any()), "some pairs must hit"
+
+
+BIG_T = 3e38  # a window that ends beyond every t
+
+
 @pytest.mark.cuda
 def test_probe_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     dev = torch.device("cuda")
-    inputs = CP.probe_inputs(dev, 8192, "incoherent")
-    for variant in CP.VARIANTS:
-        t_k, e_k = CP.probe_cuda(variant, *inputs)
-        t_p, e_p = CP.probe_plain(variant, *inputs)
-        torch.cuda.synchronize()
-        assert torch.equal(t_k.view(torch.int32), t_p.view(torch.int32)), variant
-        assert torch.equal(e_k, e_p), variant
+    inputs = list(CP.probe_inputs(dev, 8192, "incoherent"))
+    ro, rd = odd_rays(inputs[0].cpu(), 8192, 9)
+    inputs[1][::2], inputs[2][::2] = ro[::2].to(dev), rd[::2].to(dev)
+    for args in (inputs, [inputs[0], *(x[:1] for x in inputs[1:])],
+                 [inputs[0], *(x[1:2] for x in inputs[1:])]):
+        for variant in CP.VARIANTS:
+            t_k, e_k = CP.probe_cuda(variant, *args)
+            t_p, e_p = CP.probe_plain(variant, *args)
+            torch.cuda.synchronize()
+            assert torch.equal(t_k.view(torch.int32), t_p.view(torch.int32)), variant
+            assert torch.equal(e_k, e_p), variant
