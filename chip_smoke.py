@@ -75,7 +75,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the reduced house (scenes/house.pine at 48x48, 8 spp, the goldens'
    patches) with PathIntegrator (depth 4) and CachedPathIntegrator (depth
    4, grid 32), each beside its RMSE against its committed golden
-   (tests/goldens/house_*_48x48x8.npy, < 0.025 as tests/test_house.py).
+   (tests/goldens/house_*_48x48x8.npy, < 0.025 as tests/test_house.py);
+   the reduced garden (scenes.REDUCED_GARDEN: 32x32, 4 spp, depth 3) under
+   its Atmosphere with SobolSampler by both integrators (the cached one on
+   a grid of 32), under the ImageSky with HaltonSampler, and under the Sky
+   with SobolSampler and with BlueSampler.
 4. The main paths at full width through ``Scene.compile`` and
    ``render_wavefront`` on the card: the benchmark Cornell box (420 cones;
    built from bench.py's script through the port's PRL interpreter, as
@@ -86,8 +90,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    depth 4; the instancing benchmark's field (1,024 rocks, a plane, one rect
    light) at 512x512, BlueSampler(4), depth 3; then, at 640x640x16 spp,
    depth 4, the terrain grown to 2,004,002 triangles (the BVH walk, its
-   default), the terrain with ``mesh_kernel="sctree"`` and the box with
-   ``small_kernel="scdense"``; then the coefficient-table paths at full
+   default; depth 2, TERRAIN2M_DEPTH), the terrain with
+   ``mesh_kernel="sctree"`` and the box with ``small_kernel="scdense"``; then the coefficient-table paths at full
    width: the box with ``small_kernel="mxup"`` (kernel 7 on its rect and
    cone groups) and the terrain with ``mesh_kernel="mxu"`` (the grid
    kernel's MXU form, the JAX package's default route for it), 640x640x16
@@ -120,6 +124,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    rays to t = 1e10 among them), then the script's own
    CachedPathIntegrator(BlueSampler(128), 5, 128) once, launch counts zeroed
    and read around it, its learning and render phases timed apart.  The
+   garden (scenes.GARDEN_PRL: an Atmosphere, a SpotLight, 420 cones of
+   Noise3f albedo on a checkered ground, a Subsurface, a Glass and a Metal
+   sphere, 24 fence lines) at 640x640, SobolSampler(16), depth 5, and under
+   the ImageSky of images/cbox0.png with HaltonSampler(16), as main paths:
+   the dense kernel on its sphere, rect and cone groups (the subsurface
+   walk's eight intersects per depth among its launches), held to
+   dense_plain bit for bit on every launch of a 1-spp render (kernel-line
+   entries ``dense_traverse.garden.*``, ``dense_traverse.garden_imagesky.*``);
+   the line group on the "plain" route, which launches no kernel of the
+   port's own (the ``groups`` record; its calls of a 1-spp render timed in
+   the ``garden_setup`` record, with the script's build and an Atmosphere's
+   map built alone, apart from compile_s).  The
    ``lab`` record: kernel 9's main path, the probe's chains on the box's
    cone group and 65,536 coherent rays as ``python -m
    pine_tpu_torch.lab.cone_probe`` runs them, launch counts zeroed just
@@ -138,7 +154,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    house script as written (640x640, CachedPathIntegrator(BlueSampler(128),
    5, 128), its save to images/house3.png) with the GLB's path made
    absolute, from build/chip_smoke/: its PNG finite and lit; ``python -m
-   pine_tpu_torch.lab.cone_probe``: seven records, ``full`` and ``inva``
+   pine_tpu_torch garden.pine`` (GARDEN_PRL as it stands, saving
+   garden.png): its image equal to phase 4's garden on 97 % of the pixels;
+   ``python -m pine_tpu_torch.lab.cone_probe``: seven records, ``full`` and ``inva``
    finite, ``inva`` with ``max_dev_vs_full``; ``python -m
    pine_tpu_torch.lab.kernel_lab``: a time for every workload, route and
    ray set (a refused route, an error record, fails the phase).
@@ -170,7 +188,7 @@ FP32_OPS_PER_S = 67e12
 TEST_OPS = {0: 23, 1: 35, 2: 29, 3: 14, 4: 30, 5: 106, 6: 52, 7: 56, 8: 68}
 CULL_OPS = 30
 TYPE_NAMES = {0: "sphere", 1: "rect", 2: "disk", 3: "plane", 4: "aabb", 5: "obb",
-              6: "triangle", 7: "cone", 8: "cylinder"}
+              6: "triangle", 7: "cone", 8: "cylinder", 9: "line"}
 
 T_RTOL, T_ATOL = 1e-5, 1e-6  # as tests/test_torch_dense_kernel.py
 N_RAYS = 65536
@@ -178,6 +196,14 @@ MAIN_SIZE, MAIN_SPP, MAIN_DEPTH = 640, 16, 4  # bench.py's and bench_mesh.py's c
 INST_SIZE, INST_SPP, INST_DEPTH = 512, 4, 3  # bench_instanced.py's configuration
 GRID_MISMATCH_SHARE = 1e-4  # lanes where a culling kernel may differ from its plain version
 MAIN_RAYS = {}  # traced rays of each main path's render, by tag
+# the 2 M terrain's depth: 2, not MAIN_DEPTH, since the garden's paths came
+# in; its plain BVH walk takes 20-24 s a launch, and the kernel line holds
+# every launch of a 1-spp render to it (3 at depth 2, 7 at depth 4)
+TERRAIN2M_DEPTH = 2
+# the garden (pine_tpu_torch/scenes.py GARDEN_PRL): its full width, and the
+# groups it compiles to (the fence's lines on the "plain" route, no kernel)
+GARDEN_SIZE, GARDEN_SPP, GARDEN_DEPTH = 640, 16, 5
+GARDEN_GROUPS = [("dense", 0, 3), ("dense", 1, 1), ("dense", 7, 424), ("plain", 9, 24)]
 
 # kind -> (module under pine_tpu_torch.accel, kernel wrapper in it, plain
 # version as module.function, the group's table for it, kernel source, the
@@ -429,7 +455,7 @@ def phase_dense_vs_plain(dev):
     from pine_tpu_torch.scene import shapes as S
 
     recs = []
-    for tid in sorted(TYPE_NAMES):
+    for tid in sorted(TEST_OPS):  # the kernel's prim types (not the line's)
         # a forced dense route on 1,300 rows: three of the kernel's 512-row
         # tiles, the OBB's above the default shared-memory limit
         for n in (1, 16, 424) + ((1300,) if tid in (S.BOX_OBB, S.CONE) else ()):
@@ -1018,14 +1044,18 @@ def force_sort(cs, mode):
         cs.origin_sort = True
 
 
-def render_parity(what, make_scene, sort=None, kernels=None):
-    """Render ``make_scene()`` at 64x64x4spp depth 4 on the card (with the
-    coherence sort forced on with key ``sort``) and on the CPU, both routed
-    under the forced-kernel settings ``kernels``, and hold them to the port's
-    render criteria."""
+def render_parity(what, make_scene, sort=None, kernels=None, sampler="blue", size=64, depth=4,
+                  cached=False):
+    """Render ``make_scene()`` at ``size``^2 x 4 spp, depth ``depth``, with
+    the sampler ``sampler`` (a core.samplers.SAMPLERS key), by the path
+    integrator or, with ``cached``, the cached one (grid 32), on the card
+    (with the coherence sort forced on with key ``sort``) and on the CPU,
+    both routed under the forced-kernel settings ``kernels``, and hold them
+    to the port's render criteria."""
     import numpy as np
 
-    from pine_tpu_torch.core.samplers import BlueSampler
+    from pine_tpu_torch.core.samplers import SAMPLERS
+    from pine_tpu_torch.integrators.cachedpath import render_cached
     from pine_tpu_torch.integrators.path import render_wavefront
 
     out = {}
@@ -1034,15 +1064,22 @@ def render_parity(what, make_scene, sort=None, kernels=None):
         cs = sc.compile(dev, **(kernels or {}))
         if dev == "cuda":
             force_sort(cs, sort)
-            if cs.sort_mode(64 * 64, True) != sort:
-                fail(f"{what}: the card's sort key is {cs.sort_mode(64 * 64, True)}, not {sort}")
-        img, st = render_wavefront(cs, sc.camera, 64, 64, BlueSampler(4), 4, 4, return_stats=True)
+            if cs.sort_mode(size * size, True) != sort:
+                fail(f"{what}: the card's sort key is {cs.sort_mode(size * size, True)}, not "
+                     f"{sort}")
+        if cached:
+            img, st = render_cached(cs, sc.camera, size, size, SAMPLERS[sampler](4), 4, depth,
+                                    sc.get_aabb(), 32, return_stats=True)
+        else:
+            img, st = render_wavefront(cs, sc.camera, size, size, SAMPLERS[sampler](4), 4, depth,
+                                       return_stats=True)
         out[dev] = (img.cpu().numpy(), st["traced_rays"])
     (g, rg), (c, rc) = out["cuda"], out["cpu"]
     d = np.abs(g - c)
     agree = ((d <= 1e-3 * np.abs(c)) | (d <= 1e-4)).all(-1).mean()
-    rec = dict(phase="render_parity", scene=what, sort=sort, kernels=kernels,
-               size="64x64x4spp depth 4", pixels_agree=float(agree),
+    rec = dict(phase="render_parity", scene=what, sort=sort, kernels=kernels, sampler=sampler,
+               integrator="cached" if cached else "path",
+               size=f"{size}x{size}x4spp depth {depth}", pixels_agree=float(agree),
                mean_cuda=float(g.mean()), mean_cpu=float(c.mean()),
                rays_cuda=int(rg), rays_cpu=int(rc), finite=bool(np.isfinite(g).all()))
     emit(rec)
@@ -1125,6 +1162,25 @@ def phase_render_parity():
     finally:
         DT.GRID_MAX_PRIMS = limit
     house_parity()
+    garden_parity()
+
+
+def garden_parity():
+    """The reduced garden (scenes.REDUCED_GARDEN: 32x32, 4 spp, depth 3) card
+    against CPU: under its Atmosphere with SobolSampler, by the path
+    integrator and the cached one; the ImageSky variant with HaltonSampler;
+    the Sky variant with SobolSampler and with BlueSampler.  Each scene is
+    built once (the Atmosphere's map on the host) and compiled for both
+    devices."""
+    from pine_tpu_torch import scenes
+
+    size, depth = scenes.REDUCED_GARDEN["size"], scenes.REDUCED_GARDEN["depth"]
+    built = {sky: scenes.garden(sky, size) for sky in ("atmosphere", "imagesky", "sky")}
+    for sky, sampler, cached in (("atmosphere", "sobol", False), ("atmosphere", "sobol", True),
+                                 ("imagesky", "halton", False), ("sky", "sobol", False),
+                                 ("sky", "blue", False)):
+        render_parity(f"reduced garden, {sky}", lambda: built[sky], sampler=sampler, size=size,
+                      depth=depth, cached=cached)
 
 
 # ---------------------------------------------------------------- phase 4 ----
@@ -1595,7 +1651,7 @@ def record_launches(cs, kinds, render):
 
 def phase_main_path(dev_name, tag, what, scene, groups_want, heavy_want, kinds,
                     size=MAIN_SIZE, spp=MAIN_SPP, depth=MAIN_DEPTH, kernels=None, checked=None,
-                    label=None, also=()):
+                    label=None, also=(), sampler="blue"):
     """One main path at full width: compile on the card (routed under the
     forced-kernel settings ``kernels``), record the kernels' inputs, warm up,
     three timed renders (launch counts zeroed just before the first, read
@@ -1603,13 +1659,14 @@ def phase_main_path(dev_name, tag, what, scene, groups_want, heavy_want, kinds,
     line's entries for ``kinds`` (the plain version on the first ``checked``
     launches of each form, or on all; ``label`` as kernel_line_entry's) and
     for the path's other kernels ``also`` (the plain version on every
-    launch, the entries labelled with the path's tag).
+    launch, the entries labelled with the path's tag).  ``sampler`` is a
+    core.samplers.SAMPLERS key.
     -> (entries, compiled scene)."""
     import numpy as np
     import torch
 
     from pine_tpu_torch.accel import dense_traverse as DT
-    from pine_tpu_torch.core.samplers import BlueSampler
+    from pine_tpu_torch.core.samplers import SAMPLERS
     from pine_tpu_torch.integrators.path import render_wavefront
 
     W = H = size
@@ -1619,7 +1676,7 @@ def phase_main_path(dev_name, tag, what, scene, groups_want, heavy_want, kinds,
     groups = [group_sig(g) for g in all_groups(cs)]
     if groups != groups_want or cs.heavy_traversal != heavy_want:
         fail(f"unexpected {tag} groups {groups} (heavy: {cs.heavy_traversal})")
-    sampler = BlueSampler(spp)
+    sampler = SAMPLERS[sampler](spp)
     render = lambda s: render_wavefront(cs, scene.camera, W, H, sampler, s, depth)  # noqa: E731
 
     recorded, _ = record_launches(cs, [*kinds, *also], lambda: render(1))
@@ -1647,7 +1704,8 @@ def phase_main_path(dev_name, tag, what, scene, groups_want, heavy_want, kinds,
     rays = int(stats["traced_rays"])
     MAIN_RAYS[tag] = rays
     rec = dict(phase="main_path", scene=what, size=f"{W}x{H}", spp=spp, depth=depth,
-               device=dev_name, kernels=kernels, groups=groups, compile_s=compile_s,
+               sampler=type(sampler).__name__, device=dev_name, kernels=kernels, groups=groups,
+               compile_s=compile_s,
                wall_s=min(walls), walls_s=walls,
                traced_rays=rays, mrays_per_s=rays / min(walls) / 1e6, finite=finite,
                mean=float(img.mean()), launches=launches)
@@ -1668,6 +1726,67 @@ def phase_main_path(dev_name, tag, what, scene, groups_want, heavy_want, kinds,
     if (cs.heavy_traversal or cs.inst_traversal) and not kernels:
         emit(coherence_sort_record(cs, tag, kinds, lambda: render(1), W * H))
     return entries, cs
+
+
+def phase_garden(dev_name):
+    """The garden (GARDEN_PRL) at full width, 640x640, 16 spp, depth 5, as
+    main paths: under its Atmosphere with SobolSampler and under the
+    ImageSky of images/cbox0.png with HaltonSampler.  Each: the dense
+    kernel held to dense_plain bit for bit on every launch of a 1-spp render
+    (the subsurface walk's eight intersects per depth among them; kernel-line
+    entries ``dense_traverse.garden.*`` and ``dense_traverse.garden_imagesky.*``),
+    the fence's line group on the "plain" route, its calls of one 1-spp
+    render timed on the card; the script's build (the Atmosphere's map on the
+    host) and an Atmosphere built alone, timed apart from compile_s.
+    -> kernel-line entries."""
+    import torch
+
+    from pine_tpu_torch import scenes
+    from pine_tpu_torch.accel import dense_traverse as DT
+    from pine_tpu_torch.core.samplers import SAMPLERS
+    from pine_tpu_torch.integrators.path import render_wavefront
+    from pine_tpu_torch.scene import env_lights as E
+
+    t0 = time.perf_counter()
+    atmosphere = E.Atmosphere([0.4, 0.5, -0.6], [1, 1, 1])  # GARDEN_PRL's
+    atmosphere_s = time.perf_counter() - t0
+    entries = []
+    for tag, sky, sampler in (("garden", "atmosphere", "sobol"),
+                              ("garden_imagesky", "imagesky", "halton")):
+        t0 = time.perf_counter()
+        scene = scenes.garden(sky, GARDEN_SIZE)
+        build_s = time.perf_counter() - t0
+        if sky == "atmosphere" and not (scene.env_light.distr.cdf_cond
+                                        == atmosphere.distr.cdf_cond).all():
+            fail("the garden's Atmosphere map differs from one built alone")
+        e, cs = phase_main_path(
+            dev_name, tag, f"the garden under {sky}, {SAMPLERS[sampler].__name__}, from "
+            "GARDEN_PRL", scene, GARDEN_GROUPS, False, ["dense"], GARDEN_SIZE, GARDEN_SPP,
+            GARDEN_DEPTH, label=tag, sampler=sampler)
+        entries += e
+        calls, real = [], DT.plain_query
+
+        def record(g, *args):
+            calls.append((g, tuple(x.clone() if torch.is_tensor(x) else x for x in args)))
+            return real(g, *args)
+
+        DT.plain_query = record
+        try:
+            render_wavefront(cs, scene.camera, GARDEN_SIZE, GARDEN_SIZE,
+                             SAMPLERS[sampler](GARDEN_SPP), 1, GARDEN_DEPTH)
+        finally:
+            DT.plain_query = real
+        ms = [(args[-1], cuda_ms(lambda: real(g, *args), 3)) for g, args in calls]
+        emit(dict(phase="garden_setup", scene=tag, script_build_s=build_s,
+                  atmosphere_build_s=atmosphere_s if sky == "atmosphere" else None,
+                  plain_route=dict(group=group_desc(calls[0][0]), per="one 1-spp render",
+                                   closest_calls=sum(not a for a, _ in ms),
+                                   any_hit_calls=sum(a for a, _ in ms),
+                                   closest_ms=sum(t for a, t in ms if not a),
+                                   any_hit_ms=sum(t for a, t in ms if a))))
+        del cs, calls
+        torch.cuda.empty_cache()
+    return entries
 
 
 def kernel_ab_record(cs, scene, what, tid, kinds, size=MAIN_SIZE, depth=MAIN_DEPTH):
@@ -1875,6 +1994,42 @@ def phase_cli():
         fail(f"the CLI's image differs from the in-process render: {rec}")
 
 
+def phase_garden_cli():
+    """``python -m pine_tpu_torch garden.pine`` on the card: GARDEN_PRL as it
+    stands (its render and its save to garden.png in the working
+    directory).  Its PNG must equal phase 4's in-process render of the
+    garden on 97 % of the pixels by the render-parity tolerance."""
+    import numpy as np
+
+    from pine_tpu_torch import scenes
+
+    out = os.path.join(OUT_DIR, "garden.png")
+    if os.path.exists(out):
+        os.remove(out)
+    with open(os.path.join(OUT_DIR, "garden.pine"), "w") as f:
+        f.write(scenes.GARDEN_PRL)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "pine_tpu_torch", "garden.pine"], cwd=OUT_DIR,
+                          env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    rec = dict(phase="cli", command="python -m pine_tpu_torch garden.pine",
+               returncode=proc.returncode, wall_s=wall, finished=lines[-1] if lines else "",
+               png=os.path.exists(out))
+    if proc.returncode != 0 or not rec["png"]:
+        emit(rec)
+        fail(f"the garden's CLI run failed: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    got = read_png(out).astype(np.float32)
+    want = read_png(os.path.join(OUT_DIR, "chip_smoke_garden.png")).astype(np.float32)
+    d = np.abs(got - want)
+    rec["pixels_agree"] = float(((d <= 1e-3 * np.abs(want)) | (d <= 1e-4)).all(-1).mean())
+    emit(rec)
+    if got.shape != want.shape or rec["pixels_agree"] < 0.97 or not rec["finished"].startswith(
+            "Finished in"):
+        fail(f"the garden's CLI image differs from the in-process render: {rec}")
+
+
 def phase_bench(box_rays):
     """``python -m pine_tpu_torch.bench`` on the card, bench.py's counterpart:
     its JSON line must parse, be finite, and count traced rays within 0.5 %
@@ -2068,7 +2223,7 @@ def main():
     kernels += phase_main_path(
         name, "terrain2m", "bench_mesh terrain at grid 1002, 2,004,002 triangles + 1 rect",
         scenes.terrain((W, H), 1002), [("dense", 1, 1), ("bvh", 6, 2004002)], True, ["bvh"],
-        also=["dense"])[0]
+        depth=TERRAIN2M_DEPTH, also=["dense"])[0]
     torch.cuda.empty_cache()
     kernels += phase_main_path(
         name, "terrain_sctree", "bench_mesh terrain, 99,458 triangles + 1 rect, "
@@ -2094,10 +2249,12 @@ def main():
         "rect, inst_kernel mxu", field, [("dense", 1, 1), ("dense", 3, 1), ("inst_mxu", 6, 1024)],
         False, ["inst_mxu"], INST_SIZE, INST_SPP, INST_DEPTH, kernels=dict(inst_kernel="mxu"))[0]
     kernels += phase_house(name)
+    kernels += phase_garden(name)
     kernels += phase_lab(name, probe_recs)
     phase_cli()
     phase_bench(MAIN_RAYS["cbox"])
     phase_house_cli()
+    phase_garden_cli()
     phase_lab_modules()
     emit(dict(phase="done", seconds=time.perf_counter() - t_start))
     emit({"kernels": kernels})

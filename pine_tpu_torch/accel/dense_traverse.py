@@ -34,10 +34,17 @@ and its plain PyTorch version on CPU tensors, but "mxu":
   kernel's MXU form, accel/grid_traverse.py);
 - "mxu": ``torch.matmul`` of the rays' features with the coefficient table
   and the epilogue in PyTorch, on either device (pine_tpu's plain-XLA
-  route, accel/mxu_sweep.mxu_route): no kernel of the port's own.
+  route, accel/mxu_sweep.mxu_route): no kernel of the port's own;
+- "plain": every prim of the group through the type's closed-form query of
+  scene/intersect.py, in PyTorch on either device (``plain_query``): the
+  route of a group whose prim type has no ray test in PRIM_TESTS (the
+  line), as pine_tpu sends such a group to its XLA packet walk
+  (``group_supports_pallas``).  No kernel of any route tests such a type,
+  so none can fail over to it, and no TPU kernel is replaced by it.
 
-``group_variant`` picks the route as ``pine_tpu``'s defaults do: groups of
-512 or fewer rows take the dense sweep; larger groups that form a lattice
+``group_variant`` picks the route as ``pine_tpu``'s defaults do: a group of
+a prim type without a ray test takes "plain", whatever its size and the
+settings; groups of 512 or fewer rows take the dense sweep; larger groups that form a lattice
 (``packet._detect_lattice``) the lattice march; other groups the grid
 traversal, or above GRID_MAX_PRIMS_HBM prims the BVH walk.  Two settings of
 ``CompiledScene`` force a route, as ``PINE_SMALL_KERNEL`` and
@@ -77,9 +84,12 @@ class RouteRefused(ValueError):
 
 
 # kernel launches, counted where a wrapper launches its CUDA kernel
+# (and "plain": the calls of that route on the card, which launch no kernel of
+# the port's own)
 LAUNCHES = {f"{k}.{form}": 0 for k in ("dense", "scdense", "grid", "sctree", "bvh", "inst",
-                                       "lattice", "mxup", "grid_mxu", "inst_mxu")
+                                       "lattice", "mxup", "grid_mxu", "inst_mxu", "plain")
             for form in ("closest", "any_hit")}
+PLAIN_CHUNK = 64  # prims a "plain" query tests at once
 
 
 def reset_launches():
@@ -287,24 +297,71 @@ def cull_window(gbox, o, d, tmin, tmax, best_t, best_e, any_hit):
     return near <= far
 
 
+PLAIN_BLOCK_ELEMENTS = 1 << 22  # lanes x rows a block of dense_plain tests at once
+
+
 def dense_plain(tid, rows, gbox, ro, rd, tmin, tmax, best_t, best_e, any_hit):
-    """The dense sweep in plain PyTorch: the kernel's function, row by row."""
+    """The dense sweep in plain PyTorch: the kernel's function, a block of
+    rows at a time (lanes x rows of at most PLAIN_BLOCK_ELEMENTS).  Within a
+    block every row is tested against the window the block starts with and
+    the least t wins, the lowest row on a tie; that is the row-by-row sweep's
+    result bit for bit, since a row's t does not depend on the window and
+    every operation is elementwise."""
     test = PRIM_TESTS[tid]
     o = (ro[:, 0], ro[:, 1], ro[:, 2])
     d = (rd[:, 0], rd[:, 1], rd[:, 2])
     live = cull_window(gbox, o, d, tmin, tmax, best_t, best_e, any_hit)
+    oc, dc = tuple(x[:, None] for x in o), tuple(x[:, None] for x in d)
+    step = max(1, PLAIN_BLOCK_ELEMENTS // max(ro.shape[0], 1))
+    blocks = [(e0, rows[e0:e0 + step].T.contiguous()) for e0 in range(0, rows.shape[0], step)]
     if any_hit:
         occ = best_e
-        for e in range(rows.shape[0]):
-            tt = test(rows[e].__getitem__, o, d, tmin, tmax)
-            occ = torch.maximum(occ, (tt < BIG).to(torch.int32))
+        for _, cols in blocks:
+            tt = test(lambda c: cols[c][None, :], oc, dc, tmin[:, None], tmax[:, None])
+            occ = torch.maximum(occ, (tt < BIG).any(1).to(torch.int32))
         return best_t, torch.where(live, occ, best_e)
     bt, be = best_t, best_e
-    for e in range(rows.shape[0]):
-        tt = test(rows[e].__getitem__, o, d, tmin, bt)
-        better = tt < bt
-        bt = torch.where(better, tt, bt)
-        be = torch.where(better, e, be)
+    for e0, cols in blocks:
+        tt = test(lambda c: cols[c][None, :], oc, dc, tmin[:, None], bt[:, None])
+        bt, be = _take_least(tt, e0, bt, be)
+    return torch.where(live, bt, best_t), torch.where(live, be, best_e)
+
+
+def _take_least(t, e0, bt, be):
+    """Fold a (lanes, rows) block of t, its first row ``e0``, into the
+    running (best t, row): the least t below best t, the lowest row on a tie."""
+    t_min = t.min(1).values
+    row = torch.arange(e0, e0 + t.shape[1], dtype=torch.int32, device=t.device)
+    first = torch.where(t == t_min[:, None], row, torch.iinfo(torch.int32).max).min(1).values
+    better = t_min < bt
+    return torch.where(better, t_min, bt), torch.where(better, first, be)
+
+
+def plain_query(g, ro, rd, tmin, tmax, best_t, best_e, any_hit):
+    """The "plain" route: the group's prims (its pad rows left out), PLAIN_CHUNK
+    at a time, through ``scene.intersect.INTERSECT`` of their type as a
+    (lanes, prims) product, under the dense sweep's contract (ties to the
+    lowest row)."""
+    from pine_tpu_torch.scene.intersect import INTERSECT
+
+    if ro.is_cuda:
+        LAUNCHES["plain.any_hit" if any_hit else "plain.closest"] += 1
+    query = INTERSECT[g["tid"]]
+    rows = g["rows"][:len(g["prim_aabbs"])]
+    o = (ro[:, 0], ro[:, 1], ro[:, 2])
+    d = (rd[:, 0], rd[:, 1], rd[:, 2])
+    live = cull_window(g["gbox"], o, d, tmin, tmax, best_t, best_e, any_hit)
+    lo = tmin[:, None]
+    if any_hit:
+        occ = best_e
+        for c0 in range(0, rows.shape[0], PLAIN_CHUNK):
+            t = query(rows[c0:c0 + PLAIN_CHUNK], ro, rd, lo, tmax[:, None])
+            occ = torch.maximum(occ, (t < BIG).any(1).to(torch.int32))
+        return best_t, torch.where(live, occ, best_e)
+    bt, be = best_t, best_e
+    for c0 in range(0, rows.shape[0], PLAIN_CHUNK):
+        bt, be = _take_least(query(rows[c0:c0 + PLAIN_CHUNK], ro, rd, lo, bt[:, None]), c0, bt,
+                             be)
     return torch.where(live, bt, best_t), torch.where(live, be, best_e)
 
 
@@ -420,6 +477,8 @@ def group_variant(g, small_kernel=None, mesh_kernel=None):
     kind) group; "mxu" and "mxup" resolve as the module docstring says."""
     from pine_tpu_torch.accel.mxu_tables import supports
 
+    if int(g.get("tid", S.CONE)) not in PRIM_TESTS:  # a type without a ray test
+        return "plain"
     n_prims, n_rows = len(g["prim_aabbs"]), g["rows"].shape[0]
     lattice = bool(g.get("lattice"))
     eligible = n_prims <= GRID_MAX_PRIMS_HBM
@@ -491,7 +550,9 @@ def group_query(g, ro, rd, tmin, tmax, best_t, best_e, any_hit=False, variant=No
     takes the size default, as there."""
     if variant is None:
         variant = g["variant"]
-    elif variant == "lattice" and not g.get("lattice"):
+    if variant == "plain":
+        return plain_query(g, ro, rd, tmin, tmax, best_t, best_e, any_hit)
+    if variant == "lattice" and not g.get("lattice"):
         variant = "dense" if g["rows"].shape[0] <= DENSE_DEFAULT_MAX else "grid"
     if variant == "lattice":
         from pine_tpu_torch.accel.lattice_traverse import lattice_cuda, lattice_plain

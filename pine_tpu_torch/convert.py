@@ -51,22 +51,34 @@ Keys (``i`` counts from 0):
   (E, 9) and ``tri_t`` (E, 6) the three vertex normals and texcoords;
   ``tri_has_n``, ``tri_has_t`` bool (E,) whether the mesh had them;
 - ``n_materials``; ``mat.<i>.tag``; for each parameter (``albedo``,
-  ``roughness``, ``metallic``, ``transmission``, ``ior``, ``color``; one
-  missing takes materials.PARAMS' value) either ``mat.<i>.<param>``, a
-  constant (albedo and color (3,), the others scalars), or
-  ``mat.<i>.<param>.node``, a node tree as a JSON string: ``["const",
-  value]``, ``["uv"]``, ``[op, a, b]`` for op in + - * / ^, ``["texture",
-  p, k]`` reading image ``k``;
+  ``roughness``, ``metallic``, ``transmission``, ``ior``, ``color``,
+  ``sigma_s``; one missing takes materials.PARAMS' value) either
+  ``mat.<i>.<param>``, a constant (albedo, color and sigma_s (3,), the
+  others scalars), or ``mat.<i>.<param>.node``, a node tree as a JSON
+  string (``node_spec``): ``["const", value]``, ``["uv"]``,
+  ``["position"]``, ``["normal"]``, ``[op, a, b]`` for op in + - * / ^,
+  ``["unary", op, a]`` for op in - s r f, ``["lerp", t, a, b]``,
+  ``["checker", p, ratio]``, ``["noisef", p, octaves]``, ``["noise3f", p,
+  octaves]``, ``["comp", p, index]``, ``["vec3", a...]``, ``["texture", p,
+  k]`` reading image ``k``;
 - ``n_images``; ``image.<k>`` float32 (H, W, C), the texture images the
   node trees read, each once;
-- ``n_lights``, in pine_tpu's order: the scene's point and directional
-  lights as added, then the emissive shapes in geometry order;
-  ``light.<i>.kind`` ("point", "directional", "area" or "mesh"); a point
-  light has ``.position`` and ``.color``; a directional light
-  ``.direction`` (unit, float32) and ``.color``; an area light ``.tid``,
-  ``.params``, ``.gidx`` and ``.color``; a mesh light ``.tris`` float32
-  (F, 9) (the mesh's triangles [v0, v1, v2] in mesh order), ``.gidx`` and
-  ``.color``;
+- ``n_lights``, in pine_tpu's order: the scene's point, spot and
+  directional lights as added, then the emissive shapes in geometry order,
+  then the environment light; ``light.<i>.kind`` ("point", "spot",
+  "directional", "area", "mesh", "sky", "atmosphere" or "imagesky"); a
+  point light has ``.position`` and ``.color``; a spot light ``.position``,
+  ``.direction`` (unit, float32), ``.color``, ``.falloff_cos`` and
+  ``.cutoff_cos``; a directional light ``.direction`` (unit, float32) and
+  ``.color``; an area light ``.tid``, ``.params``, ``.gidx`` and its color
+  as a material parameter (``.color`` or ``.color.node``); a mesh light
+  ``.tris`` float32 (F, 9) (the mesh's triangles [v0, v1, v2] in mesh
+  order), ``.gidx`` and its color likewise; a sky ``.sun_color``; an
+  atmosphere ``.sun_direction`` (unit, float32), ``.sun_color`` and its
+  importance map as ``.pdf_img`` (h, w), ``.cdf_marg`` (h,) and
+  ``.cdf_cond`` (h, w) (scene/env_lights.Distribution2D); an image sky
+  ``.image`` (H, W, 3), ``.tint``, ``.l2w`` (3, 3) (absent when it is not
+  rotated) and its map likewise;
 - optional camera: ``cam.position`` (3,), ``cam.rot`` (3,3) camera-to-world,
   ``cam.fov2d`` (2,), ``cam.len_radius``, ``cam.focus_distance``.
 """
@@ -108,6 +120,7 @@ def scene_arrays(scene) -> dict:
             mat_slots.append(mat)
         return mat_of[id(mat)]
 
+    images = []
     g_type, g_local, g_mat = [], [], []
     per_type, type_global = {}, {}
     prims, meshes, area_lights = [], [], []
@@ -125,7 +138,7 @@ def scene_arrays(scene) -> dict:
             meshes.append((shape, gidx))
             if mat.is_emissive():
                 area_lights.append(dict(kind="mesh", tris=shape.triangles(), gidx=gidx,
-                                        color=N.constant_vec3(mat.color)))
+                                        **param_record("color", mat.color, images)))
             continue
         tid = shape.type_id
         rows = per_type.setdefault(tid, [])
@@ -135,7 +148,7 @@ def scene_arrays(scene) -> dict:
         prims.append((tid, shape.params(), gidx, (lo, hi)))
         if mat.is_emissive():
             area_lights.append(dict(kind="area", tid=tid, params=shape.params(), gidx=gidx,
-                                    color=N.constant_vec3(mat.color)))
+                                    **param_record("color", mat.color, images)))
     inst_records = []
     for inst in scene.instancings:
         corners = box_corners(*inst.shape.get_aabb())
@@ -176,14 +189,14 @@ def scene_arrays(scene) -> dict:
             a[k] = accel[k]
 
     a["n_materials"] = np.asarray(len(mat_slots))
-    images = []
     for i, mat in enumerate(mat_slots):
-        a.update({f"mat.{i}.{k}": v for k, v in material_record(M.check_ported(mat), images)
-                  .items()})
+        a.update({f"mat.{i}.{k}": v for k, v in material_record(mat, images).items()})
     a["n_images"] = np.asarray(len(images))
     a.update({f"image.{k}": im for k, im in enumerate(images)})
 
     lights = [light_record(li) for li in scene.lights] + area_lights
+    if scene.env_light is not None:
+        lights.append(light_record(scene.env_light))
     a["n_lights"] = np.asarray(len(lights))
     for i, li in enumerate(lights):
         for k, v in li.items():
@@ -199,6 +212,9 @@ def scene_arrays(scene) -> dict:
     return a
 
 
+NODE_KINDS = {"Position": "position", "Normal": "normal", "UV": "uv"}
+
+
 def node_spec(node, images):
     """A node tree (of the port's nodes or pine_tpu's, by class name) as a
     JSON-able spec (module docstring); texture images are appended to
@@ -208,10 +224,22 @@ def node_spec(node, images):
         return ["const", np.asarray(node, np.float32).tolist()]
     if kind == "Constant":
         return ["const", np.asarray(node.value, np.float32).tolist()]
-    if kind == "UV":
-        return ["uv"]
+    if kind in NODE_KINDS:
+        return [NODE_KINDS[kind]]
     if kind == "Binary":
         return [node.op, node_spec(node.a, images), node_spec(node.b, images)]
+    if kind == "Unary":
+        return ["unary", node.op, node_spec(node.a, images)]
+    if kind == "Lerp":
+        return ["lerp"] + [node_spec(x, images) for x in (node.t, node.a, node.b)]
+    if kind == "Checkerboard":
+        return ["checker", node_spec(node.p, images), float(node.ratio)]
+    if kind in ("Noisef", "Noise3f"):
+        return [kind.lower(), node_spec(node.p, images), node_spec(node.octaves, images)]
+    if kind == "Component":
+        return ["comp", node_spec(node.p, images), int(node.index)]
+    if kind == "ToVec3":
+        return ["vec3"] + [node_spec(x, images) for x in node.args]
     if kind == "Texture":
         image = np.array(node.image, np.float32)  # a copy: pine_tpu's are read-only
         k = next((k for k, im in enumerate(images) if np.array_equal(im, image)), None)
@@ -219,18 +247,56 @@ def node_spec(node, images):
             images.append(image)
             k = len(images) - 1
         return ["texture", node_spec(node.p, images), k]
-    raise NotImplementedError(f"{kind} nodes are not ported yet (ROADMAP.md, modules item 10)")
+    raise NotImplementedError(f"{kind} nodes are not ported yet (ROADMAP.md, modules item 15)")
 
 
 def node_of(spec, images):
     """The port's node of a spec of ``node_spec``; ``images`` (H,W,C) arrays."""
-    if spec[0] == "const":
-        return N.Constant(spec[1])
-    if spec[0] == "uv":
-        return N.UV()
-    if spec[0] == "texture":
-        return N.Texture(node_of(spec[1], images), images[spec[2]])
-    return N.Binary(spec[0], node_of(spec[1], images), node_of(spec[2], images))
+    kind, args = spec[0], spec[1:]
+    sub = lambda x: node_of(x, images)  # noqa: E731
+    if kind == "const":
+        return N.Constant(args[0])
+    if kind in ("position", "normal", "uv"):
+        return {"position": N.Position, "normal": N.Normal, "uv": N.UV}[kind]()
+    if kind == "texture":
+        return N.Texture(sub(args[0]), images[args[1]])
+    if kind == "unary":
+        return N.Unary(args[0], sub(args[1]))
+    if kind == "lerp":
+        return N.Lerp(*map(sub, args))
+    if kind == "checker":
+        return N.Checkerboard(sub(args[0]), args[1])
+    if kind == "noisef":
+        return N.Noisef(sub(args[0]), sub(args[1]))
+    if kind == "noise3f":
+        return N.Noise3f(sub(args[0]), sub(args[1]))
+    if kind == "comp":
+        return N.Component(sub(args[0]), args[1])
+    if kind == "vec3":
+        return N.ToVec3(*map(sub, args))
+    return N.Binary(kind, sub(args[0]), sub(args[1]))
+
+
+VEC3_PARAMS = ("albedo", "color", "sigma_s")
+
+
+def param_record(name, node, images):
+    """One node parameter as record keys: ``name`` the constant ((3,) for
+    VEC3_PARAMS, else a scalar), or ``name.node`` its spec as JSON."""
+    spec = node_spec(node, images)
+    if spec[0] != "const":
+        return {f"{name}.node": np.asarray(json.dumps(spec))}
+    if name in VEC3_PARAMS:
+        return {name: np.broadcast_to(np.asarray(spec[1], np.float32).reshape(-1), (3,)).copy()}
+    return {name: np.asarray(np.asarray(spec[1], np.float32).reshape(-1)[0])}
+
+
+def param_of(rec, name, images, default):
+    """The node of a parameter recorded by ``param_record`` in the keys of
+    ``rec`` (a mapping), or Constant(``default``) where it is absent."""
+    if f"{name}.node" in rec:
+        return node_of(json.loads(str(rec[f"{name}.node"])), images)
+    return N.Constant(rec[name] if name in rec else default)
 
 
 def material_record(mat, images) -> dict:
@@ -239,14 +305,15 @@ def material_record(mat, images) -> dict:
     constant or a ``.node`` spec (module docstring)."""
     rec = {"tag": np.asarray(mat.tag)}
     for name, default in M.PARAMS.items():
-        spec = node_spec(getattr(mat, name, default), images)
-        if spec[0] != "const":
-            rec[f"{name}.node"] = np.asarray(json.dumps(spec))
-        elif name in ("albedo", "color"):
-            rec[name] = np.broadcast_to(np.asarray(spec[1], np.float32).reshape(-1), (3,)).copy()
-        else:
-            rec[name] = np.asarray(np.asarray(spec[1], np.float32).reshape(-1)[0])
+        rec.update(param_record(name, getattr(mat, name, default), images))
     return rec
+
+
+def distr_record(distr):
+    """An environment light's importance map (its Distribution2D, the
+    port's or pine_tpu's) as record keys."""
+    return {k: np.asarray(getattr(distr, k), np.float32)
+            for k in ("pdf_img", "cdf_marg", "cdf_cond")}
 
 
 def light_record(li) -> dict:
@@ -255,10 +322,49 @@ def light_record(li) -> dict:
     kind = type(li).__name__
     if kind == "PointLight":
         return dict(kind="point", position=li.position, color=li.color)
+    if kind == "SpotLight":
+        return dict(kind="spot", position=li.position, direction=li.direction, color=li.color,
+                    falloff_cos=li.falloff_cos, cutoff_cos=li.cutoff_cos)
     if kind == "DirectionalLight":
         return dict(kind="directional", direction=li.direction, color=li.color)
-    raise NotImplementedError(f"{kind} is not ported yet (ROADMAP.md, modules item "
-                              f"{3 if kind == 'SpotLight' else 10})")
+    if kind == "Sky":
+        return dict(kind="sky", sun_color=li.sun_color)
+    if kind == "Atmosphere":
+        return dict(kind="atmosphere", sun_direction=li.sun_direction, sun_color=li.sun_color,
+                    **distr_record(li.distr))
+    if kind == "ImageSky":
+        rec = dict(kind="imagesky", image=np.asarray(li.image, np.float32), tint=li.tint,
+                   **distr_record(li.distr))
+        if li.l2w is not None:
+            rec["l2w"] = np.asarray(li.l2w, np.float32)
+        return rec
+    raise NotImplementedError(f"{kind} is not ported yet (ROADMAP.md, modules item 11)")
+
+
+def light_of(rec, images, device):
+    """The port's light of a ``light.<i>.*`` record (keys without the prefix)."""
+    from pine_tpu_torch.scene import env_lights as E
+
+    kind = str(rec["kind"])
+    if kind == "point":
+        return L.PointLight(rec["position"], rec["color"])
+    if kind == "spot":
+        return L.SpotLight.of_record(rec["position"], rec["direction"], rec["color"],
+                                     rec["falloff_cos"], rec["cutoff_cos"])
+    if kind == "directional":
+        return L.DirectionalLight.unit(rec["direction"], rec["color"])
+    if kind == "sky":
+        return L.Sky(rec["sun_color"])
+    if kind in ("atmosphere", "imagesky"):
+        distr = E.Distribution2D(rec["pdf_img"], rec["cdf_marg"], rec["cdf_cond"])
+        if kind == "atmosphere":
+            return E.Atmosphere(rec["sun_direction"], rec["sun_color"], distr=distr)
+        return E.ImageSky(rec["image"], rec["tint"], distr=distr, l2w=rec.get("l2w"))
+    color = param_of(rec, "color", images, M.PARAMS["color"])
+    if kind == "mesh":
+        return L.MeshLight(rec["tris"], int(rec["gidx"]), color, device)
+    return L.AreaLight(int(rec["tid"]), torch.as_tensor(np.array(rec["params"]), device=device),
+                       int(rec["gidx"]), color)
 
 
 def carry_lattice(lat):
@@ -299,6 +405,10 @@ def upload_group(g: dict, device, small_kernel=None, mesh_kernel=None) -> dict:
     return out
 
 
+def _prefixed(arrays, prefix):
+    return {k[len(prefix):]: v for k, v in arrays.items() if k.startswith(prefix)}
+
+
 def compiled_scene_from_arrays(arrays: dict, device=None, small_kernel=None,
                                mesh_kernel=None, inst_kernel=None) -> CompiledScene:
     """Upload the arrays of ``scene_arrays``'s format to ``device`` (default:
@@ -331,29 +441,11 @@ def compiled_scene_from_arrays(arrays: dict, device=None, small_kernel=None,
     images = [arrays[f"image.{k}"] for k in range(int(arrays.get("n_images", 0)))]
     materials = []
     for i in range(int(arrays["n_materials"])):
-        mat = {"tag": int(arrays[f"mat.{i}.tag"])}
-        for name, default in M.PARAMS.items():
-            key = f"mat.{i}.{name}"
-            mat[name] = (node_of(json.loads(str(arrays[key + ".node"])), images)
-                         if key + ".node" in arrays else N.Constant(arrays.get(key, default)))
-        materials.append(mat)
-
-    lights = []
-    for i in range(int(arrays["n_lights"])):
-        get = lambda k: arrays[f"light.{i}.{k}"]  # noqa: E731
-        kind = str(get("kind"))
-        if kind == "point":
-            lights.append(L.PointLight(get("position"), get("color")))
-        elif kind == "directional":
-            lights.append(L.DirectionalLight.unit(get("direction"), get("color")))
-        elif kind == "mesh":
-            lights.append(L.MeshLight(get("tris"), int(get("gidx")),
-                                      t(get("color"), torch.float32), dev))
-        else:
-            lights.append(L.AreaLight(
-                int(get("tid")), t(get("params"), torch.float32), int(get("gidx")),
-                t(get("color"), torch.float32),
-            ))
+        rec = _prefixed(arrays, f"mat.{i}.")
+        materials.append({"tag": int(rec["tag"]), **{name: param_of(rec, name, images, default)
+                                                     for name, default in M.PARAMS.items()}})
+    lights = [light_of(_prefixed(arrays, f"light.{i}."), images, dev)
+              for i in range(int(arrays["n_lights"]))]
 
     camera = None
     if "cam.position" in arrays:

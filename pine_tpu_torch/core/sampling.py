@@ -43,6 +43,15 @@ def uniform_hemisphere(u):
     )
 
 
+def uniform_sphere(u):
+    phi = u[..., 0] * Pi * 2
+    cos_theta = 1.0 - 2.0 * u[..., 1]
+    sin_theta = torch.sqrt(torch.clamp_min(1.0 - cos_theta**2, 0.0))
+    return torch.stack(
+        [sin_theta * torch.cos(phi), sin_theta * torch.sin(phi), cos_theta], -1
+    )
+
+
 def balance_heuristic(pf, pg):
     """One-sample MIS balance heuristic."""
     return pf / torch.clamp_min(pf + pg, 1e-20)

@@ -2,7 +2,11 @@
 
 Counterpart of pine_tpu/core/vecmath.py.  Device-side functions take
 ``(..., 3)`` tensors; the 4x4 transform builders are host-side numpy, used
-while a scene is built.
+while a scene is built.  Dot products and cross products of 3-vectors are
+written out term by term, each product and sum its own operation: a
+reduction over the trailing axis sums in another order on the card than on
+the CPU, and a fused kernel (``torch.linalg.cross``) may contract a
+multiply-add there, so the card and the CPU would differ in the last ulp.
 """
 from __future__ import annotations
 
@@ -14,15 +18,18 @@ FLOAT_MAX = float(np.finfo(np.float32).max)
 
 
 def dot(a, b):
-    return (a * b).sum(-1)
+    p = a * b
+    if p.shape[-1] == 3:
+        return p[..., 0] + p[..., 1] + p[..., 2]
+    return p.sum(-1)
 
 
 def dotk(a, b):
-    return (a * b).sum(-1, keepdim=True)
+    return dot(a, b)[..., None]
 
 
 def length_squared(v):
-    return (v * v).sum(-1)
+    return dot(v, v)
 
 
 def length(v):
@@ -30,7 +37,7 @@ def length(v):
 
 
 def normalize(v, eps=0.0):
-    n = torch.sqrt((v * v).sum(-1, keepdim=True))
+    n = torch.sqrt(dotk(v, v))
     if eps:
         n = torch.clamp_min(n, eps)
     return v / n
@@ -40,9 +47,11 @@ def safe_normalize(v):
     return normalize(v, eps=1e-20)
 
 
+_NEXT, _PREV = (1, 2, 0), (2, 0, 1)  # the cyclic shifts of (x, y, z)
+
+
 def cross(a, b):
-    a, b = torch.broadcast_tensors(a, b)
-    return torch.linalg.cross(a, b, dim=-1)
+    return a[..., _NEXT] * b[..., _PREV] - a[..., _PREV] * b[..., _NEXT]
 
 
 def face_forward(v, n):

@@ -21,7 +21,11 @@ between the two devices anyway.  The walk's sampler dims are pine_tpu's
 (``integrators/path.py`` schedule; +10..+12 the cache lookup's jitter).
 Lanes run in the path integrator's tile order (per-pixel values do not
 depend on it), in chunks of DEFAULT_CHUNK; on the card, heavy scenes sort
-each bounce's rays as the path integrator does.  Surfaces only: the
+each bounce's rays as the path integrator does.  A ray that escapes takes
+the environment light's radiance, MIS-weighted, as it arrives along the
+segment (cachedpath.cpp; pine_tpu's cachedpath.py:332-336, 464-468).  As
+pine_tpu's, this integrator takes no subsurface walk: a Subsurface lane
+keeps its BSSRDF lobe at the entry vertex.  Surfaces only: the
 participating media of pine_tpu's branches (ROADMAP.md, modules item 11)
 cannot reach a port scene, whose ``add`` refuses them.
 """
@@ -104,13 +108,14 @@ class CachedPathIntegrator:
 
 def render_cached(cscene, cam, W, H, sampler, spp, max_depth, bounds, max_axis_resolution=128,
                   starting_depth=1, chunk=None, return_stats=False):
-    """Render and return the (H,W,3) mean radiance on the scene's device.
-    ``bounds`` (lo, hi) is the scene's box, which the cache's grid covers.
+    """Render and return the (H,W,3) mean radiance on the scene's device,
+    seen by ``cam`` (None: the compiled scene's camera).  ``bounds`` (lo, hi)
+    is the scene's box, which the cache's grid covers.
     With return_stats=True also returns {"traced_rays", "learn_s",
     "render_s"}: the extension and NEE shadow rays of both phases, and each
     phase's wall (ending in a device synchronize)."""
     dev = cscene.device
-    cp = cam.params(dev)
+    cp = cam.params(dev) if cam is not None else cscene.camera
     grid = SpatialGrid(*bounds, max_axis_resolution, dev)
     n = W * H
     chunk = min(n, DEFAULT_CHUNK) if chunk is None else int(chunk)
@@ -174,13 +179,15 @@ def _trace_recorded(cscene, cp, xs, ys, W, H, sampler, sample_index, max_depth, 
                 cell=[torch.zeros(n, dtype=torch.int64, device=dev)] * max_depth,
                 valid=[torch.zeros(n, dtype=torch.bool, device=dev)] * max_depth)
     for depth in range(max_depth):
-        gidx, p_s, ns, ctx, wi_world, emis, le, mis = walk.hit(cscene)
-        if mis is not None:  # emitted radiance arriving along this segment
-            recs["emit"][depth] = torch.where(emis[:, None], le * mis[:, None], 0.0)
+        gidx, p_s, ns, ctx, wi_world, emis, le, mis, env = walk.hit(cscene)
+        emit = zero3 if env is None else env[0] * env[1]  # arriving along this segment
+        if mis is not None:
+            emit = emit + torch.where(emis[:, None], le * mis[:, None], 0.0)
+        recs["emit"][depth] = emit
         if depth + 1 >= max_depth:
             break
         surf = walk.alive
-        recs["nee"][depth], thr, valid = walk.scatter(
+        recs["nee"][depth], thr, valid, _ = walk.scatter(
             cscene, xs, ys, sampler, sample_index, 4 + depth * 16, gidx, p_s, ns, ctx, wi_world,
             surf)
         recs["thr"][depth] = torch.where((surf & valid)[:, None], thr, 0.0)
@@ -199,7 +206,9 @@ def _trace_with_cache(cscene, cp, xs, ys, W, H, sampler, sample_index, max_depth
     beta = torch.ones(n, 3, device=dev)
     for depth in range(max_depth):
         dim = 4 + depth * 16
-        gidx, p_s, ns, ctx, wi_world, emis, le, mis = walk.hit(cscene)
+        gidx, p_s, ns, ctx, wi_world, emis, le, mis, env = walk.hit(cscene)
+        if env is not None:
+            L = L + beta * env[0] * env[1]
         if mis is not None:
             L = L + torch.where(emis[:, None], beta * le * mis[:, None], 0.0)
         if depth + 1 >= max_depth:
@@ -213,8 +222,8 @@ def _trace_with_cache(cscene, cp, xs, ys, W, H, sampler, sample_index, max_depth
             cell = grid.jittered_cell_of(p_s, u3)
             L = L + torch.where(use_cache[:, None], beta * cache[cell.long()], 0.0)
             surf = surf & ~use_cache
-        contrib, thr, valid = walk.scatter(cscene, xs, ys, sampler, sample_index, dim, gidx,
-                                           p_s, ns, ctx, wi_world, surf)
+        contrib, thr, valid, _ = walk.scatter(cscene, xs, ys, sampler, sample_index, dim, gidx,
+                                              p_s, ns, ctx, wi_world, surf)
         L = L + beta * contrib
         beta = torch.where((surf & valid)[:, None], beta * thr, beta)
     return L, walk.n_rays

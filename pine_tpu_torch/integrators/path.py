@@ -1,8 +1,9 @@
 """Wavefront path integrator.  Counterpart of pine_tpu/integrators/path.py.
 
-Every depth step runs ray intersection, emissive hits with MIS, material
-evaluation, BSDF sampling and NEE with a shadow ray, dense over the whole
-wavefront with per-lane alive masks.  The MIS bookkeeping and the firefly
+Every depth step runs ray intersection, emissive hits and escaped rays (the
+environment light) with MIS, material evaluation, the subsurface walk, BSDF
+sampling and NEE with a shadow ray, dense over the whole wavefront with
+per-lane alive masks.  The MIS bookkeeping and the firefly
 clamp are pine_tpu's: everything but the depth-0 direct hit is clamped to 8
 at the path level.
 
@@ -11,6 +12,10 @@ Sampler dimension schedule: dims 0-3 = pixel jitter + lens; per depth d
     +0   light selection          +1,+2  light-sample u2
     +3,+4 material lobe choices   +5,+6  bxdf wm u2
     +7   bxdf fresnel u1          +8,+9  bxdf cosine u2
+and, in a scene with a Subsurface material, the walk's own block past every
+depth's (base = 4 + max_depth*16 + d*32):
+    +0   color channel            then per step i of 8:
+    +1+3i medium distance u1      +2+3i,+3+3i scattering direction u2
 
 Where the scene sorts on the card (CompiledScene.sort_mode: heavy scenes;
 instanced ones with ``origin_sort`` set), each bounce's continuation rays are
@@ -19,11 +24,13 @@ serves that depth's NEE shadow rays and the next depth's intersect.  Depth 0
 is not sorted: the tile-major primary rays are coherent already.
 
 Material parameters are evaluated per lane at the hit (its ``p``, ``n`` and
-``uv``, so textures look up there), and Uber's lobe choice reads dims +3 and
-+4.  NEE samples one light of the list uniformly: point and directional
-lights (delta, no MIS) and the emissive shapes.  Media, subsurface walks
-and environment lights are not ported yet (their scenes are refused at
-compile()).
+``uv``, so textures and procedural nodes look up there), and Uber's lobe
+choice reads dims +3 and +4.  NEE samples one light of the list uniformly:
+point, spot and directional lights (delta, no MIS), the emissive shapes and
+the environment light, last, whose shadow rays run to FLOAT_MAX * (1 -
+1e-3).  A ray that escapes the scene takes the environment light's color,
+weighted by MIS against its pdf unless the bounce was a delta one.  Media
+are not ported yet (``Scene.add`` refuses them).
 """
 from __future__ import annotations
 
@@ -33,10 +40,12 @@ import torch
 from pine_tpu_torch.core import camera as camera_mod
 from pine_tpu_torch.core import progress
 from pine_tpu_torch.core.ray import offset_ray_origin
-from pine_tpu_torch.core.sampling import balance_heuristic
+from pine_tpu_torch.core.sampling import balance_heuristic, uniform_sphere
+from pine_tpu_torch.core.scattering import refract
 from pine_tpu_torch.core.vecmath import dot, face_forward, to_local, to_world
 from pine_tpu_torch.scene import bxdf as bxdf_mod
 from pine_tpu_torch.scene import material_eval
+from pine_tpu_torch.scene.materials import BX_BSSRDF
 
 FLOAT_MAX = float(np.finfo(np.float32).max)
 CLAMP = 8.0
@@ -157,6 +166,56 @@ def nee_contribution(cscene, p_s, ns, state, wi, ls, alive, sort_perm=None):
     return torch.where((do_nee & ~occluded)[:, None], contrib, 0.0), do_nee
 
 
+def bssrdf_walk(cscene, state, p_s, ns, wi_world, xs, ys, sampler, sample_index, dim_base,
+                steps=8):
+    """Random-walk exit-point search of the subsurface lobe (bxdf.cpp:329-352),
+    pine_tpu's bounded form: on lanes whose lobe is BSSRDF, refract into the
+    surface, pick a color channel (beta 3 e_c), and walk ``steps``
+    exponential steps of mean 1 / sigma_s[c] with uniform-sphere scattering;
+    the first step whose ray leaves through a surface before its medium
+    distance moves the vertex to that surface point.  A walk that does not
+    leave keeps the entry vertex.  Each step is one closest-hit query of the
+    whole scene from tmin 1e-4; the lanes that walk no more get tmax = -1 and
+    are culled.  -> (p, n, wi_world, beta multiplier (N,3))."""
+    n, dev = p_s.shape[0], p_s.device
+    wi_local = to_local(ns, wi_world)
+    z_up = torch.zeros_like(wi_local)
+    z_up[:, 2] = 1.0
+    ok_r, wt, _ = refract(wi_local, z_up, state["ior"])
+    w = to_world(ns, wt)  # into the surface
+    walking = (state["tag"] == BX_BSSRDF) & ok_r
+
+    u_c = sampler.u1(xs, ys, sample_index, dim_base)
+    chan = (u_c * 3).to(torch.int32).clamp(0, 2)
+    beta_mask = 3.0 * (torch.arange(3, device=dev)[None, :] == chan[:, None]).to(torch.float32)
+    sig = state["sigma_s"].gather(1, chan[:, None].long())[:, 0]
+    sigma_t_inv = 1.0 / torch.clamp_min(sig, 1e-6)
+
+    p = offset_ray_origin(p_s, face_forward(ns, w))
+    exit_p, exit_n, exit_wi = p_s, ns, wi_world
+    exited = torch.zeros(n, dtype=torch.bool, device=dev)
+    tmin = torch.full((n,), 1e-4, device=dev)
+    for i in range(steps):
+        t_surf, gidx, hit, mesh_tri = cscene.intersect(
+            p, w.contiguous(), tmin, torch.where(walking, FLOAT_MAX, -1.0))
+        u_t = sampler.u1(xs, ys, sample_index, dim_base + 1 + 3 * i)
+        u_dir = sampler.u2(xs, ys, sample_index, dim_base + 2 + 3 * i)
+        t_med = -torch.log(torch.clamp_min(1.0 - u_t, 1e-7)) * sigma_t_inv
+        t_hit = torch.where(hit, t_surf, 1.0)
+        pc, nn, _ = cscene.surface_info(gidx, p + t_hit[:, None] * w, mesh_tri)
+        exit_now = walking & hit & (t_surf < t_med)
+        exit_p = torch.where(exit_now[:, None], pc, exit_p)
+        exit_n = torch.where(exit_now[:, None], nn, exit_n)
+        exit_wi = torch.where(exit_now[:, None], -w, exit_wi)
+        exited = exited | exit_now
+        walking = walking & ~exit_now & hit  # on from the tentative medium point
+        p = torch.where(walking[:, None], p + t_med[:, None] * w, p).contiguous()
+        w = torch.where(walking[:, None], uniform_sphere(u_dir), w)
+    m = exited[:, None]
+    return (torch.where(m, exit_p, p_s), torch.where(m, exit_n, ns),
+            torch.where(m, exit_wi, wi_world), torch.where(m, beta_mask, 1.0))
+
+
 class PathWalk:
     """One sample's walk through the depth loop: the state carried from depth
     to depth, moved by ``hit`` (the intersect and the emissive hit) and
@@ -179,38 +238,59 @@ class PathWalk:
         self.perm = None  # depth 0 is not sorted: tile-major primaries are coherent
         self.n_rays = torch.zeros((), dtype=torch.int64, device=dev)
 
+    def escaped(self, cscene, hitm):
+        """(The environment light's radiance on the lanes alive at the depth
+        whose ray escapes, ``hitm`` false, else 0; its MIS weight (N, 1)), or
+        None in a scene without an environment light."""
+        env = cscene.env_light
+        if env is None:
+            return None
+        mis = torch.where(self.prev_delta, 1.0, balance_heuristic(self.prev_pdf, env.pdf(self.rd)))
+        return (torch.where((self.alive & ~hitm)[:, None], env.color(self.rd), 0.0),
+                mis[:, None])
+
     def hit(self, cscene):
         """Intersect the depth's rays; the walk's lanes become the surface
         hits -> (gidx, p, n, ctx, wi_world, emissive mask, their Le and MIS
-        weight (None in a scene without emissive shapes))."""
+        weight (None in a scene without emissive shapes), the escaped
+        lanes' environment radiance (``escaped``))."""
         self.n_rays = self.n_rays + self.alive.sum()
         # dead lanes get tmax = -1 and miss every group box up front
         t, gidx, hitm, mesh_tri = cscene.intersect(
             self.ro, self.rd, self.tmin, torch.where(self.alive, FLOAT_MAX, -1.0),
             sort_perm=self.perm)
         hitm = hitm & self.alive
+        env = self.escaped(cscene, hitm)
         t_hit = torch.where(hitm, t, 1.0)  # miss lanes: t = BIG would overflow
         p_s, ns, uv = cscene.surface_info(gidx, self.ro + t_hit[:, None] * self.rd, mesh_tri)
+        ctx = dict(p=p_s, n=ns, uv=uv)
         wi_world = -self.rd
         emis = cscene.is_emissive_lane(gidx) & hitm
         le = mis = None
         if cscene.emissive_globals:
-            le = cscene.emissive_le(gidx, ns, wi_world)
+            le = cscene.emissive_le(gidx, ctx, wi_world)
             light_pdf = cscene.light_pdf_at_hit(gidx, self.ro, self.rd, t_hit, ns)
             mis = torch.where(self.prev_delta, 1.0, balance_heuristic(self.prev_pdf, light_pdf))
         self.alive = hitm & ~emis
-        return gidx, p_s, ns, dict(p=p_s, n=ns, uv=uv), wi_world, emis, le, mis
+        return gidx, p_s, ns, ctx, wi_world, emis, le, mis, env
 
     def scatter(self, cscene, xs, ys, sampler, sample_index, dim, gidx, p_s, ns, ctx, wi_world,
-                surf, nee=True):
-        """Material eval, BSDF sample and (with ``nee``) NEE at the surface
-        lanes ``surf``, sampler dims from ``dim`` -> (NEE contribution
-        without beta, throughput f cos / pdf, the sample's validity), and the
-        walk moved to the continuation rays."""
+                surf, nee=True, walk_dim=None):
+        """Material eval, the subsurface walk (in a scene with a Subsurface
+        material, given ``walk_dim``, its first sampler dim), BSDF sample and
+        (with ``nee``) NEE at the surface lanes ``surf``, sampler dims from
+        ``dim`` -> (NEE contribution without beta, throughput f cos / pdf,
+        the sample's validity, the walk's beta multiplier or None), and the
+        walk moved to the continuation rays.  The caller multiplies beta by
+        the walk's multiplier before it weighs the NEE contribution."""
         mat_idx = cscene.g_mat[gidx.clamp(0, cscene.n_global - 1).long()]
         u_mat = sampler.u2(xs, ys, sample_index, dim + 3)
         state = material_eval.eval_bxdf_state(cscene, mat_idx, ctx, wi_world, u_mat[:, 0],
                                               u_mat[:, 1], MIN_ROUGHNESS, self.diffused)
+        sss_mult = None
+        if walk_dim is not None and cscene.has_subsurface:
+            p_s, ns, wi_world, sss_mult = bssrdf_walk(cscene, state, p_s, ns, wi_world, xs, ys,
+                                                      sampler, sample_index, walk_dim)
         wi = to_local(ns, wi_world)
         u_wm = sampler.u2(xs, ys, sample_index, dim + 5)
         u_fr = sampler.u1(xs, ys, sample_index, dim + 7)
@@ -236,7 +316,7 @@ class PathWalk:
         self.prev_delta = bs["is_delta_sample"]
         self.diffused = self.diffused | (surf_next & ~bs["is_delta_sample"])
         self.ro, self.rd = ro_next.contiguous(), wo_world.contiguous()
-        return contrib, thr, bs["valid"]
+        return contrib, thr, bs["valid"], sss_mult
 
 
 def path_trace_sample(cscene, cp, xs, ys, W, H, sampler, sample_index, max_depth, nee=True):
@@ -247,17 +327,23 @@ def path_trace_sample(cscene, cp, xs, ys, W, H, sampler, sample_index, max_depth
     L_indirect = torch.zeros(n, 3, device=dev)  # everything else (clamped)
     beta = torch.ones(n, 3, device=dev)
     for depth in range(max_depth):
-        gidx, p_s, ns, ctx, wi_world, emis, le, mis = walk.hit(cscene)
-        if mis is not None:
-            contrib = torch.where(emis[:, None], beta * le * mis[:, None], 0.0)
+        gidx, p_s, ns, ctx, wi_world, emis, le, mis, env = walk.hit(cscene)
+        for contrib in (None if env is None else beta * env[0] * env[1],
+                        None if mis is None else torch.where(emis[:, None],
+                                                             beta * le * mis[:, None], 0.0)):
+            if contrib is None:
+                continue
             if depth == 0:
                 L_direct = L_direct + contrib
             else:
                 L_indirect = L_indirect + contrib
         if depth + 1 >= max_depth:
             break
-        contrib, thr, _ = walk.scatter(cscene, xs, ys, sampler, sample_index, 4 + depth * 16,
-                                       gidx, p_s, ns, ctx, wi_world, walk.alive, nee)
+        contrib, thr, _, sss_mult = walk.scatter(
+            cscene, xs, ys, sampler, sample_index, 4 + depth * 16, gidx, p_s, ns, ctx, wi_world,
+            walk.alive, nee, walk_dim=4 + max_depth * 16 + depth * 32)
+        if sss_mult is not None:
+            beta = beta * sss_mult
         L_indirect = L_indirect + beta * contrib
         beta = torch.where(walk.alive[:, None], beta * thr, beta)
     return L_direct + torch.clamp_max(L_indirect, CLAMP), walk.n_rays

@@ -5,16 +5,18 @@ registrations; names per SURVEY.md Appendix A).
 Each name maps to one Python callable that dispatches on argument types and
 arity.  Every name pine_tpu registers is registered here.  Those whose
 target the port has run it: the Scene and its ``add``/``set``/``load``
-(GLB files) and ``get_aabb``, the analytic shapes and ``Mesh(file)``, the
-materials but Subsurface, the ``UV`` and ``Texture`` nodes and
-``load_image``, point and directional lights, ThinLenCamera, Film and its
-tone mappers, the uniform and blue-noise samplers, the math, vector, matrix
-and transform builtins, ``PathIntegrator``, ``CachedPathIntegrator`` and
-``render``, ``save`` and ``println``.  The others raise
-NotImplementedError naming their ROADMAP.md modules item when called, so a
-script that declares something it never uses still runs (bench.py's box
-declares a Subsurface material it never applies).  ``render`` renders on
-the device the interpreter was given.
+(GLB files) and ``get_aabb``, the analytic shapes, lines, ``Mesh(file)``
+and ``heightmap(file)``, the materials, the texture and procedural nodes
+(``UV``, ``Texture``, ``Position``, ``Normal``, ``Checkerboard``,
+``Noisef``, ``Noise3f``, ``Vec3``, ``Comp`` and ``lerp``, ``sqr``,
+``sqrt``, ``fract`` of nodes), the noise functions and ``load_image``,
+point, spot and directional lights, the environment lights (``Sky``,
+``Atmosphere``, ``ImageSky``), ThinLenCamera, Film and its tone mappers,
+the uniform, Halton, Sobol and blue-noise samplers, the math, vector,
+matrix and transform builtins, ``PathIntegrator``,
+``CachedPathIntegrator`` and ``render``, ``save`` and ``println``.  The
+others raise NotImplementedError naming their ROADMAP.md modules item when
+called.  ``render`` renders on the device the interpreter was given.
 """
 from __future__ import annotations
 
@@ -27,20 +29,14 @@ Pi = float(np.pi)
 
 # builtin -> the ROADMAP.md modules item that ports its target
 UNPORTED = {
-    # procedural texture nodes and noise, environment lights
-    **dict.fromkeys(("Position", "Normal", "Checkerboard", "Noisef", "Noise3f", "Function",
-                     "Vec3", "Comp", "pnoise", "pnoise2d", "pnoise3d", "fbm", "fbm2d", "fbm3d",
-                     "Sky", "Atmosphere", "ImageSky"), 10),
-    # shapes and lights of the scene model still to port
-    **dict.fromkeys(("Line", "SpotLight"), 3),
     "SDF": 9,
     **dict.fromkeys(("HgPF", "Hg2PF", "CloudPF", "HomoMedium", "VDBMedium"), 11),
-    **dict.fromkeys(("HaltonSampler", "SobolSampler"), 2),
     **dict.fromkeys(("AOIntegrator", "VolIntegrator", "RandomWalkIntegrator",
                      "GuidedPathIntegrator", "MltIntegrator", "RestirIntegrator",
                      "MicroRenderGI", "denoise"), 12),
-    # script lambdas evaluated over a batch of lanes (pine_tpu: under a jax trace)
-    **dict.fromkeys(("draw", "heightmap"), 15),
+    # script lambdas evaluated over a batch of lanes (pine_tpu: under a jax trace);
+    # heightmap(size, fn) too (``heightmap(file)`` is ported)
+    **dict.fromkeys(("draw", "Function"), 15),
 }
 
 
@@ -98,6 +94,7 @@ def _vecfn(fn):
 def make_registry(interp):
     """Build {name: callable}; ``interp`` is the owning Interpreter."""
     from pine_tpu_torch.core import camera as camera_mod
+    from pine_tpu_torch.core import noise as noise_mod
     from pine_tpu_torch.core import samplers as samplers_mod
     from pine_tpu_torch.core import sampling as smp
     from pine_tpu_torch.core import vecmath as vm
@@ -105,6 +102,7 @@ def make_registry(interp):
     from pine_tpu_torch.core.rng import RNG
     from pine_tpu_torch.integrators.path import PathIntegrator
     from pine_tpu_torch.io.image_io import save_image
+    from pine_tpu_torch.scene import env_lights as E
     from pine_tpu_torch.scene import lights as L
     from pine_tpu_torch.scene import materials as M
     from pine_tpu_torch.scene import nodes as N
@@ -175,7 +173,7 @@ def make_registry(interp):
     @register("lerp")
     def _lerp(t, a, b):
         if _nodeish(t, a, b):
-            return _refuse("lerp of texture nodes", 10)
+            return N.Lerp(matarg(t), matarg(a), matarg(b))
         ad, bd, td = _data(a), _data(b), _data(t)
         r = ad + (bd - ad) * td
         if _isvec(a) or _isvec(b):
@@ -185,28 +183,32 @@ def make_registry(interp):
     @register("sqr")
     def _sqr(x):
         if isinstance(x, N.Node):
-            return _refuse("sqr of a texture node", 10)
+            return N.Unary("s", x)
         return PrlVec(x.data * x.data, x.is_int) if _isvec(x) else x * x
 
-    def _elementwise(np_fn, name):
+    def _elementwise(np_fn, node_op=None):
+        """An elementwise builtin; of a node, the Unary node ``node_op``
+        (pine_tpu registers sqrt and fract of nodes)."""
         def fn(x):
             if isinstance(x, N.Node):
-                return _refuse(f"{name} of a texture node", 10)
+                if node_op is None:
+                    raise TypeError("this function of a texture node is not registered in PRL")
+                return N.Unary(node_op, x)
             if _isvec(x):
                 return PrlVec(np_fn(x.data.astype(np.float32) if x.is_int else x.data))
             return float(np_fn(x))
 
         return fn
 
-    reg["sqrt"] = _elementwise(np.sqrt, "sqrt")
-    reg["fract"] = _elementwise(lambda x: x - np.floor(x), "fract")
-    reg["floor"] = _elementwise(np.floor, "floor")
-    reg["ceil"] = _elementwise(np.ceil, "ceil")
+    reg["sqrt"] = _elementwise(np.sqrt, "r")
+    reg["fract"] = _elementwise(lambda x: x - np.floor(x), "f")
+    reg["floor"] = _elementwise(np.floor)
+    reg["ceil"] = _elementwise(np.ceil)
     for nm, f in (("exp", np.exp), ("log2", np.log2), ("log", np.log), ("log10", np.log10),
                   ("sin", np.sin), ("cos", np.cos), ("tan", np.tan), ("acos", np.arccos),
                   ("asin", np.arcsin), ("sinh", np.sinh), ("cosh", np.cosh),
                   ("tanh", np.tanh)):
-        reg[nm] = _elementwise(f, nm)
+        reg[nm] = _elementwise(f)
 
     reg["powi"] = lambda b, e: int(b**e)
 
@@ -312,11 +314,6 @@ def make_registry(interp):
         theta = sc[..., 1] * Pi
         return sph_to_cart(sc[..., 0] * (2 * Pi), torch.sin(theta), torch.cos(theta))
 
-    def uniform_sphere(u):
-        cos_t = 1.0 - 2.0 * u[..., 1]
-        return sph_to_cart(u[..., 0] * Pi * 2, torch.sqrt(torch.clamp_min(1.0 - cos_t**2, 0.0)),
-                           cos_t)
-
     @register("spherical_to_cartesian")
     def _s2c(phi, *rest):
         f = lambda x: torch.tensor(float(x))  # noqa: E731
@@ -332,7 +329,7 @@ def make_registry(interp):
     reg["sample_disk_polar"] = _vecfn(smp.sample_disk_polar)
     reg["sample_disk_concentric"] = _vecfn(smp.sample_disk_concentric)
     reg["cosine_weighted_hemisphere"] = _vecfn(smp.cosine_weighted_hemisphere)
-    reg["uniform_sphere"] = _vecfn(uniform_sphere)
+    reg["uniform_sphere"] = _vecfn(smp.uniform_sphere)
     reg["uniform_hemisphere"] = _vecfn(smp.uniform_hemisphere)
     reg["inverse_uniform_sphere"] = reg["cartesian_to_unit_square"]
     reg["inverse_uniform_hemisphere"] = _vecfn(lambda d: torch.stack(
@@ -363,6 +360,34 @@ def make_registry(interp):
     reg["UV"] = lambda: N.UV()
     reg["Texture"] = lambda p, image: N.Texture(
         matarg(p), image.data if isinstance(image, Array2dValue) else image)
+    reg["Position"] = lambda: N.Position()
+    reg["Normal"] = lambda: N.Normal()
+    reg["Checkerboard"] = lambda p=None, ratio=0.5: N.Checkerboard(
+        N.UV() if p is None else matarg(p), float(ratio))
+    reg["Noisef"] = lambda p, octaves: N.Noisef(matarg(p), matarg(octaves))
+    reg["Noise3f"] = lambda p, octaves: N.Noise3f(matarg(p), matarg(octaves))
+    reg["Vec3"] = lambda *a: N.ToVec3(*map(matarg, a))
+    reg["Comp"] = lambda p, i: N.Component(matarg(p), int(i))
+
+    # ---- noise (node.cpp pnoise/fbm) on script values -----------------------
+    def noise_call(fn, x, arg):
+        r = fn(torch.as_tensor(np.asarray(_data(x), np.float32)), arg).numpy()
+        return float(r) if r.ndim == 0 else PrlVec(r)
+
+    def pnoise_k(k):
+        return lambda x, seed=0: noise_call(
+            lambda p, s: torch.stack([noise_mod.perlin_any(p, int(s) + i) for i in range(k)], -1),
+            x, seed)
+
+    reg["pnoise"] = lambda x, seed=0: noise_call(lambda p, s: noise_mod.perlin_any(p, int(s)),
+                                                 x, seed)
+    reg["pnoise2d"] = pnoise_k(2)
+    reg["pnoise3d"] = pnoise_k(3)
+    reg["fbm"] = lambda x, octaves: (N.Noisef(x, octaves) if _nodeish(x, octaves)
+                                     else noise_call(noise_mod.fbm, x, octaves))
+    reg["fbm2d"] = lambda x, octaves: noise_call(noise_mod.fbm2d, x, octaves)
+    reg["fbm3d"] = lambda x, octaves: (N.Noise3f(x, octaves) if _nodeish(x, octaves)
+                                       else noise_call(noise_mod.fbm3d, x, octaves))
 
     @register("load_image")
     def _load_image(filename):
@@ -390,6 +415,7 @@ def make_registry(interp):
     reg["Rect"] = lambda p, ex, ey, flip=False: S.Rect(_f32(p), _f32(ex), _f32(ey), bool(flip))
     reg["Cone"] = lambda p, n, r, h: S.Cone(_f32(p), _f32(n), float(r), float(h))
     reg["Cylinder"] = lambda p0, p1, r: S.Cylinder(_f32(p0), _f32(p1), float(r))
+    reg["Line"] = lambda p0, p1, t: S.Line(_f32(p0), _f32(p1), float(t))
     reg["Triangle"] = lambda a, b, c: S.Triangle(_f32(a), _f32(b), _f32(c))
     reg["AABB"] = lambda lo, up: S.BoxAABB(_f32(lo), _f32(up))
     reg["OBB"] = lambda aabb, m: S.BoxOBB(aabb, m.data)
@@ -410,9 +436,26 @@ def make_registry(interp):
 
         return mesh_from_glb(filename)
 
+    @register("heightmap")
+    def _heightmap(*a):
+        """heightmap(file): the mesh of the image's first channel, x along
+        the image's width (geometry.cpp heightmap)."""
+        if len(a) != 1 or not isinstance(a[0], str):
+            _refuse("`heightmap(size, function)`", 15)
+        from pine_tpu_torch.io.image_io import load_image
+
+        return S.heightmap_from_array(load_image(a[0])[..., 0].T)
+
     # ---- lights (light.cpp:174-186) ----------------------------------------
     reg["PointLight"] = lambda p, c: L.PointLight(_f32(p), _f32(c))
+    reg["SpotLight"] = lambda p, d, c, falloff, cutoff=0.0: L.SpotLight(
+        _f32(p), _f32(d), _f32(c), float(falloff), float(cutoff))
     reg["DirectionalLight"] = lambda d, c: L.DirectionalLight(_f32(d), _f32(c))
+    reg["Sky"] = lambda c: L.Sky(_f32(c))
+    reg["Atmosphere"] = lambda sun_dir, sun_color: E.Atmosphere(_f32(sun_dir), _f32(sun_color))
+    reg["ImageSky"] = lambda image, tint=None, elevation=0.0, rotation=0.0: E.ImageSky(
+        np.asarray(image.data, np.float32), np.ones(3, np.float32) if tint is None else _f32(tint),
+        float(elevation), float(rotation))
 
     # ---- camera / film (camera.cpp:40-45, film.cpp:97-120) -----------------
     reg["Uncharted2"] = lambda: "uncharted2"
@@ -434,6 +477,8 @@ def make_registry(interp):
 
     # ---- samplers (sampler.cpp:167-200) ------------------------------------
     reg["UniformSampler"] = lambda spp: samplers_mod.UniformSampler(int(spp))
+    reg["HaltonSampler"] = lambda spp: samplers_mod.HaltonSampler(int(spp))
+    reg["SobolSampler"] = lambda spp: samplers_mod.SobolSampler(int(spp))
     reg["BlueSampler"] = lambda spp: samplers_mod.BlueSampler(int(spp))
 
     # ---- integrators (program_context.cpp:54-118) --------------------------

@@ -2,10 +2,10 @@
 
 Per-lane state is a dict of dense tensors: ``tag`` (N,) int32 (BX_* from
 materials.py), ``albedo`` (N,3), ``roughness`` (N,), ``ior`` (N,).  Every
-lobe runs for all lanes and results select by tag.  The lobes of the ported
-materials are here: diffuse, conductor (Metal), refractive dielectric
-(Glass) and diffusive dielectric (Glossy); the subsurface lobes wait for the
-Subsurface material.  Directions are in the local shading frame.
+lobe runs for all lanes and results select by tag: diffuse, conductor
+(Metal), refractive (Subsurface's rough reflection), refractive dielectric
+(Glass), diffusive dielectric (Glossy) and the BSSRDF exit lobe (a cosine
+lobe on the far side).  Directions are in the local shading frame.
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ from pine_tpu_torch.core import scattering as sc
 from pine_tpu_torch.core.sampling import cosine_weighted_hemisphere
 from pine_tpu_torch.core.vecmath import Pi, dot, safe_normalize
 from pine_tpu_torch.scene.materials import (
-    BX_CONDUCTOR, BX_DIFF_DIELECTRIC, BX_DIFFUSE, BX_REFR_DIELECTRIC, BX_REFRACTIVE,
+    BX_BSSRDF, BX_CONDUCTOR, BX_DIFF_DIELECTRIC, BX_DIFFUSE, BX_REFR_DIELECTRIC, BX_REFRACTIVE,
 )
 
 EPS = 1e-7
@@ -83,6 +83,12 @@ def sample(state, wi, u2, u1, u2b):
     pdf_c = torch.where(is_smooth, 1.0, pdf_wm)
     put(tag == BX_CONDUCTOR, wo_c, f_c, pdf_c, is_smooth, is_smooth | same_hemi)
 
+    # ---- Refractive: a rough mirror with albedo (bxdf.cpp:96-120) ----
+    wo_rr = _sel(is_smooth, wo_mirror, wo_r)
+    f_r = _sel(is_smooth, albedo, albedo * dg_over[..., None])
+    pdf_r = torch.where(is_smooth, sc.abs_cos_theta(wo_mirror), pdf_wm)
+    put(tag == BX_REFRACTIVE, wo_rr, f_r, pdf_r, is_smooth, is_smooth | same_hemi)
+
     # ---- RefractiveDielectric (Glass) ----
     fr_diel = sc.fr_dielectric(sc.cos_theta(wi), ior)
     choose_reflect = u1 < fr_diel
@@ -138,6 +144,12 @@ def sample(state, wi, u2, u1, u2b):
     valid_dd = torch.where(choose_reflect, is_smooth | same_hemi, pdf_dd_t > 0.0)
     put(tag == BX_DIFF_DIELECTRIC, wo_dd, f_dd, pdf_dd, choose_reflect & is_smooth, valid_dd)
 
+    # ---- BSSRDF exit lobe (bxdf.cpp:355-369): a cosine lobe on the far side ----
+    wo_ss = cosine_weighted_hemisphere(u2b)
+    wo_ss = _sel(sc.cos_theta(wi) > 0.0, -wo_ss, wo_ss)
+    pdf_ss = sc.abs_cos_theta(wo_ss) / Pi
+    put(tag == BX_BSSRDF, wo_ss, albedo / Pi, pdf_ss, false, pdf_ss > 0.0)
+
     out["valid"] = out["valid"] & (out["pdf"] > 0.0)
     return out
 
@@ -172,6 +184,9 @@ def f_and_pdf(state, wi, wo):
     fr_c = sc.fr_schlick(albedo, dot(wi, wm).abs())
     put((tag == BX_CONDUCTOR) & same, fr_c * (dg / denom4)[..., None], pdf_wm)
 
+    # Refractive: the reflection
+    put((tag == BX_REFRACTIVE) & same & wm_ok, albedo * (dg / denom4)[..., None], pdf_wm)
+
     # RefractiveDielectric: the reflection part (NEE light paths reflect)
     fr_diel = sc.fr_dielectric(dot(wi, wm_f), ior)
     put((tag == BX_REFR_DIELECTRIC) & same & wm_ok,
@@ -186,5 +201,7 @@ def f_and_pdf(state, wi, wo):
     pr = fr_diel * pdf_wm
     pdf_dd = torch.where(alpha_raw < DELTA_ALPHA, pt, pt + pr)
     put((tag == BX_DIFF_DIELECTRIC) & same & wm_ok, f_dd, pdf_dd)
+
+    put(tag == BX_BSSRDF, albedo / Pi, sc.abs_cos_theta(wo) / Pi)
 
     return out_f, out_pdf

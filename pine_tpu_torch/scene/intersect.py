@@ -469,12 +469,71 @@ def pdf_cylinder(rows, ro, rd, t, ns):
     return torch.zeros_like(t)
 
 
+# ------------------------------------------------------------------ line ----
+
+def intersect_line(params, ro, rd, tmin, tmax):
+    """A line with a thickness (geometry.cpp:180-214): the segment in the
+    ray's look-at frame, where the ray runs along +z; a hit where the
+    segment's closest approach to the ray lies within the thickness."""
+    o_w, _ = _bc(ro, rd)
+    p0, p1, thick = _col3(params, 0), _col3(params, 3), _col(params, 15)
+    z = rd
+    up = torch.tensor([0.0, 1.0, 0.0], dtype=rd.dtype, device=rd.device).expand_as(rd)
+    z_adj = torch.where((dot(z, up).abs() > 0.999)[..., None],
+                        safe_normalize(z + torch.tensor([0.0, 0.0, 1e-5], dtype=rd.dtype,
+                                                        device=rd.device)), z)
+    x = safe_normalize(cross(up, z_adj))
+    y = cross(z_adj, x)
+
+    def frame(rel):
+        return torch.stack([dot(rel, x[:, None, :]), dot(rel, y[:, None, :]),
+                            dot(rel, z[:, None, :])], -1)
+
+    o = frame(p0 - o_w)
+    dd = frame(p1 - o_w) - o
+    dz = dd[..., 2]
+    det = dot(dd, dd) - dz * dz
+    det = torch.where(det.abs() < 1e-12, 1e-12, det)
+    tt = torch.clamp((-dot(o, dd) + dz * o[..., 2]) / det, 0.0, 1.0)
+    zhit = torch.minimum(torch.maximum(o[..., 2] + tt * dz, tmin + thick), tmax)
+    closest = o + tt[..., None] * dd
+    dist = torch.sqrt(closest[..., 0] ** 2 + closest[..., 1] ** 2 + (closest[..., 2] - zhit) ** 2)
+    return torch.where(dist <= thick, zhit, BIG)
+
+
+def surface_info_line(rows, p):
+    p0, p1, tz = rows[:, 0:3], rows[:, 3:6], rows[:, 12:15]
+    lt = dotk(p - p0, tz)
+    lp = p0 + (p1 - p0) * lt / torch.clamp_min(dotk(p1 - p0, tz), EPS)
+    return p, safe_normalize(p - lp), torch.cat([lt, torch.zeros_like(lt)], -1)
+
+
+def sample_line(rows, p, u):
+    p0, p1 = rows[:, 0:3], rows[:, 3:6]
+    tx, ty = rows[:, 6:9], rows[:, 9:12]
+    thick, ln = rows[:, 15:16], rows[:, 16]
+    phi = u[:, 1:2] * 2 * Pi
+    sp = p0 + (p1 - p0) * u[:, 0:1] + thick * torch.cos(phi) * tx + thick * torch.sin(phi) * ty
+    n = torch.cos(phi) * tx + torch.sin(phi) * ty
+    dvec = sp - p
+    dist = length(dvec)
+    w = dvec / torch.clamp_min(dist[..., None], EPS)
+    area = 2 * Pi * thick[:, 0] * ln
+    pdf = dist * dist / torch.clamp_min(dot(w, n).abs() * area, EPS)
+    return dict(p=sp, n=n, w=w, distance=dist, pdf=pdf)
+
+
+def pdf_line(rows, ro, rd, t, ns):
+    area = 2 * Pi * rows[:, 15] * rows[:, 16]
+    return t * t / torch.clamp_min(area * dot(ns, rd).abs(), EPS)
+
+
 # ---------------------------------------------------------------- tables ----
 
 _TYPES = {
     S.SPHERE: "sphere", S.RECT: "rect", S.DISK: "disk", S.PLANE: "plane",
     S.BOX_AABB: "aabb", S.BOX_OBB: "obb", S.TRIANGLE: "triangle",
-    S.CONE: "cone", S.CYLINDER: "cylinder",
+    S.CONE: "cone", S.CYLINDER: "cylinder", S.LINE: "line",
 }
 INTERSECT = {t: globals()[f"intersect_{n}"] for t, n in _TYPES.items()}
 SURFACE_INFO = {t: globals()[f"surface_info_{n}"] for t, n in _TYPES.items()}

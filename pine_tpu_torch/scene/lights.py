@@ -1,18 +1,24 @@
-"""Lights.  Counterpart of pine_tpu/scene/lights.py: point and directional
-lights, and area lights on an analytic shape or a triangle mesh.
+"""Lights.  Counterpart of pine_tpu/scene/lights.py: point, spot and
+directional lights, area lights on an analytic shape or a triangle mesh
+(their color a node evaluated at the sampled point), and the gradient
+``Sky``; the Atmosphere and ImageSky are in scene/env_lights.py.
 
 ``sample(p, u2, u1)`` is batched: p (N,3), u2 (N,2), u1 (N,) ->
-dict(le, wo, distance, pdf, valid).  Spot lights (ROADMAP.md, modules item
-3) and environment lights (item 10) are not ported yet.
+dict(le, wo, distance, pdf, valid).  An environment light also has
+``color(wo)`` and ``pdf(wo)`` for the rays that escape the scene.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from pine_tpu_torch.core.vecmath import dot, length
+from pine_tpu_torch.core.sampling import uniform_sphere
+from pine_tpu_torch.core.vecmath import Pi, dot, length
 from pine_tpu_torch.scene import intersect as I
 from pine_tpu_torch.scene import shapes as S
+from pine_tpu_torch.scene.nodes import eval_vec3_node
+
+FLOAT_MAX = float(np.finfo(np.float32).max)
 
 
 class Light:
@@ -44,6 +50,53 @@ class PointLight(Light):
             pdf=dist * dist,
             valid=torch.ones_like(dist, dtype=torch.bool),
         )
+
+
+class SpotLight(Light):
+    """A delta light at ``position`` shining along ``direction`` (normalised
+    in float64, then cast): full ``color`` within ``falloff_radian`` of the
+    axis, falling linearly in the cosine to zero at ``falloff_radian +
+    cutoff_additional_radian``, and no sample beyond (light.cpp)."""
+
+    is_delta = True
+
+    def __init__(self, position, direction, color, falloff_radian, cutoff_additional_radian=0.0):
+        self.position = np.asarray(position, np.float32)
+        d = np.asarray(direction, np.float64)
+        self.direction = (d / np.linalg.norm(d)).astype(np.float32)
+        self.color = np.asarray(color, np.float32)
+        self.falloff_cos = float(np.cos(falloff_radian))
+        self.cutoff_cos = float(np.cos(falloff_radian + cutoff_additional_radian))
+        self._dev = {}
+
+    @classmethod
+    def of_record(cls, position, direction, color, falloff_cos, cutoff_cos):
+        """A light from a compiled scene's record: the unit ``direction`` and
+        the two cosines as they are."""
+        light = cls.__new__(cls)
+        light.position = np.asarray(position, np.float32)
+        light.direction = np.asarray(direction, np.float32)
+        light.color = np.asarray(color, np.float32)
+        light.falloff_cos, light.cutoff_cos = float(falloff_cos), float(cutoff_cos)
+        light._dev = {}
+        return light
+
+    def sample(self, p, u2, u1):
+        dev = p.device
+        if dev not in self._dev:
+            self._dev[dev] = tuple(torch.as_tensor(x, device=dev)
+                                   for x in (self.position, self.direction, self.color))
+        pos, direction, color = self._dev[dev]
+        d = pos - p
+        dist = length(d)
+        wo = d / torch.clamp_min(dist[..., None], 1e-20)
+        cos = -dot(wo, direction)
+        denom = max(self.falloff_cos - self.cutoff_cos, 1e-9)
+        scale = torch.where(cos > self.falloff_cos, 1.0,
+                            torch.where(cos > self.cutoff_cos, (cos - self.cutoff_cos) / denom,
+                                        0.0))
+        return dict(le=color * scale[..., None], wo=wo, distance=dist, pdf=dist * dist,
+                    valid=cos > self.cutoff_cos)
 
 
 class DirectionalLight(Light):
@@ -85,8 +138,9 @@ class DirectionalLight(Light):
 
 
 class AreaLight(Light):
-    """Emissive analytic shape ``global_idx`` with constant color ``color``;
-    ``params`` is the shape's parameter row (a tensor on the render device)."""
+    """Emissive analytic shape ``global_idx`` whose color is the node
+    ``color``, evaluated at the sampled point; ``params`` is the shape's
+    parameter row (a tensor on the render device)."""
 
     def __init__(self, tid, params, global_idx, color):
         self.tid = int(tid)
@@ -97,7 +151,8 @@ class AreaLight(Light):
     def sample(self, p, u2, u1):
         n = p.shape[0]
         ss = I.SAMPLE[self.tid](self.params.expand(n, -1), p, u2)
-        le = self.color.expand(n, 3)
+        le = eval_vec3_node(self.color, dict(p=ss["p"], n=ss["n"], uv=torch.zeros_like(p[:, :2])),
+                            n)
         # emissive only from the front face
         front = dot(-ss["w"], ss["n"]) >= 0.0
         valid = front & (ss["pdf"] > 0.0) & (le > 0.0).any(-1)
@@ -133,6 +188,42 @@ class MeshLight(AreaLight):
         dist = length(dvec)
         w = dvec / torch.clamp_min(dist[:, None], 1e-20)
         pdf = dist**2 / torch.clamp_min(dot(w, nrm).abs() * self.total_area, 1e-20)
-        le = self.color.expand(n, 3)
+        le = eval_vec3_node(self.color, dict(p=sp, n=nrm, uv=torch.zeros_like(p[:, :2])), n)
         valid = (dot(-w, nrm) >= 0.0) & (pdf > 0.0) & (le > 0.0).any(-1)
         return dict(le=le, wo=w, distance=dist, pdf=pdf, valid=valid)
+
+
+class EnvironmentLight(Light):
+    """A light at infinity: ``color(wo)`` of an escaped ray and ``pdf(wo)``,
+    the solid-angle density of ``sample``, for MIS.  Its samples lie at
+    distance FLOAT_MAX."""
+
+
+class Sky(EnvironmentLight):
+    """Gradient sky (color.cpp sky_color; light.cpp:71-86), sampled uniformly
+    over the sphere."""
+
+    def __init__(self, sun_color):
+        self.sun_color = np.asarray(sun_color, np.float32)
+        self._dev = {}
+
+    def _on(self, device):
+        if device not in self._dev:
+            self._dev[device] = tuple(torch.as_tensor(np.asarray(x, np.float32), device=device)
+                                      for x in (self.sun_color, [1.0, 0.8, 0.6], [0.6, 0.8, 1.0]))
+        return self._dev[device]
+
+    def color(self, wo):
+        sun, warm, cool = self._on(wo.device)
+        t = wo[..., 1:2] / 2 + 0.7
+        return sun * torch.square(warm + (cool - warm) * t)
+
+    def pdf(self, wo):
+        return torch.full(wo.shape[:-1], 1.0 / (4 * Pi), device=wo.device)
+
+    def sample(self, p, u2, u1):
+        wo = uniform_sphere(u2)
+        n, dev = p.shape[0], p.device
+        return dict(le=self.color(wo), wo=wo, distance=torch.full((n,), FLOAT_MAX, device=dev),
+                    pdf=torch.full((n,), 1.0 / (4 * Pi), device=dev),
+                    valid=torch.ones(n, dtype=torch.bool, device=dev))

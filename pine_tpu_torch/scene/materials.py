@@ -1,14 +1,15 @@
 """Materials.  Counterpart of pine_tpu/scene/materials.py.
 
 Host-side materials whose parameters are nodes (scene/nodes.py): constants,
-image textures and their products.  Diffuse, Metal, Glossy, Glass, Emissive
-and Uber are ported; the wavefront evaluates their nodes per lane and picks
-Uber's lobe from the lane's sampler dims (scene/material_eval.py).
-Subsurface is not yet (ROADMAP.md, modules item 3): a scene that renders
-with one is refused at compile().  An emissive material's color must be a
-constant (its light is sampled with one color).
+image textures, procedural nodes and their arithmetic.  Diffuse, Metal,
+Glossy, Glass, Emissive, Uber and Subsurface; the wavefront evaluates their
+nodes per lane and picks Uber's and Subsurface's lobes from the lane's
+sampler dims (scene/material_eval.py).  An emissive material's color node is
+evaluated where its light is sampled and where a ray hits it.
 """
 from __future__ import annotations
+
+import numpy as np
 
 from pine_tpu_torch.scene import nodes as N
 
@@ -78,12 +79,22 @@ class Glass(Material):
 
 
 class Subsurface(Material):
-    """Declared so scripts that name it build; rendering with it is refused."""
+    """A dielectric boundary over a scattering interior (material.cpp:9-29):
+    per lane a Fresnel-chosen rough reflection, else the BSSRDF lobe (a
+    diffuse lobe once the path has had a diffuse bounce), whose vertex the
+    random walk of integrators/path.bssrdf_walk moves to an exit point.
+    ``sigma_s`` is the constant scattering coefficient, one value or three;
+    the boundary's ior is 1.4."""
 
     tag = SUBSURFACE
 
     def __init__(self, albedo, roughness, sigma_s):
-        self.albedo, self.roughness, self.sigma_s = albedo, roughness, sigma_s
+        self.albedo = N.as_node(albedo)
+        self.roughness = N.as_node(roughness)
+        sig = sigma_s.value if isinstance(sigma_s, N.Constant) else sigma_s
+        sig = np.asarray(sig, np.float32).reshape(-1)
+        self.sigma_s = np.broadcast_to(sig, (3,)).astype(np.float32).copy()
+        self.ior = 1.4
 
 
 class Uber(Material):
@@ -103,12 +114,4 @@ class Uber(Material):
 
 # a material's node parameters and the value of each it lacks
 PARAMS = dict(albedo=(0.0, 0.0, 0.0), roughness=0.0, metallic=0.0, transmission=0.0, ior=1.4,
-              color=(0.0, 0.0, 0.0))
-
-
-def check_ported(mat):
-    """Refuse materials the port cannot render yet."""
-    if mat.tag == SUBSURFACE:
-        raise NotImplementedError(
-            f"{type(mat).__name__} material is not ported yet (ROADMAP.md, modules item 3)")
-    return mat
+              color=(0.0, 0.0, 0.0), sigma_s=(0.0, 0.0, 0.0))

@@ -5,18 +5,21 @@ per-lane tensors ``p`` (N,3), ``n`` (N,3) and ``uv`` (N,2) at the hits, and
 the result is a tensor that broadcasts against them, as pine_tpu's traced
 jnp expressions do: a constant stays a (3,) or scalar tensor (the caller
 broadcasts it), an image texture becomes a per-lane gather.  Ported:
-``Constant``, ``UV``, ``Texture`` (an image looked up at fract(p.xy), the
-glTF importer's base-color textures) and ``Binary`` (+ - * / ^ of two
-nodes, which node arithmetic and the glTF importer's ``Texture * factor``
-build).  The procedural nodes (position, normal, noise, checkerboard,
-lerp, components, script functions) are not ported yet (ROADMAP.md,
-modules item 10): the PRL builtins that make them refuse, and so does
-``as_node`` for a script function.
+``Constant``, ``Position``, ``Normal``, ``UV``, ``Texture`` (an image looked
+up at fract(p.xy), the glTF importer's base-color textures), ``Binary`` (+ -
+* / ^ of two nodes, which node arithmetic and the glTF importer's ``Texture *
+factor`` build), ``Unary`` (negation, square, square root, fract),
+``Lerp``, ``Checkerboard``, the fbm noises ``Noisef`` and ``Noise3f``
+(core/noise.py), ``Component`` and ``ToVec3``.  Script functions as nodes
+(PRL ``Function``) are not ported yet (ROADMAP.md, modules item 15):
+``as_node`` refuses a callable.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from pine_tpu_torch.core import noise as noise_mod
 
 
 def _on(cache, array, device):
@@ -61,6 +64,9 @@ class Node:
     def __pow__(self, o):
         return Binary("^", self, o)
 
+    def __neg__(self):
+        return Unary("-", self)
+
 
 class Constant(Node):
     def __init__(self, value):
@@ -69,6 +75,20 @@ class Constant(Node):
 
     def eval(self, ctx):
         return _on(self._dev, self.value, ctx["p"].device)
+
+
+class Position(Node):
+    """The hit point."""
+
+    def eval(self, ctx):
+        return ctx["p"]
+
+
+class Normal(Node):
+    """The shading normal at the hit."""
+
+    def eval(self, ctx):
+        return ctx["n"]
 
 
 class UV(Node):
@@ -89,6 +109,96 @@ class Binary(Node):
 
     def eval(self, ctx):
         return self.OPS[self.op](self.a.eval(ctx), self.b.eval(ctx))
+
+
+class Unary(Node):
+    """One of: "-" negation, "s" square, "r" square root, "f" fract."""
+
+    OPS = {"-": torch.neg, "s": lambda x: x * x, "r": torch.sqrt,
+           "f": lambda x: x - torch.floor(x)}
+
+    def __init__(self, op, a):
+        if op not in self.OPS:
+            raise ValueError(f"unknown node operator {op!r}")
+        self.op, self.a = op, as_node(a)
+
+    def eval(self, ctx):
+        return self.OPS[self.op](self.a.eval(ctx))
+
+
+class Lerp(Node):
+    """lerp(t, a, b) = a + (b - a) * t; a per-lane scalar t blending two
+    colors is lifted to (N, 3), as pine_tpu's."""
+
+    def __init__(self, t, a, b):
+        self.t, self.a, self.b = as_node(t), as_node(a), as_node(b)
+
+    def eval(self, ctx):
+        t = self.t.eval(ctx).to(torch.float32)
+        a = self.a.eval(ctx).to(torch.float32)
+        b = self.b.eval(ctx).to(torch.float32)
+        if t.ndim == 1 and a.ndim == 1 and a.shape[0] == 3 and t.shape[0] != 3:
+            a, b, t = a[None, :], b[None, :], t[:, None]
+        elif t.ndim > 0 and a.ndim > t.ndim:
+            t = t[..., None]
+        return a + (b - a) * t
+
+
+class Checkerboard(Node):
+    """1 where the product of the components of fract(p) - ratio is positive,
+    else 0 (node.cpp:15-18); ``p`` is UV() by default."""
+
+    def __init__(self, p=None, ratio=0.5):
+        self.p = as_node(p) if p is not None else UV()
+        self.ratio = float(ratio)
+
+    def eval(self, ctx):
+        p = self.p.eval(ctx)
+        x = (p - torch.floor(p)) - self.ratio
+        return (x[..., 0] * x[..., 1] * x[..., 2] > 0.0).to(torch.float32)
+
+
+class Noisef(Node):
+    """fbm of ``p`` over ``octaves`` octaves (a scalar)."""
+
+    def __init__(self, p, octaves):
+        self.p, self.octaves = as_node(p), as_node(octaves)
+
+    def eval(self, ctx):
+        return noise_mod.fbm(self.p.eval(ctx), self.octaves.eval(ctx))
+
+
+class Noise3f(Node):
+    """Three fbm of ``p`` with seeds 0, 1 and 2 (a color)."""
+
+    def __init__(self, p, octaves):
+        self.p, self.octaves = as_node(p), as_node(octaves)
+
+    def eval(self, ctx):
+        return noise_mod.fbm3d(self.p.eval(ctx), self.octaves.eval(ctx))
+
+
+class Component(Node):
+    """Component ``index`` of a vector node."""
+
+    def __init__(self, p, index):
+        self.p, self.index = as_node(p), int(index)
+
+    def eval(self, ctx):
+        return self.p.eval(ctx)[..., self.index]
+
+
+class ToVec3(Node):
+    """A vector of three scalar nodes, or of one repeated."""
+
+    def __init__(self, *args):
+        self.args = [as_node(a) for a in args]
+
+    def eval(self, ctx):
+        vals = [a.eval(ctx) for a in self.args]
+        if len(vals) == 1:
+            vals = vals * 3
+        return torch.stack(torch.broadcast_tensors(*vals), -1)
 
 
 class Texture(Node):
@@ -119,7 +229,7 @@ def as_node(x):
     if callable(x):
         raise NotImplementedError(
             "script-function material parameters are not ported yet (ROADMAP.md, modules "
-            "item 10)")
+            "item 15)")
     return Constant(x)
 
 
@@ -139,14 +249,3 @@ def eval_vec3_node(node, ctx, n_lanes):
     if v.ndim == 1:
         return v[:, None].expand(n_lanes, 3)
     return v.reshape(n_lanes, 3)
-
-
-def constant_vec3(node):
-    """An emissive material's constant color as a float32 (3,) array (its
-    light is sampled with one color)."""
-    node = as_node(node)
-    if not isinstance(node, Constant):
-        raise NotImplementedError(
-            f"a {type(node).__name__} node as an emissive color is not ported yet (ROADMAP.md, "
-            "modules item 10)")
-    return np.broadcast_to(node.value.reshape(-1), (3,)).astype(np.float32)

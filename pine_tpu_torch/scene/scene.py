@@ -1,9 +1,11 @@
 """Scene (host container) and CompiledScene (device tables plus queries).
 
-Counterpart of pine_tpu/scene/scene.py for analytic shapes, triangle meshes
-(also from GLB files, ``Scene.load``), mesh instancing, materials with
-constant or image-texture parameters, area (analytic or mesh), point and
-directional lights.  ``Scene.compile(device)`` flattens the scene into the arrays of
+Counterpart of pine_tpu/scene/scene.py for analytic shapes and lines,
+triangle meshes (also from GLB files, ``Scene.load``), mesh instancing,
+materials with constant, image-texture or procedural parameters, area
+(analytic or mesh), point, spot and directional lights, and one environment
+light (``Scene.set``: Sky, Atmosphere or ImageSky), which joins the light
+list last, as pine_tpu's.  ``Scene.compile(device)`` flattens the scene into the arrays of
 pine_tpu_torch/convert.py and uploads them once; the renderer then queries
 the CompiledScene.  Scenes with 24 or fewer analytic prims, no mesh and no
 lazy instancing keep the brute-force per-type product (no accel, no
@@ -11,7 +13,9 @@ kernel); the others go through the prim groups of accel/packet.py, whose
 traversal runs on CUDA the dense kernel (groups of up to 512 prims), the
 lattice kernel (larger groups that form a regular lattice, fields a script
 builds in loops), the grid kernel (other larger groups), the BVH walk (groups
-of more than 2,000,000 prims) or the instanced kernel (lazy instancings).
+of more than 2,000,000 prims) or the instanced kernel (lazy instancings); a
+group of lines, a type with no ray test of a kernel, takes the "plain" route
+(accel/dense_traverse.py).
 
 Forced kernels: ``CompiledScene.small_kernel`` and ``mesh_kernel`` (or the
 same arguments of ``Scene.compile``) are the counterparts of pine_tpu's
@@ -50,8 +54,7 @@ more device time than it saved (PERF.md, PR 3).  The sort is a pure
 permutation: per-lane results do not change.
 
 Not ported yet, and refused with their ROADMAP.md row: SDF and CSG (modules
-item 9) and the Subsurface material (3) at compile(), environment lights
-(10) at ``set`` and media (11) at ``add``.
+item 9) at compile() and media (11) at ``add``.
 """
 from __future__ import annotations
 
@@ -59,9 +62,12 @@ import numpy as np
 import torch
 
 from pine_tpu_torch.accel import dense_traverse as DT
+from pine_tpu_torch.core.vecmath import dot
 from pine_tpu_torch.scene import intersect as I
 from pine_tpu_torch.scene import lights as L
 from pine_tpu_torch.scene import shapes as S
+from pine_tpu_torch.scene.materials import SUBSURFACE
+from pine_tpu_torch.scene.nodes import eval_vec3_node
 
 BIG = I.BIG
 SORT_MIN_LANES = 4096  # smaller wavefronts are not sorted
@@ -109,6 +115,7 @@ class Scene:
         self.geometries = []  # (shape, material)
         self.instancings = []  # InstancedShape kept lazy
         self.lights = []
+        self.env_light = None
         self.camera = None
         self._compiled = {}  # (device, small_kernel, mesh_kernel, inst_kernel) -> CompiledScene
 
@@ -180,14 +187,17 @@ class Scene:
         return lo, up
 
     def set(self, x):
+        """set(camera) | set(environment light): the scene's one of each; a
+        new environment light drops the compile cache."""
         from pine_tpu_torch.core.camera import ThinLenCamera
 
-        if not isinstance(x, ThinLenCamera):
-            raise NotImplementedError(
-                f"Scene.set({type(x).__name__}) is not ported yet: environment "
-                "lights are ROADMAP.md modules item 10"
-            )
-        self.camera = x
+        if isinstance(x, ThinLenCamera):
+            self.camera = x
+        elif isinstance(x, L.EnvironmentLight):
+            self.env_light = x
+            self._compiled = {}
+        else:
+            raise TypeError(f"Scene.set: unsupported argument {type(x).__name__}")
         return x
 
     def compile(self, device=None, small_kernel=None, mesh_kernel=None, inst_kernel=None):
@@ -220,6 +230,8 @@ class CompiledScene:
         self.unified = unified  # None, or prim groups (accel/packet.py) + mesh tables
         self.materials = materials  # per slot: dict of tag and parameter nodes (materials.PARAMS)
         self.lights = lights
+        self.env_light = next((li for li in lights if isinstance(li, L.EnvironmentLight)), None)
+        self.has_subsurface = any(m["tag"] == SUBSURFACE for m in materials)
         self.emissive_globals = {
             li.global_idx: li for li in lights if isinstance(li, L.AreaLight)
         }
@@ -374,7 +386,7 @@ class CompiledScene:
         local = self.g_local[gidx.clamp(0, self.n_global - 1).long()]
         for g, al in self.emissive_globals.items():
             if isinstance(al, L.MeshLight):
-                p_t = t**2 / torch.clamp_min(max(al.area, 1e-20) * (ns * rd).sum(-1).abs(), 1e-20)
+                p_t = t**2 / torch.clamp_min(max(al.area, 1e-20) * dot(ns, rd).abs(), 1e-20)
             else:
                 p_t = I.PDF[al.tid](self._rows_at(al.tid, local), ro, rd, t, ns)
             pdf = torch.where(gidx == g, p_t, pdf)
@@ -386,12 +398,13 @@ class CompiledScene:
             m = m | (gidx == g)
         return m
 
-    def emissive_le(self, gidx, n, wo):
-        """Le of the hit emissive shape, front face only."""
+    def emissive_le(self, gidx, ctx, wo):
+        """Le of the hit emissive shape, its color node evaluated at the hits
+        ``ctx``, front face only."""
         le = torch.zeros_like(wo)
-        front = (wo * n).sum(-1) >= 0.0
+        front = dot(wo, ctx["n"]) >= 0.0
         for g, al in self.emissive_globals.items():
-            le_g = torch.where(front[:, None], al.color, 0.0)
+            le_g = torch.where(front[:, None], eval_vec3_node(al.color, ctx, wo.shape[0]), 0.0)
             le = torch.where((gidx == g)[:, None], le_g, le)
         return le
 

@@ -1,8 +1,8 @@
 """Analytic shapes: host-side classes that flatten into per-type parameter rows.
 
 Counterpart of pine_tpu/scene/shapes.py: the same type ids, the same
-``params()`` layouts and the same ``get_aabb()``, plus triangle meshes and
-mesh instancing.  Lines, SDFs and CSG are not ported.
+``params()`` layouts and the same ``get_aabb()``, plus lines, triangle
+meshes, mesh instancing and heightmaps.  SDFs and CSG are not ported.
 """
 from __future__ import annotations
 
@@ -32,6 +32,7 @@ PARAM_WIDTH = {
     TRIANGLE: 12,
     CONE: 12,
     CYLINDER: 10,
+    LINE: 17,
 }
 
 
@@ -253,6 +254,30 @@ class Cylinder(Shape):
 
     def get_aabb(self):
         return np.minimum(self.p0, self.p1) - self.r, np.maximum(self.p0, self.p1) + self.r
+
+
+class Line(Shape):
+    """A segment with a thickness (geometry.cpp:171-253).  params: [p0(3),
+    p1(3), tbn_x(3), tbn_y(3), tbn_z(3), thickness, len], the frame's z along
+    the segment."""
+
+    type_id = LINE
+
+    def __init__(self, p0, p1, thickness):
+        self.p0, self.p1 = _np3(p0), _np3(p1)
+        z = _normalize(self.p1 - self.p0)
+        x, y = _coordinate_system(z)
+        self.tbn = np.stack([x, y, z], axis=1).astype(np.float32)  # columns
+        self.thickness = float(thickness)
+        self.len = float(np.linalg.norm(self.p1 - self.p0))
+
+    def params(self):
+        return np.concatenate([self.p0, self.p1, self.tbn[:, 0], self.tbn[:, 1], self.tbn[:, 2],
+                               [self.thickness, self.len]]).astype(np.float32)
+
+    def get_aabb(self):
+        return (np.minimum(self.p0, self.p1) - self.thickness,
+                np.maximum(self.p0, self.p1) + self.thickness)
 
 
 class Mesh(Shape):

@@ -27,6 +27,21 @@ extent, one lattice group of more than 512 prims, so it takes the lattice
 traversal.  ``prl_scene`` runs such a script through the port's PRL
 interpreter and returns its ``scene``.
 
+``GARDEN_PRL`` is an outdoor scene that runs the rest of the scene model: a
+640x640 film under an ``Atmosphere`` with ``SobolSampler(16)``, depth 5;
+a large ground rect whose albedo is a ``Checkerboard`` of ``Position()``;
+the bench box's 420 cones (one 424-row group, the dense kernel) whose
+albedo is ``Noise3f`` of the position; a ``Subsurface`` sphere (the
+random walk), a ``Glass`` sphere and a ``Metal`` sphere whose roughness is
+built from ``Noisef``, ``Vec3``, ``Comp`` and ``lerp``; a fence of 24
+``Line``s of thickness 0.02 (the "plain" route); a ``SpotLight``.  It
+renders and saves ``garden.png`` in the working directory.
+``garden_prl`` gives it with the sky, sampler, film, spp and depth a caller
+asks: garden-imagesky (``garden_prl("imagesky", "HaltonSampler")``: an
+``ImageSky`` of the repository's images/cbox0.png, by absolute path) and
+the ``Sky`` variant, and their reduced sizes (``REDUCED_GARDEN``: the film,
+spp and depth cut, as chip_smoke.py's phase 3 renders them).
+
 ``house`` is the repository's ``scenes/house.pine``: ``assets/house.glb``
 (ten mesh primitives, 4,020 triangles in one triangle group, textured and
 factor-only Uber materials, an emissive window) under one DirectionalLight,
@@ -283,3 +298,71 @@ def house(size=640, integrator=None, device=None):
     """The house scene built (and, with ``integrator``, rendered into its
     film on ``device``, default the card) through the port's interpreter."""
     return prl_scene(house_prl(size, integrator), "<house>", device)
+
+
+GARDEN_PRL = """
+scene := Scene();
+image_size := [640, 640];
+
+scene.add("ground", Diffuse(lerp(Checkerboard(Position() * 2.0 + [0.0, 0.25, 0.0]), [0.3, 0.42, 0.18], [0.55, 0.6, 0.35])));
+scene.add("floor", Diffuse(Noise3f(Position() * 4.0, 4)));
+scene.add("skin", Subsurface([0.9, 0.6, 0.5], 0.0, 40.0));
+scene.add("glass", Glass([1, 1, 1], 0.0, 1.5));
+scene.add("metal", Metal([0.95, 0.8, 0.55], lerp(Comp(Vec3(Noisef(Position() * 3.0, 3)), 0), 0.05, 0.5)));
+scene.add("wood", Diffuse([0.45, 0.3, 0.18]));
+
+scene.add(Rect([0, 0, 4], [40, 0, 0], [0, 0, 40]), "ground");
+for x in -1.0 ~ 0.1 ~ 1.0 {
+    for z in 0.0 ~ 0.1 ~ 2.0 {
+        scene.add(Cone([x, 0, z], Y, 0.05, 0.05), "floor");
+    }
+}
+scene.add(Sphere([-0.7, 0.35, 2.6], 0.35), "skin");
+scene.add(Sphere([0.0, 0.3, 2.9], 0.3), "glass");
+scene.add(Sphere([0.75, 0.4, 2.7], 0.4), "metal");
+for i in 0..12 {
+    x := -2.2 + 0.4 * i;
+    scene.add(Line([x, 0, 3.6], [x, 0.8, 3.6], 0.02), "wood");
+    scene.add(Line([x, 0.55, 3.6], [x + 0.4, 0.55, 3.6], 0.02), "wood");
+}
+
+scene.set(Atmosphere([0.4, 0.5, -0.6], [1, 1, 1]));
+scene.add(SpotLight([0.0, 3.0, 0.5], [0.0, -1.0, 0.6], [12, 11, 9], 0.35, 0.1));
+scene.set(ThinLenCamera(Film(image_size, Uncharted2()), [0, 2.4, -1.2], [0, 0.2, 2.0], 0.4));
+
+PathIntegrator(SobolSampler(16), 5).render(scene);
+scene.camera.film().save("garden.png");
+"""
+
+IMAGESKY_PNG = os.path.join(ROOT, "images", "cbox0.png")
+ATMOSPHERE = "Atmosphere([0.4, 0.5, -0.6], [1, 1, 1])"
+SKIES = {"atmosphere": ATMOSPHERE,
+         "imagesky": f"ImageSky(load_image({IMAGESKY_PNG!r}))",
+         "sky": "Sky([1, 1, 1])"}
+# the reduced garden of the tests and phase 3: film, spp and depth cut
+REDUCED_GARDEN = dict(size=32, spp=4, depth=3)
+
+
+def garden_prl(sky="atmosphere", sampler="SobolSampler", size=640, spp=16, depth=5,
+               integrator="PathIntegrator", save="garden.png"):
+    """GARDEN_PRL under ``sky`` (a key of SKIES), rendered by ``integrator``
+    (a PRL name taking (sampler, depth), or None for no render) with
+    ``sampler`` (a PRL sampler name) at ``spp`` and ``depth`` on a film
+    ``size`` pixels square, saved to ``save`` (None: not saved)."""
+    render = "" if integrator is None else f"{integrator}({sampler}({spp}), {depth}).render(scene);"
+    save_line = "" if save is None else f"scene.camera.film().save({save!r});"
+    src = GARDEN_PRL
+    for old, new in (("image_size := [640, 640];", f"image_size := [{size}, {size}];"),
+                     (f"scene.set({ATMOSPHERE});", f"scene.set({SKIES[sky]});"),
+                     ("PathIntegrator(SobolSampler(16), 5).render(scene);", render),
+                     ('scene.camera.film().save("garden.png");', save_line)):
+        assert old in src, old
+        src = src.replace(old, new)
+    return src
+
+
+
+def garden(sky="atmosphere", size=640):
+    """The garden's scene under ``sky`` (a key of SKIES) on a film ``size``
+    pixels square, built (not rendered) through the port's interpreter."""
+    return prl_scene(garden_prl(sky, size=size, integrator=None, save=None), "<garden>")

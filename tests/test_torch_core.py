@@ -195,6 +195,13 @@ def test_bluesobol_assets_byte_identical():
                            os.path.join(REPO, "pine_tpu_torch", "assets", f), shallow=False), f
 
 
+def test_sobol_matrices_byte_identical():
+    """The SobolSampler's direction numbers: the port's copy of pine_tpu's table."""
+    assert filecmp.cmp(os.path.join(REPO, "pine_tpu", "assets", "sobol_matrices.npy"),
+                       os.path.join(REPO, "pine_tpu_torch", "assets", "sobol_matrices.npy"),
+                       shallow=False)
+
+
 def test_png_matches_reference_writer(tmp_path):
     """The port's own PNG writer stores the same 8-bit pixels as pine_tpu's."""
     from PIL import Image

@@ -414,16 +414,14 @@ def test_cached_path_argument_checks():
 def test_remaining_refusals_name_their_item():
     from pine_tpu_torch.prl.interp import Interpreter
 
-    for src, item in (('s := Scene(); s.add("skin", Subsurface([1, 1, 1], 0.0, 40.0));'
-                       's.add(Sphere([0, 0, 0], 1.0), "skin"); s.set(ThinLenCamera('
-                       'Film([8, 8]), [0, 0, -3], [0, 0, 0], 0.5));'
-                       "PathIntegrator(BlueSampler(1), 2).render(s);", "item 3"),
-                      ("m := Diffuse(Position());", "item 10"),
+    for src, item in (('s := Scene(); s.add("skin", Diffuse(Function((p: vec3): vec3 '
+                       '{ return p; })));', "item 15"),
+                      ("m := heightmap([8, 8], (p: vec2): f32 { return p.x; });", "item 15"),
                       ("s := Scene(); s.add(HomoMedium([1, 1, 1], [0, 0, 0], HgPF(0.0)));"
                        "CachedPathIntegrator(BlueSampler(4), 4).render(s);", "item 11")):
         with pytest.raises(NotImplementedError, match=item):
             Interpreter(device="cpu").run(src)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 15"):
         PN.as_node(lambda ctx: 1.0)
 
 

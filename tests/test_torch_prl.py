@@ -6,8 +6,8 @@
 - The snippets print the same lines through both interpreters; ``!=`` on
   vectors, where the two depart on purpose, is held to each side's result.
 - A builtin whose target is not ported raises NotImplementedError naming
-  its ROADMAP.md modules item; a script that only declares such a thing
-  (the box's Subsurface material) still runs.
+  its ROADMAP.md modules item; the garden slice's scene model (Subsurface,
+  Line, SpotLight, Sky, the Sobol and Halton samplers) builds and compiles.
 - ``CBOX_PRL`` through the port's interpreter gives exactly the scene arrays
   of ``scenes.cbox``, and pine_tpu's interpreter the same tables, materials,
   lights, camera and group contents.
@@ -128,20 +128,24 @@ def test_errors_and_unported_builtins():
         parse("x := ;")
     with pytest.raises(PRLRuntimeError):
         Interpreter(device="cpu").run("println(nope);")
-    for src, item in (("SpotLight([0, 1, 0], [0, -1, 0], [1, 1, 1], 0.5);", "item 3"),
-                      ("s := Sky([1, 1, 1]);", "item 10"),
-                      ("SobolSampler(4);", "item 2"),
+    for src, item in (("SDF(AABB([0, 0, 0], [1, 1, 1]), (p: vec3): f32 { return 0.5; });",
+                       "item 9"),
+                      ("Function((p: vec3): vec3 { return p; });", "item 15"),
+                      ("heightmap([4, 4], (p: vec2): f32 { return p.x; });", "item 15"),
                       ("AOIntegrator(UniformSampler(4));", "item 12"),
                       ("HgPF(0.2);", "item 11"),
                       ("draw([4, 4], (u: vec2): vec3 { return [u.x, u.y, 0.5]; });", "item 15")):
         with pytest.raises(NotImplementedError, match=item):
             Interpreter(device="cpu").run(src)
-    # declared and never applied: the box's Subsurface builds; using it is refused
+    # the scene model of the garden slice builds: Subsurface, lines, a spot light, skies
     itp = Interpreter(device="cpu")
     itp.run('scene := Scene(); scene.add("skin", Subsurface([1, 1, 1], 0.0, 40.0));')
-    itp.run("scene.add(Sphere([0, 0, 0], 1.0), \"skin\");")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        itp.get_var("scene").compile("cpu")
+    itp.run("scene.add(Sphere([0, 0, 0], 1.0), \"skin\");"
+            "scene.add(Line([0, 0, 1], [0, 1, 1], 0.02), \"skin\");"
+            "scene.add(SpotLight([0, 1, 0], [0, -1, 0], [1, 1, 1], 0.5));"
+            "scene.set(Sky([1, 1, 1])); s := SobolSampler(4); h := HaltonSampler(4);")
+    cs = itp.get_var("scene").compile("cpu")
+    assert cs.has_subsurface and cs.env_light is not None and len(cs.lights) == 2
 
 
 def test_cbox_script_builds_the_benchmark_box():

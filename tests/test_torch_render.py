@@ -81,20 +81,12 @@ def jax_inst_group(g):
 def jax_scene_arrays(cs, cam):
     """pine_tpu's CompiledScene flattened to pine_tpu_torch.convert's format:
     the same rows in the same (native SAH) order, the mesh attribute tables,
-    lazy instanced groups, materials, lights (mesh lights too), camera and
-    world bounds."""
+    lazy instanced groups, materials (their node trees and images), lights
+    (mesh, spot and environment lights too), camera and world bounds."""
     from pine_tpu.scene import lights as JL
     from pine_tpu.scene import shapes as JS
 
-    from pine_tpu_torch.convert import carry_lattice
-
-    def v3(node):
-        return np.broadcast_to(np.asarray(node.value, np.float32).reshape(-1), (3,)).copy()
-
-    def scalar(mat, name, default):
-        node = getattr(mat, name, None)
-        return np.asarray(default if node is None else np.asarray(node.value).reshape(-1)[0],
-                          np.float32)
+    from pine_tpu_torch.convert import carry_lattice, light_record, material_record, param_record
 
     a = dict(g_type=cs.g_type, g_local=cs.g_local, g_mat=cs.g_mat)
     for tid, table in cs.tables.items():
@@ -123,15 +115,9 @@ def jax_scene_arrays(cs, cam):
     a["world_lo"] = np.asarray(cs.world_lo, np.float32)
     a["world_span"] = np.asarray(cs.world_span)
     a["n_materials"] = np.asarray(len(cs.materials))
+    images = []
     for i, m in enumerate(cs.materials):
-        zero = np.zeros(3, np.float32)
-        a.update({
-            f"mat.{i}.tag": np.asarray(m.tag),
-            f"mat.{i}.albedo": v3(m.albedo) if hasattr(m, "albedo") else zero,
-            f"mat.{i}.color": v3(m.color) if hasattr(m, "color") else zero,
-            f"mat.{i}.roughness": scalar(m, "roughness", 0.0),
-            f"mat.{i}.ior": scalar(m, "ior", 1.4),
-        })
+        a.update({f"mat.{i}.{k}": v for k, v in material_record(m, images).items()})
     a["n_lights"] = np.asarray(len(cs.lights))
     for i, li in enumerate(cs.lights):
         if isinstance(li, JL.AreaLight) and isinstance(li.shape, JS.Mesh):
@@ -140,7 +126,8 @@ def jax_scene_arrays(cs, cam):
                 f"light.{i}.kind": np.asarray("mesh"),
                 f"light.{i}.tris": np.concatenate([li.shape.vertices[f[:, k]] for k in range(3)], 1),
                 f"light.{i}.gidx": np.asarray(li.global_idx),
-                f"light.{i}.color": v3(li.material.color),
+                **{f"light.{i}.{k}": v
+                   for k, v in param_record("color", li.material.color, images).items()},
             })
         elif isinstance(li, JL.AreaLight):
             a.update({
@@ -148,11 +135,13 @@ def jax_scene_arrays(cs, cam):
                 f"light.{i}.tid": np.asarray(li.shape.type_id),
                 f"light.{i}.params": li.shape.params(),
                 f"light.{i}.gidx": np.asarray(li.global_idx),
-                f"light.{i}.color": v3(li.material.color),
+                **{f"light.{i}.{k}": v
+                   for k, v in param_record("color", li.material.color, images).items()},
             })
-        else:
-            a.update({f"light.{i}.kind": np.asarray("point"),
-                      f"light.{i}.position": li.position, f"light.{i}.color": li.color})
+        else:  # point, spot, directional and environment lights
+            a.update({f"light.{i}.{k}": np.asarray(v) for k, v in light_record(li).items()})
+    a["n_images"] = np.asarray(len(images))
+    a.update({f"image.{k}": im for k, im in enumerate(images)})
     cp = cam.params()
     for k in ("position", "rot", "fov2d", "len_radius", "focus_distance"):
         a[f"cam.{k}"] = np.asarray(cp[k])
@@ -450,8 +439,9 @@ def test_unported_features_are_refused():
         return scene.compile("cpu")
 
     sphere = S.Sphere([0, 0, 0], 1.0)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        compile_with(sphere, M.Subsurface([1, 1, 1], 0.0, 40.0))
+    # Subsurface is ported now: it compiles into a material record of its own tag
+    cs = compile_with(sphere, M.Subsurface([1, 1, 1], 0.0, 40.0))
+    assert cs.materials[0]["tag"] == M.SUBSURFACE and cs.has_subsurface
     # Uber is ported now: it compiles into a material record of its own tag
     assert compile_with(sphere, M.Uber([1, 1, 1], 0.5)).materials[0]["tag"] == M.UBER
     with pytest.raises(NotImplementedError, match="item 11"):  # instancing is ported now
@@ -460,7 +450,7 @@ def test_unported_features_are_refused():
     tri = S.Mesh(np.eye(3, dtype=np.float32), [[0, 1, 2]])
     groups = compile_with(tri, M.Diffuse([1, 1, 1])).unified["groups"]
     assert [(g["tid"], g["kind"]) for g in groups] == [(S.TRIANGLE, "dense")]
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 15"):  # script functions as nodes
         M.Diffuse(lambda ctx: 1.0)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="Scene.set"):  # environment lights are ported now
         Scene().set(object())
