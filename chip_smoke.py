@@ -79,7 +79,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the reduced garden (scenes.REDUCED_GARDEN: 32x32, 4 spp, depth 3) under
    its Atmosphere with SobolSampler by both integrators (the cached one on
    a grid of 32), under the ImageSky with HaltonSampler, and under the Sky
-   with SobolSampler and with BlueSampler.
+   with SobolSampler and with BlueSampler; the media slice's reduced
+   scenes (``media_parity``): the cloud and the emissive explosion on 16^3
+   grids, the CSG fog box with the torus (depth 5), the fog box by the
+   cached integrator, AO on the reduced box and the volume integrator.
 4. The main paths at full width through ``Scene.compile`` and
    ``render_wavefront`` on the card: the benchmark Cornell box (420 cones;
    built from bench.py's script through the port's PRL interpreter, as
@@ -127,7 +130,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    garden (scenes.GARDEN_PRL: an Atmosphere, a SpotLight, 420 cones of
    Noise3f albedo on a checkered ground, a Subsurface, a Glass and a Metal
    sphere, 24 fence lines) at 640x640, SobolSampler(16), depth 5, and under
-   the ImageSky of images/cbox0.png with HaltonSampler(16), as main paths:
+   the ImageSky of images/cbox0.png with HaltonSampler(16), depth 4 since
+   the media slice (GARDEN_IMAGESKY_DEPTH), as main paths:
    the dense kernel on its sphere, rect and cone groups (the subsurface
    walk's eight intersects per depth among its launches), held to
    dense_plain bit for bit on every launch of a 1-spp render (kernel-line
@@ -135,7 +139,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the line group on the "plain" route, which launches no kernel of the
    port's own (the ``groups`` record; its calls of a 1-spp render timed in
    the ``garden_setup`` record, with the script's build and an Atmosphere's
-   map built alone, apart from compile_s).  The
+   map built alone, apart from compile_s).  The media slice's paths
+   (``phase_media``): bench_cloud.py's chromatic cloud (pine_tpu_torch.
+   bench_cloud's build_scene and render: 1920x1080, a 96^3 VDB, depth 6,
+   CLOUD_SPP of bench_cloud's 256 samples, the cut printed), the CSG fog
+   box (CSG_FOG_PRL, 640x640, BlueSampler(16), depth 5) with and without an
+   SDF torus, and AOIntegrator(BlueSampler(16)) on the bench box at
+   640x640: the dense kernel held to dense_plain bit for bit on every launch
+   of a 1-spp render (entries ``dense_traverse.cloud.*``,
+   ``dense_traverse.csg_fog.*``, ``dense_traverse.csg_fog_sdf.*``,
+   ``dense_traverse.ao.*``; the cloud's and the fog box's 8 and 6 prims
+   build no accel, so each prim type's table is a group of its own), and a
+   ``media_setup`` record of the plain routes (the SDF march, the CSG
+   interval walk, the grid media's delta and ratio tracking, the
+   homogeneous scatter): their calls and device ms in a 1-spp render.  The
    ``lab`` record: kernel 9's main path, the probe's chains on the box's
    cone group and 65,536 coherent rays as ``python -m
    pine_tpu_torch.lab.cone_probe`` runs them, launch counts zeroed just
@@ -156,6 +173,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    absolute, from build/chip_smoke/: its PNG finite and lit; ``python -m
    pine_tpu_torch garden.pine`` (GARDEN_PRL as it stands, saving
    garden.png): its image equal to phase 4's garden on 97 % of the pixels;
+   ``python -m pine_tpu_torch csg_fog.pine`` (CSG_FOG_PRL as it stands): its
+   image equal to phase 4's fog box on 97 % of the pixels; a VDBMedium
+   script over an .nvdb written to build/chip_smoke/: its PNG finite and lit;
    ``python -m pine_tpu_torch.lab.cone_probe``: seven records, ``full`` and ``inva``
    finite, ``inva`` with ``max_dev_vs_full``; ``python -m
    pine_tpu_torch.lab.kernel_lab``: a time for every workload, route and
@@ -203,7 +223,20 @@ TERRAIN2M_DEPTH = 2
 # the garden (pine_tpu_torch/scenes.py GARDEN_PRL): its full width, and the
 # groups it compiles to (the fence's lines on the "plain" route, no kernel)
 GARDEN_SIZE, GARDEN_SPP, GARDEN_DEPTH = 640, 16, 5
+# garden-imagesky's depth: 4 since the media slice's paths came in (the
+# garden itself keeps the script's 5: phase 5 holds the CLI's image to it)
+GARDEN_IMAGESKY_DEPTH = 4
 GARDEN_GROUPS = [("dense", 0, 3), ("dense", 1, 1), ("dense", 7, 424), ("plain", 9, 24)]
+# the media slice's paths: the cloud (bench_cloud.py's scene and film, 96^3,
+# depth 6; its spp cut from bench_cloud's 256 to CLOUD_SPP for the time), the
+# CSG fog box (CSG_FOG_PRL as written) with and without the torus, AO on the
+# bench box; scenes of 24 or fewer prims sweep each type's table on the dense
+# kernel (CompiledScene.type_groups)
+CLOUD_SPP, CLOUD_DEPTH, CLOUD_FULL_SPP = 4, 6, 256
+CLOUD_GROUPS = [("dense", 1, 6), ("dense", 4, 2)]
+FOG_SIZE, FOG_SPP, FOG_DEPTH = 640, 16, 5
+FOG_GROUPS = [("dense", 1, 6)]
+AO_SPP = 16
 
 # kind -> (module under pine_tpu_torch.accel, kernel wrapper in it, plain
 # version as module.function, the group's table for it, kernel source, the
@@ -263,6 +296,11 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
+def elapsed(step, t_start):
+    """The run's seconds so far, after ``step``."""
+    emit(dict(phase="elapsed", after=step, seconds=time.perf_counter() - t_start))
+
+
 def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
@@ -317,6 +355,10 @@ def launch(kind, g, args, any_hit, plain=False, **kw):
 
 
 def all_groups(cs):
+    """The compiled scene's groups: the accel's, or without one the per-type
+    groups (``CompiledScene.type_groups``)."""
+    if cs.unified is None:
+        return cs.type_groups
     return cs.unified["groups"] + cs.unified.get("inst_groups", [])
 
 
@@ -1163,6 +1205,47 @@ def phase_render_parity():
         DT.GRID_MAX_PRIMS = limit
     house_parity()
     garden_parity()
+    media_parity()
+
+
+def media_parity():
+    """The media slice card against CPU: the reduced cloud (16^3) and
+    explosion (16^3, emissive), the CSG fog box with the torus (depth 5) by
+    the path integrator and the fog box by the cached one, 64x64x4 spp by
+    render_parity's rule; AO on the reduced box and the volume integrator
+    by the same rule."""
+    import numpy as np
+    import torch
+
+    from pine_tpu_torch import scenes
+    from pine_tpu_torch.core.samplers import BlueSampler, UniformSampler
+    from pine_tpu_torch.integrators.ao import render_ao
+    from pine_tpu_torch.integrators.vol import VolIntegrator
+
+    render_parity("reduced cloud, 16^3", lambda: scenes.cloud((64, 64), 16))
+    render_parity("reduced explosion, 16^3, emissive", lambda: scenes.explosion(64, 16))
+    render_parity("reduced CSG fog box + torus", lambda: scenes.csg_fog_sdf(64), depth=5)
+    render_parity("reduced CSG fog box", lambda: scenes.csg_fog(64), cached=True)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        sc = scenes.cbox((64, 64), (-0.3, 0.1, 0.3), (0.5, 0.1, 1.0))
+        lo, up = sc.get_aabb()
+        out[dev] = render_ao(sc.compile(dev), sc.camera, 64, 64, BlueSampler(4), 4,
+                             float(np.linalg.norm(up - lo) / 2)).cpu().numpy()
+        sc = scenes.cbox((64, 64))
+        out[dev + "_vol"] = VolIntegrator(UniformSampler(1)).render(sc, dev).pixels[..., :3]
+    for what, g, c in (("AO, reduced cbox", out["cuda"], out["cpu"]),
+                       ("VolIntegrator", out["cuda_vol"], out["cpu_vol"])):
+        d = np.abs(g - c)
+        agree = float(((d <= 1e-3 * np.abs(c)) | (d <= 1e-4)).all(-1).mean())
+        rec = dict(phase="render_parity", scene=what, size="64x64", pixels_agree=agree,
+                   mean_cuda=float(g.mean()), mean_cpu=float(c.mean()),
+                   finite=bool(np.isfinite(g).all()))
+        emit(rec)
+        if not (rec["finite"] and agree >= 0.97 and g.mean() > 0
+                and abs(g.mean() - c.mean()) <= 0.01 * abs(c.mean())):
+            fail(f"card render disagrees with the CPU render: {rec}")
+    torch.cuda.empty_cache()
 
 
 def garden_parity():
@@ -1567,34 +1650,38 @@ def coherence_sort_record(cs, tag, kinds, render, n):
 
 
 def profile_render(what, render):
-    """Where a render's device time goes: torch.profiler over one render,
-    kernel time by name, and the device's busy share of the host wall."""
+    """Where a render's device time goes: torch.profiler's trace of the
+    card's activity over one render, device time by kernel name summed from
+    the trace's raw events (key_averages would spend 0.2-0.45 ms of host
+    time on each launch), and the device's busy share of the host wall."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         render()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    by_name = {}  # kernel (or copy) name -> [device ms, launches]
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA and e.duration_ns() > 0:
+            acc = by_name.setdefault(e.name(), [0.0, 0])
+            acc[0] += e.duration_ns() / 1e6
+            acc[1] += 1
+    busy_ms = sum(ms for ms, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     emit(dict(
         phase="profile", scene=what,
-        what="one 2-spp render of the main path under torch.profiler",
+        what="one 2-spp render of the main path under torch.profiler (the card's activity)",
         wall_ms=wall * 1e3, device_busy_ms=busy_ms,
         device_busy_share=busy_ms / (wall * 1e3) if busy_ms else "not measured",
-        launches=sum(e.count for e in kernels),
-        **{f"{k}_ms": sum(e.self_device_time_total for e in kernels if f"::{k}<" in e.key) / 1e3
+        launches=sum(n for _, n in by_name.values()),
+        **{f"{k}_ms": sum(ms for name, (ms, _) in by_name.items() if f"::{k}<" in name)
            for k in ("dense_kernel", "scdense_kernel", "grid_kernel", "grid_mxu_kernel",
                      "sctree_kernel", "bvh_kernel", "inst_kernel", "lattice_kernel",
                      "mxu_sweep_kernel")},
-        top=[dict(name=e.key[:90], ms=e.self_device_time_total / 1e3, count=e.count)
-             for e in top],
+        top=[dict(name=name[:90], ms=ms, count=n) for name, (ms, n) in top],
     ))
 
 
@@ -1649,9 +1736,17 @@ def record_launches(cs, kinds, render):
     return recorded, sorts
 
 
+def path_render(cs, scene, W, H, sampler, spp, depth, return_stats=False):
+    """The path integrator's render of a main path (render_wavefront)."""
+    from pine_tpu_torch.integrators.path import render_wavefront
+
+    return render_wavefront(cs, scene.camera, W, H, sampler, spp, depth,
+                            return_stats=return_stats)
+
+
 def phase_main_path(dev_name, tag, what, scene, groups_want, heavy_want, kinds,
                     size=MAIN_SIZE, spp=MAIN_SPP, depth=MAIN_DEPTH, kernels=None, checked=None,
-                    label=None, also=(), sampler="blue"):
+                    label=None, also=(), sampler="blue", render_fn=path_render, reps=3):
     """One main path at full width: compile on the card (routed under the
     forced-kernel settings ``kernels``), record the kernels' inputs, warm up,
     three timed renders (launch counts zeroed just before the first, read
@@ -1660,37 +1755,39 @@ def phase_main_path(dev_name, tag, what, scene, groups_want, heavy_want, kinds,
     launches of each form, or on all; ``label`` as kernel_line_entry's) and
     for the path's other kernels ``also`` (the plain version on every
     launch, the entries labelled with the path's tag).  ``sampler`` is a
-    core.samplers.SAMPLERS key.
-    -> (entries, compiled scene)."""
+    core.samplers.SAMPLERS key, ``size`` the film's edge or (width,
+    height), ``render_fn`` the integrator's render (``path_render``'s
+    arguments); ``reps`` timed renders, after a warm-up where reps > 1 (the
+    recording render warms the path up too).  -> (entries, compiled
+    scene)."""
     import numpy as np
     import torch
 
     from pine_tpu_torch.accel import dense_traverse as DT
     from pine_tpu_torch.core.samplers import SAMPLERS
-    from pine_tpu_torch.integrators.path import render_wavefront
 
-    W = H = size
-    t0 = time.perf_counter()
+    W, H = (size, size) if isinstance(size, int) else size
+    t_path = t0 = time.perf_counter()
     cs = scene.compile(**(kernels or {}))  # the card, by default; the C++ SAH builder
     compile_s = time.perf_counter() - t0
     groups = [group_sig(g) for g in all_groups(cs)]
     if groups != groups_want or cs.heavy_traversal != heavy_want:
         fail(f"unexpected {tag} groups {groups} (heavy: {cs.heavy_traversal})")
     sampler = SAMPLERS[sampler](spp)
-    render = lambda s: render_wavefront(cs, scene.camera, W, H, sampler, s, depth)  # noqa: E731
+    render = lambda s: render_fn(cs, scene, W, H, sampler, s, depth)  # noqa: E731
 
     recorded, _ = record_launches(cs, [*kinds, *also], lambda: render(1))
     torch.cuda.synchronize()
 
-    render(spp)  # warm-up
-    torch.cuda.synchronize()
+    if reps > 1:
+        render(spp)  # warm-up
+        torch.cuda.synchronize()
     walls = []
-    for k in range(3):
+    for k in range(reps):
         if k == 0:
             DT.reset_launches()
         t0 = time.perf_counter()
-        img, stats = render_wavefront(cs, scene.camera, W, H, sampler, spp, depth,
-                                      return_stats=True)
+        img, stats = render_fn(cs, scene, W, H, sampler, spp, depth, return_stats=True)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         if k == 0:
@@ -1725,13 +1822,15 @@ def phase_main_path(dev_name, tag, what, scene, groups_want, heavy_want, kinds,
                for form, any_hit in (("closest", False), ("any_hit", True))]
     if (cs.heavy_traversal or cs.inst_traversal) and not kernels:
         emit(coherence_sort_record(cs, tag, kinds, lambda: render(1), W * H))
+    emit(dict(phase="path_time", scene=tag, seconds=time.perf_counter() - t_path))
     return entries, cs
 
 
 def phase_garden(dev_name):
-    """The garden (GARDEN_PRL) at full width, 640x640, 16 spp, depth 5, as
-    main paths: under its Atmosphere with SobolSampler and under the
-    ImageSky of images/cbox0.png with HaltonSampler.  Each: the dense
+    """The garden (GARDEN_PRL) at full width, 640x640, 16 spp, as main
+    paths: under its Atmosphere with SobolSampler (depth 5) and under the
+    ImageSky of images/cbox0.png with HaltonSampler (depth
+    GARDEN_IMAGESKY_DEPTH).  Each: the dense
     kernel held to dense_plain bit for bit on every launch of a 1-spp render
     (the subsurface walk's eight intersects per depth among them; kernel-line
     entries ``dense_traverse.garden.*`` and ``dense_traverse.garden_imagesky.*``),
@@ -1751,8 +1850,9 @@ def phase_garden(dev_name):
     atmosphere = E.Atmosphere([0.4, 0.5, -0.6], [1, 1, 1])  # GARDEN_PRL's
     atmosphere_s = time.perf_counter() - t0
     entries = []
-    for tag, sky, sampler in (("garden", "atmosphere", "sobol"),
-                              ("garden_imagesky", "imagesky", "halton")):
+    for tag, sky, sampler, depth in (("garden", "atmosphere", "sobol", GARDEN_DEPTH),
+                                     ("garden_imagesky", "imagesky", "halton",
+                                      GARDEN_IMAGESKY_DEPTH)):
         t0 = time.perf_counter()
         scene = scenes.garden(sky, GARDEN_SIZE)
         build_s = time.perf_counter() - t0
@@ -1762,7 +1862,7 @@ def phase_garden(dev_name):
         e, cs = phase_main_path(
             dev_name, tag, f"the garden under {sky}, {SAMPLERS[sampler].__name__}, from "
             "GARDEN_PRL", scene, GARDEN_GROUPS, False, ["dense"], GARDEN_SIZE, GARDEN_SPP,
-            GARDEN_DEPTH, label=tag, sampler=sampler)
+            depth, label=tag, sampler=sampler)
         entries += e
         calls, real = [], DT.plain_query
 
@@ -1773,7 +1873,7 @@ def phase_garden(dev_name):
         DT.plain_query = record
         try:
             render_wavefront(cs, scene.camera, GARDEN_SIZE, GARDEN_SIZE,
-                             SAMPLERS[sampler](GARDEN_SPP), 1, GARDEN_DEPTH)
+                             SAMPLERS[sampler](GARDEN_SPP), 1, depth)
         finally:
             DT.plain_query = real
         ms = [(args[-1], cuda_ms(lambda: real(g, *args), 3)) for g, args in calls]
@@ -1786,6 +1886,114 @@ def phase_garden(dev_name):
                                    any_hit_ms=sum(t for a, t in ms if a))))
         del cs, calls
         torch.cuda.empty_cache()
+    return entries
+
+
+def media_setup_record(tag, cs, render):
+    """The plain-PyTorch routes of the media slice (no kernel, none of the
+    TPU's to replace) in one 1-spp render: the calls of the SDF march, the
+    CSG interval walk, the grid media's delta and ratio tracking and the
+    homogeneous media's equiangular scatter, each timed on the card on its
+    recorded inputs (one run after a warm-up).  The homogeneous scatter's time includes the
+    walks, marches and tracking it calls itself."""
+    import torch
+
+    from pine_tpu_torch.integrators import path as P
+    from pine_tpu_torch.scene import csg_intersect as C
+    from pine_tpu_torch.scene import media_track as T
+    from pine_tpu_torch.scene import scene as SC
+
+    targets = {"sdf_march": (SC, "_sdf_march"), "csg_walk": (C, "csg_intersect"),
+               "grid_delta_tracking": (T, "grid_sample_scatter"),
+               "grid_ratio_tracking": (T, "grid_transmittance"),
+               "homogeneous_scatter": (P, "_medium_scatter")}
+    reals = {k: getattr(m, n) for k, (m, n) in targets.items()}
+    calls = {k: [] for k in targets}
+
+    def recorder(key):
+        def rec(*a):
+            calls[key].append(tuple(x.clone() if torch.is_tensor(x) else x for x in a))
+            return reals[key](*a)
+        return rec
+
+    for k, (m, n) in targets.items():
+        setattr(m, n, recorder(k))
+    try:
+        render()
+        torch.cuda.synchronize()
+    finally:
+        for k, (m, n) in targets.items():
+            setattr(m, n, reals[k])
+    routes = {k: dict(calls=len(v), ms=sum(cuda_ms(lambda: reals[k](*a), 1) for a in v))
+              for k, v in calls.items() if v}
+    emit(dict(phase="media_setup", scene=tag, per="one 1-spp render", routes=routes,
+              note="plain PyTorch (no kernel); homogeneous_scatter includes the CSG walks, "
+                   "SDF marches and tracking it calls"))
+    return routes
+
+
+def phase_media(dev_name):
+    """The media slice's main paths at full width: the cloud (bench_cloud's
+    build_scene and render: 1920x1080, 96^3, depth 6, CLOUD_SPP of its 256
+    samples), the CSG fog box and the fog box with the torus (CSG_FOG_PRL,
+    640x640, BlueSampler(16), depth 5), AO on the bench box (640x640,
+    BlueSampler(16)).  Each as phase_main_path: the dense kernel held to
+    dense_plain bit for bit on every launch of a 1-spp render (kernel-line
+    entries ``dense_traverse.<tag>.*``); the media_setup record times the
+    plain routes.  -> kernel-line entries."""
+    import numpy as np
+    import torch
+
+    from pine_tpu_torch import bench_cloud, scenes
+    from pine_tpu_torch.core.samplers import BlueSampler
+    from pine_tpu_torch.integrators.ao import render_ao
+
+    emit(dict(phase="cloud_spp_cut", spp=CLOUD_SPP, full_spp=CLOUD_FULL_SPP,
+              why="chip_smoke.py's time limit; python -m pine_tpu_torch.bench_cloud renders all"))
+
+    def cloud_render(cs, scene, W, H, sampler, spp, depth, return_stats=False):
+        return bench_cloud.render(cs, scene, sampler, spp, depth, (W, H), return_stats)
+
+    t0 = time.perf_counter()
+    scene = bench_cloud.build_scene()
+    build_s = time.perf_counter() - t0
+    entries, cs = phase_main_path(
+        dev_name, "cloud", "bench_cloud's chromatic cloud, 96^3 VDB, 6 rects + 2 AABBs",
+        scene, CLOUD_GROUPS, False, ["dense"], (bench_cloud.W, bench_cloud.H), CLOUD_SPP,
+        CLOUD_DEPTH, label="cloud", render_fn=cloud_render, reps=1)
+    routes = media_setup_record("cloud", cs, lambda: cloud_render(
+        cs, scene, bench_cloud.W, bench_cloud.H, BlueSampler(CLOUD_SPP), 1, CLOUD_DEPTH))
+    emit(dict(phase="cloud_setup", scene_build_s=build_s))
+    if not routes.get("grid_delta_tracking"):
+        fail("the cloud's render never tracked its grid medium")
+    del cs
+    torch.cuda.empty_cache()
+    for tag, make in (("csg_fog", lambda: scenes.csg_fog(FOG_SIZE)),
+                      ("csg_fog_sdf", lambda: scenes.csg_fog_sdf(FOG_SIZE))):
+        scene = make()
+        e, cs = phase_main_path(
+            dev_name, tag, "the CSG fog box from CSG_FOG_PRL" + (
+                ", + an SDF torus (Python API)" if tag.endswith("sdf") else ""),
+            scene, FOG_GROUPS, False, ["dense"], FOG_SIZE, FOG_SPP, FOG_DEPTH, label=tag, reps=1)
+        entries += e
+        routes = media_setup_record(tag, cs, lambda: path_render(
+            cs, scene, FOG_SIZE, FOG_SIZE, BlueSampler(FOG_SPP), 1, FOG_DEPTH))
+        if not (routes.get("csg_walk") and routes.get("homogeneous_scatter")) or (
+                tag.endswith("sdf") and not routes.get("sdf_march")):
+            fail(f"the {tag} render skipped a plain route: {sorted(routes)}")
+        del cs
+    box = scenes.cbox((MAIN_SIZE, MAIN_SIZE))
+    lo, up = box.get_aabb()
+    radius = float(np.linalg.norm(up - lo) / 2)
+
+    def ao_render(cs, scene, W, H, sampler, spp, depth, return_stats=False):
+        return render_ao(cs, scene.camera, W, H, sampler, spp, radius, return_stats)
+
+    entries += phase_main_path(
+        dev_name, "ao", "AOIntegrator(BlueSampler(16)) on the bench cbox, 420 cones", box,
+        [("dense", 1, 6), ("dense", 5, 2), ("dense", 7, 424)], False, ["dense"], MAIN_SIZE,
+        AO_SPP, 1, label="ao", render_fn=ao_render, reps=1)[0]
+    torch.cuda.empty_cache()
     return entries
 
 
@@ -2030,6 +2238,67 @@ def phase_garden_cli():
         fail(f"the garden's CLI image differs from the in-process render: {rec}")
 
 
+def phase_media_cli():
+    """``python -m pine_tpu_torch csg_fog.pine`` on the card: CSG_FOG_PRL as
+    it stands (its render and its save to csg_fog.png); its image must equal
+    phase 4's in-process render of the script on 97 % of the pixels.  Then a
+    script of a VDBMedium over an .nvdb written here (scenes.explosion's
+    grids: density, flames, temperature) and a HomoMedium, 96x96, 4 spp,
+    depth 4, its PNG finite and lit."""
+    import numpy as np
+
+    from pine_tpu_torch import scenes
+    from pine_tpu_torch.io.nvdb import write_nvdb_multi
+
+    for name, src, want in (("csg_fog", scenes.CSG_FOG_PRL, "chip_smoke_csg_fog.png"),
+                            ("vdb", None, None)):
+        if src is None:
+            dens, flame, temp = scenes.make_explosion(48)
+            nvdb = os.path.join(OUT_DIR, "explosion.nvdb")
+            write_nvdb_multi(nvdb, {"density": dens, "flames": flame, "temperature": temp})
+            src = VDB_PRL.replace("FILE", repr(nvdb))
+        out = os.path.join(OUT_DIR, f"{name}.png")
+        if os.path.exists(out):
+            os.remove(out)
+        with open(os.path.join(OUT_DIR, f"{name}.pine"), "w") as f:
+            f.write(src)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "pine_tpu_torch", f"{name}.pine"],
+                              cwd=OUT_DIR, env=dict(os.environ, PYTHONPATH=ROOT),
+                              capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        lines = proc.stdout.strip().splitlines()
+        rec = dict(phase="cli", command=f"python -m pine_tpu_torch {name}.pine",
+                   returncode=proc.returncode, wall_s=wall, finished=lines[-1] if lines else "",
+                   png=os.path.exists(out))
+        if proc.returncode != 0 or not rec["png"]:
+            emit(rec)
+            fail(f"the {name} CLI run failed: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+        got = read_png(out).astype(np.float32)
+        rec["mean"] = float(got.mean())
+        if want is not None:
+            ref = read_png(os.path.join(OUT_DIR, want)).astype(np.float32)
+            d = np.abs(got - ref)
+            rec["pixels_agree"] = float(((d <= 1e-3 * np.abs(ref)) | (d <= 1e-4)).all(-1).mean())
+        emit(rec)
+        if not rec["finished"].startswith("Finished in") or not got.mean() > 0 or (
+                want is not None and (got.shape != ref.shape or rec["pixels_agree"] < 0.97)):
+            fail(f"the {name} CLI image is wrong: {rec}")
+
+
+VDB_PRL = """
+scene := Scene();
+scene.add("floor", Diffuse([0.45, 0.42, 0.4]));
+scene.add(Rect([0, 0, 0], [12, 0, 0], [0, 0, 12]), "floor");
+scene.add(Rect([-4, 7, -6], [2.5, 0, 0], [0, 0, 2.5]), Emissive([16, 15, 14]));
+scene.add(VDBMedium(FILE, translate([-1.2, 0.0, -1.2]) * scale([2.4, 2.4, 2.4]), CloudPF(0.6), [6, 6, 6], [4, 4, 4], 3.0, 0.9));
+scene.add(HomoMedium(AABB([-3, 0, -3], [3, 3, 3]) - AABB([-1.3, 0, -1.3], [1.3, 2.5, 1.3]), HgPF(0.2), [0.01, 0.01, 0.01], [0.05, 0.05, 0.05]));
+scene.set(ThinLenCamera(Film([96, 96]), [0, 1.6, -4.6], [0, 1.1, 0], 0.3));
+PathIntegrator(BlueSampler(4), 4).render(scene);
+scene.camera.film().save("vdb.png");
+"""
+
+
 def phase_bench(box_rays):
     """``python -m pine_tpu_torch.bench`` on the card, bench.py's counterpart:
     its JSON line must parse, be finite, and count traced rays within 0.5 %
@@ -2189,8 +2458,10 @@ def main():
                   **({"vs_dense": [dict(group=r["group"], form=r["form"], **r["vs_dense"])
                                    for r in recs]} if kind == "lattice" else {})))
         torch.cuda.empty_cache()
+    elapsed("kernels against their plain versions", t_start)
 
     phase_render_parity()
+    elapsed("render_parity", t_start)
     name = torch.cuda.get_device_name(0)
     W = H = MAIN_SIZE
     box = prl_box_checked()
@@ -2248,13 +2519,20 @@ def main():
         name, "instanced_mxu", "bench_instanced rock field, 1,024 x 4,802 triangles + plane + "
         "rect, inst_kernel mxu", field, [("dense", 1, 1), ("dense", 3, 1), ("inst_mxu", 6, 1024)],
         False, ["inst_mxu"], INST_SIZE, INST_SPP, INST_DEPTH, kernels=dict(inst_kernel="mxu"))[0]
+    elapsed("main paths of slices 1-6", t_start)
     kernels += phase_house(name)
+    elapsed("house", t_start)
     kernels += phase_garden(name)
+    elapsed("garden", t_start)
+    kernels += phase_media(name)
+    elapsed("media", t_start)
     kernels += phase_lab(name, probe_recs)
     phase_cli()
     phase_bench(MAIN_RAYS["cbox"])
     phase_house_cli()
     phase_garden_cli()
+    elapsed("lab, CLIs and bench of slices 1-8", t_start)
+    phase_media_cli()
     phase_lab_modules()
     emit(dict(phase="done", seconds=time.perf_counter() - t_start))
     emit({"kernels": kernels})

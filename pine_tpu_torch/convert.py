@@ -80,7 +80,17 @@ Keys (``i`` counts from 0):
   ``.image`` (H, W, 3), ``.tint``, ``.l2w`` (3, 3) (absent when it is not
   rotated) and its map likewise;
 - optional camera: ``cam.position`` (3,), ``cam.rot`` (3,3) camera-to-world,
-  ``cam.fov2d`` (2,), ``cam.len_radius``, ``cam.focus_distance``.
+  ``cam.fov2d`` (2,), ``cam.len_radius``, ``cam.focus_distance``;
+- the shapes and media that are no rows, as the port's objects (``carry``
+  makes them from pine_tpu's): ``n_sdf``, ``sdf.<i>`` an SDFShape and
+  ``sdf.<i>.gidx`` its geometry (``g_type`` SDF_TYPE); ``n_csg``,
+  ``csg.<i>`` a CSG tree (scene/csg.py) and ``csg.<i>.gidx`` (``g_type``
+  -1); ``n_media``, ``medium.<i>`` a HomogeneousMedium or GridMedium
+  (scene/media.py), in the scene's order.
+
+Without groups (24 or fewer analytic prims, no mesh, no lazy instancing)
+each ``table.<tid>`` becomes a group of its own on the upload
+(``type_group``), on the dense kernel (lines on the "plain" route).
 """
 from __future__ import annotations
 
@@ -98,6 +108,7 @@ from pine_tpu_torch.scene import lights as L
 from pine_tpu_torch.scene import materials as M
 from pine_tpu_torch.scene import nodes as N
 from pine_tpu_torch.scene import shapes as S
+from pine_tpu_torch.scene.csg import CSGShape
 from pine_tpu_torch.scene.scene import BIG, CompiledScene, check_ported
 
 DENSE_SCENE_MAX = 24  # scenes with more prims than this (or a mesh) use the prim groups
@@ -123,7 +134,7 @@ def scene_arrays(scene) -> dict:
     images = []
     g_type, g_local, g_mat = [], [], []
     per_type, type_global = {}, {}
-    prims, meshes, area_lights = [], [], []
+    prims, meshes, area_lights, sdfs, csgs = [], [], [], [], []
     world_lo = np.full(3, np.inf, np.float32)
     world_hi = np.full(3, -np.inf, np.float32)
     for shape, mat in scene.geometries:
@@ -133,6 +144,12 @@ def scene_arrays(scene) -> dict:
         g_mat.append(mat_slot(mat))
         lo, hi = shape.get_aabb()
         world_lo, world_hi = np.minimum(world_lo, lo), np.maximum(world_hi, hi)
+        if isinstance(shape, (CSGShape, S.SDFShape)):
+            # no row; an emissive one is no light, as in pine_tpu (no area sampling)
+            listed = csgs if isinstance(shape, CSGShape) else sdfs
+            g_local.append(len(listed))
+            listed.append((shape, gidx))
+            continue
         if isinstance(shape, S.Mesh):
             g_local.append(len(meshes))
             meshes.append((shape, gidx))
@@ -161,6 +178,15 @@ def scene_arrays(scene) -> dict:
             wc = corners @ m[:3, :3].T + m[:3, 3]
             world_lo, world_hi = np.minimum(world_lo, wc.min(0)), np.maximum(world_hi, wc.max(0))
         inst_records.append(instancing_record(inst.shape, [m for m, _ in inst.instances], gidx))
+    for name, listed in (("sdf", sdfs), ("csg", csgs)):
+        a[f"n_{name}"] = np.asarray(len(listed))
+        for i, (shape, gidx) in enumerate(listed):
+            a[f"{name}.{i}"], a[f"{name}.{i}.gidx"] = shape, np.asarray(gidx)
+    a["n_media"] = np.asarray(len(scene.mediums))
+    for i, med in enumerate(scene.mediums):
+        if hasattr(med, "shape"):
+            check_ported(med.shape)
+        a[f"medium.{i}"] = med
     a["g_type"] = np.asarray(g_type, np.int32)
     a["g_local"] = np.asarray(g_local, np.int32)
     a["g_mat"] = np.asarray(g_mat, np.int32)
@@ -338,7 +364,7 @@ def light_record(li) -> dict:
         if li.l2w is not None:
             rec["l2w"] = np.asarray(li.l2w, np.float32)
         return rec
-    raise NotImplementedError(f"{kind} is not ported yet (ROADMAP.md, modules item 11)")
+    raise TypeError(f"{kind} is not a light")
 
 
 def light_of(rec, images, device):
@@ -365,6 +391,35 @@ def light_of(rec, images, device):
         return L.MeshLight(rec["tris"], int(rec["gidx"]), color, device)
     return L.AreaLight(int(rec["tid"]), torch.as_tensor(np.array(rec["params"]), device=device),
                        int(rec["gidx"]), color)
+
+
+def carry(x):
+    """The port's counterpart of one of pine_tpu's shapes (a CSG tree, its
+    analytic leaves, an SDFShape whose ``fn`` is kept as it is), phase
+    functions or media, by class name, every attribute carried as it is
+    (host arrays and Python scalars; a grid medium's device grids as numpy
+    arrays).  A medium's shape and phase function are carried too."""
+    import importlib
+
+    kind = type(x).__name__
+    for mod in ("scene.csg", "scene.shapes", "scene.media"):
+        cls = getattr(importlib.import_module(f"pine_tpu_torch.{mod}"), kind, None)
+        if cls is not None:
+            break
+    else:
+        raise TypeError(f"nothing of the port carries a {kind}")
+    out = cls.__new__(cls)
+    for k, v in vars(x).items():
+        if k in ("a", "b", "base", "shape", "pf", "l0", "l1"):
+            v = carry(v)
+        elif hasattr(v, "__array__") and not isinstance(v, np.ndarray):
+            v = np.asarray(v)  # a device array of pine_tpu's
+        out.__dict__[k] = v
+    if kind in ("GridMedium", "VDBMedium"):
+        out.res_f = np.asarray(out.res, np.float32)
+        if out.temperature is not None:
+            out.bb_table = np.asarray(out.bb_table, np.float32)
+    return out
 
 
 def carry_lattice(lat):
@@ -438,6 +493,11 @@ def compiled_scene_from_arrays(arrays: dict, device=None, small_kernel=None,
                        ent_gidx=t(arrays["ent_gidx"], torch.int32))
         unified.update({k: t(arrays[k]) for k in MESH_KEYS if k in arrays})
 
+    type_groups = []
+    if unified is None:
+        type_groups = [type_group(tid, tables[tid]) for tid in tids]
+        route(type_groups)
+
     images = [arrays[f"image.{k}"] for k in range(int(arrays.get("n_images", 0)))]
     materials = []
     for i in range(int(arrays["n_materials"])):
@@ -461,4 +521,17 @@ def compiled_scene_from_arrays(arrays: dict, device=None, small_kernel=None,
         t(arrays["g_mat"], torch.int32), tables, type_global, unified, materials,
         lights, camera, t(arrays["world_lo"], torch.float32), float(arrays["world_span"]),
         (small_kernel, mesh_kernel, inst_kernel),
+        *([(arrays[f"{name}.{i}"], int(arrays[f"{name}.{i}.gidx"]))
+           for i in range(int(arrays.get(f"n_{name}", 0)))] for name in ("sdf", "csg")),
+        [arrays[f"medium.{i}"] for i in range(int(arrays.get("n_media", 0)))], type_groups,
     )
+
+
+def type_group(tid, table):
+    """One per-type table of a scene without groups as a group of its own,
+    every lane tested against every row (a group box that culls nothing):
+    pine_tpu's brute-force product over that table, on the dense kernel."""
+    n = table.shape[0]
+    box = torch.tensor([-BIG] * 3 + [BIG] * 3, dtype=torch.float32, device=table.device)
+    return dict(tid=tid, kind="dense", base=0, rows=table, gbox=box, lattice=None, nodes=None,
+                prim_aabbs=np.zeros((n, 6), np.float32))

@@ -33,11 +33,13 @@ def pcg_hash(x):
 
 
 def hash_combine(*xs):
-    """Mix any number of uint32 streams into one."""
+    """Mix any number of uint32 streams into one.  A Python int after the
+    first stays a Python int in the sums (no tensor is uploaded for it)."""
     like = next((x for x in xs if isinstance(x, torch.Tensor)), None)
     h = _as_u32(xs[0], like)
     for x in xs[1:]:
-        mix = (_as_u32(x, like) + 0x9E3779B9 + ((h << 6) & _M32) + (h >> 2)) & _M32
+        x = _as_u32(x) if isinstance(x, torch.Tensor) else int(x) & _M32
+        mix = (x + 0x9E3779B9 + ((h << 6) & _M32) + (h >> 2)) & _M32
         h = pcg_hash(h ^ mix)
     return pcg_hash(h)
 

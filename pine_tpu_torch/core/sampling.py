@@ -3,13 +3,14 @@ from __future__ import annotations
 
 import torch
 
+from pine_tpu_torch.core import fmath as fm
 from pine_tpu_torch.core.vecmath import Pi
 
 
 def sample_disk_polar(u):
-    r = torch.sqrt(u[..., 0])
+    r = fm.sqrt(u[..., 0])
     theta = 2 * Pi * u[..., 1]
-    return torch.stack([r * torch.cos(theta), r * torch.sin(theta)], -1)
+    return torch.stack([r * fm.cos(theta), r * fm.sin(theta)], -1)
 
 
 def sample_disk_concentric(u):
@@ -25,30 +26,30 @@ def sample_disk_concentric(u):
     theta = torch.where(
         use_x, (Pi / 4.0) * safe(uy, ux), Pi / 2.0 - (Pi / 4.0) * safe(ux, uy)
     )
-    return torch.stack([r * torch.cos(theta), r * torch.sin(theta)], -1)
+    return torch.stack([r * fm.cos(theta), r * fm.sin(theta)], -1)
 
 
 def cosine_weighted_hemisphere(u):
     d = sample_disk_concentric(u)
-    z = torch.sqrt(torch.clamp_min(1.0 - d[..., 0] * d[..., 0] - d[..., 1] * d[..., 1], 0.0))
+    z = fm.sqrt(torch.clamp_min(1.0 - d[..., 0] * d[..., 0] - d[..., 1] * d[..., 1], 0.0))
     return torch.cat([d, z[..., None]], -1)
 
 
 def uniform_hemisphere(u):
     phi = u[..., 0] * Pi * 2
     cos_theta = u[..., 1]
-    sin_theta = torch.sqrt(torch.clamp_min(1.0 - cos_theta * cos_theta, 0.0))
+    sin_theta = fm.sqrt(torch.clamp_min(1.0 - cos_theta * cos_theta, 0.0))
     return torch.stack(
-        [sin_theta * torch.cos(phi), sin_theta * torch.sin(phi), cos_theta], -1
+        [sin_theta * fm.cos(phi), sin_theta * fm.sin(phi), cos_theta], -1
     )
 
 
 def uniform_sphere(u):
     phi = u[..., 0] * Pi * 2
     cos_theta = 1.0 - 2.0 * u[..., 1]
-    sin_theta = torch.sqrt(torch.clamp_min(1.0 - cos_theta**2, 0.0))
+    sin_theta = fm.sqrt(torch.clamp_min(1.0 - cos_theta**2, 0.0))
     return torch.stack(
-        [sin_theta * torch.cos(phi), sin_theta * torch.sin(phi), cos_theta], -1
+        [sin_theta * fm.cos(phi), sin_theta * fm.sin(phi), cos_theta], -1
     )
 
 

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from pine_tpu_torch.core import fmath as fm
 from pine_tpu_torch.core.sampling import sample_disk_polar
 from pine_tpu_torch.core.vecmath import Pi, cross, dot, dotk, length_squared, safe_normalize
 
@@ -35,14 +36,14 @@ def tan2_theta(w):
 
 
 def cos_phi(w):
-    sin_t = torch.sqrt(torch.clamp_min(sin2_theta(w), 0.0))
+    sin_t = fm.sqrt(torch.clamp_min(sin2_theta(w), 0.0))
     return torch.where(
         sin_t == 0.0, 1.0, (w[..., 0] / torch.clamp_min(sin_t, EPS)).clamp(-1.0, 1.0)
     )
 
 
 def sin_phi(w):
-    sin_t = torch.sqrt(torch.clamp_min(sin2_theta(w), 0.0))
+    sin_t = fm.sqrt(torch.clamp_min(sin2_theta(w), 0.0))
     return torch.where(
         sin_t == 0.0, 1.0, (w[..., 1] / torch.clamp_min(sin_t, EPS)).clamp(-1.0, 1.0)
     )
@@ -76,7 +77,7 @@ def refract(wi, n, eta):
     sin2_i = torch.clamp_min(1.0 - cos_i * cos_i, 0.0)
     sin2_t = sin2_i / (eta_eff * eta_eff)
     ok = sin2_t < 1.0
-    cos_t = torch.sqrt(torch.clamp_min(1.0 - sin2_t, 0.0))
+    cos_t = fm.sqrt(torch.clamp_min(1.0 - sin2_t, 0.0))
     wt = -wi / eta_eff[..., None] + (cos_i / eta_eff - cos_t)[..., None] * n_eff
     return ok, wt, eta_eff
 
@@ -90,7 +91,7 @@ def fr_dielectric(cos_i, eta):
     sin2_i = 1.0 - cos_i * cos_i
     sin2_t = sin2_i / (eta * eta)
     tir = sin2_t >= 1.0
-    cos_t = torch.sqrt(torch.clamp_min(1.0 - sin2_t, 0.0))
+    cos_t = fm.sqrt(torch.clamp_min(1.0 - sin2_t, 0.0))
     r_parl = (eta * cos_i - cos_t) / torch.clamp_min(eta * cos_i + cos_t, EPS)
     r_perp = (cos_i - eta * cos_t) / torch.clamp_min(cos_i + eta * cos_t, EPS)
     return torch.where(tir, 1.0, (r_parl * r_parl + r_perp * r_perp) / 2.0)
@@ -118,7 +119,7 @@ def ggx_lambda(alpha, w):
     ca = cos_phi(w) * alpha
     sa = sin_phi(w) * alpha
     alpha2 = ca * ca + sa * sa
-    return (torch.sqrt(1.0 + alpha2 * tan2) - 1.0) / 2.0
+    return (fm.sqrt(1.0 + alpha2 * tan2) - 1.0) / 2.0
 
 
 def ggx_g1(alpha, w):
@@ -161,10 +162,10 @@ def ggx_sample_wm(alpha, w, u):
     )
     t2 = cross(wh, t1)
     p = sample_disk_polar(u)
-    h = torch.sqrt(torch.clamp_min(1.0 - p[..., 0] * p[..., 0], 0.0))
+    h = fm.sqrt(torch.clamp_min(1.0 - p[..., 0] * p[..., 0], 0.0))
     py = (1.0 - (1.0 + wh[..., 2]) / 2.0) * h + (1.0 + wh[..., 2]) / 2.0 * p[..., 1]
     p = torch.stack([p[..., 0], py], -1)
-    pz = torch.sqrt(torch.clamp_min(1.0 - length_squared(p), 0.0))
+    pz = fm.sqrt(torch.clamp_min(1.0 - length_squared(p), 0.0))
     nh = p[..., 0:1] * t1 + p[..., 1:2] * t2 + pz[..., None] * wh
     return safe_normalize(
         torch.cat([a * nh[..., :2], torch.clamp_min(nh[..., 2:3], 1e-6)], -1)

@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pine_tpu_torch.core import fmath as fm
+
 Pi = float(np.pi)
 FLOAT_MAX = float(np.finfo(np.float32).max)
 
@@ -33,11 +35,11 @@ def length_squared(v):
 
 
 def length(v):
-    return torch.sqrt(length_squared(v))
+    return fm.sqrt(length_squared(v))
 
 
 def normalize(v, eps=0.0):
-    n = torch.sqrt(dotk(v, v))
+    n = fm.sqrt(dotk(v, v))
     if eps:
         n = torch.clamp_min(n, eps)
     return v / n

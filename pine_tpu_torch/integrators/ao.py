@@ -1,0 +1,79 @@
+"""Ambient-occlusion integrator.  Counterpart of pine_tpu/integrators/ao.py
+(parity: impl/integrator/ao.cpp).
+
+Each (pixel, sample) lane traces its camera ray, then eight hemisphere
+directions around the hit's normal, each an occlusion query of length
+``radius`` (default: half the scene box's diagonal): the unoccluded share
+is the pixel's grey value, 1 on a miss.  Sampler dims: 0-1 the pixel
+jitter, 2-3 the lens, 4 + 2k the k-th direction.  Its rays go through
+``CompiledScene.intersect`` and ``any_hit``, so the traversal kernels run
+on the card.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from pine_tpu_torch.core import camera as camera_mod
+from pine_tpu_torch.core.ray import offset_ray_origin
+from pine_tpu_torch.core.sampling import uniform_hemisphere
+from pine_tpu_torch.core.vecmath import face_forward, to_world
+
+FLOAT_MAX = float(np.finfo(np.float32).max)
+DIRECTIONS = 8
+
+
+class AOIntegrator:
+    """AOIntegrator(sampler[, radius])."""
+
+    def __init__(self, sampler, radius=None):
+        self.sampler = sampler
+        self.radius = radius
+
+    def render(self, scene, device=None):
+        """Render ``scene`` into its camera's film on ``device`` (default: the card)."""
+        cam = scene.camera
+        if cam is None:
+            raise RuntimeError("scene has no camera")
+        cscene = scene.compile(device)
+        lo, up = scene.get_aabb()
+        radius = self.radius or float(np.linalg.norm(up - lo) / 2)
+        film = cam.film
+        film.set_rgb(render_ao(cscene, cam, film.width, film.height, self.sampler,
+                               self.sampler.spp, radius))
+        return film
+
+
+def render_ao(cscene, cam, W, H, sampler, spp, radius, return_stats=False):
+    """-> the (H,W,3) ambient occlusion on the scene's device; lanes in row
+    order, one per pixel.  With return_stats=True also {"traced_rays": n}:
+    the camera rays and the occlusion rays cast (eight from each hit)."""
+    dev = cscene.device
+    cp = cam.params(dev) if cam is not None else cscene.camera
+    n = W * H
+    idx = torch.arange(n, dtype=torch.int64, device=dev)
+    ys, xs = (idx // W).to(torch.int32), (idx % W).to(torch.int32)
+    wh = torch.tensor([W, H], dtype=torch.float32, device=dev)
+    zero = torch.zeros(n, device=dev)
+    total = torch.zeros(n, 3, device=dev)
+    rays = torch.zeros((), dtype=torch.int64, device=dev)
+    for i in range(spp):
+        p_film = (torch.stack([xs, ys], -1).to(torch.float32) + sampler.u2(xs, ys, i, 0)) / wh
+        ro, rd = camera_mod.gen_rays(cp, p_film, sampler.u2(xs, ys, i, 2))
+        ro, rd = ro.contiguous(), rd.contiguous()
+        t, gidx, hitm, mesh_tri = cscene.intersect(ro, rd, zero, torch.full_like(zero, FLOAT_MAX))
+        t_hit = torch.where(hitm, t, 1.0)  # miss lanes: t = BIG would overflow
+        p_s, ns, _ = cscene.surface_info(gidx, ro + t_hit[:, None] * rd, mesh_tri)
+        ns = face_forward(ns, -rd)
+        so = offset_ray_origin(p_s, ns)
+        tmax = torch.where(hitm, radius, -1.0)  # a missed lane casts no occlusion ray
+        occ = torch.zeros(n, device=dev)
+        for k in range(DIRECTIONS):
+            d = to_world(ns, uniform_hemisphere(sampler.u2(xs, ys, i, 4 + 2 * k)))
+            blocked = cscene.any_hit(so, d.contiguous(), zero, tmax)
+            occ = occ + torch.where(blocked, 0.0, 1.0)
+        ao = torch.where(hitm, occ / DIRECTIONS, 1.0)
+        total = total + ao[:, None].expand(n, 3)
+        rays = rays + n + DIRECTIONS * hitm.sum()
+    img = (total / spp).reshape(H, W, 3)
+    return (img, {"traced_rays": int(rays)}) if return_stats else img

@@ -25,9 +25,15 @@ each bounce's rays as the path integrator does.  A ray that escapes takes
 the environment light's radiance, MIS-weighted, as it arrives along the
 segment (cachedpath.cpp; pine_tpu's cachedpath.py:332-336, 464-468).  As
 pine_tpu's, this integrator takes no subsurface walk: a Subsurface lane
-keeps its BSSRDF lobe at the entry vertex.  Surfaces only: the
-participating media of pine_tpu's branches (ROADMAP.md, modules item 11)
-cannot reach a port scene, whose ``add`` refuses them.
+keeps its BSSRDF lobe at the entry vertex.
+
+Media, pine_tpu's branches: each segment takes the homogeneous media's
+transmittance and single scatter (``path.segment_medium_terms``, before the
+first diffuse bounce), and the grid media make medium vertices of their own
+(``path.grid_vertices``): NEE from them, MIS against the phase function, and
+a phase-sampled continuation.  Medium vertices are never binned into the
+cache and never end in it.  Their sampler dims lie past every depth's
+(base 4 + max_depth*16 + d*24).
 """
 from __future__ import annotations
 
@@ -37,7 +43,8 @@ import numpy as np
 import torch
 
 from pine_tpu_torch.core import progress
-from pine_tpu_torch.integrators.path import DEFAULT_CHUNK, PathWalk, tile_order
+from pine_tpu_torch.integrators.path import (DEFAULT_CHUNK, PathWalk, _medium_nee,
+                                             grid_vertices, segment_medium_terms, tile_order)
 
 
 class SpatialGrid:
@@ -141,7 +148,10 @@ def render_cached(cscene, cam, W, H, sampler, spp, max_depth, bounds, max_axis_r
             total = total + r
             lo_next = torch.zeros(xs.shape[0], 3, device=dev)
             for d in range(max_depth - 2, -1, -1):
-                lo_v = recs["nee"][d] + recs["thr"][d] * (recs["emit"][d + 1] + lo_next)
+                # what arrives through segment d+1: its in-scatter, plus its
+                # transmittance times its emission and the far vertex's lo
+                lo_v = recs["nee"][d] + recs["thr"][d] * (
+                    recs["seg_sc"][d + 1] + recs["seg_tr"][d + 1] * (recs["emit"][d + 1] + lo_next))
                 m = recs["valid"][d]
                 flux.index_add_(0, recs["cell"][d], torch.where(m[:, None], lo_v, 0.0))
                 count.index_add_(0, recs["cell"][d], m.to(torch.float32))
@@ -169,28 +179,67 @@ def render_cached(cscene, cam, W, H, sampler, spp, max_depth, bounds, max_axis_r
     return img
 
 
+def _segment_media(cscene, walk, t, hitm, xs, ys, sampler, sample_index, depth, max_depth):
+    """The media of the depth's segment -> (transmittance, in-scatter and
+    emission without beta, the grid media's vertices or None)."""
+    n, dev = xs.shape[0], xs.device
+    mdim = 4 + max_depth * 16 + depth * 24
+    seg_tr, seg_sc = segment_medium_terms(cscene, walk.ro, walk.rd, torch.where(hitm, t, 1e8),
+                                          walk.alive, xs, ys, sampler, sample_index, mdim - 10,
+                                          scatter_mask=walk.alive & ~walk.diffused)
+    med = None
+    if cscene.grid_media and depth + 1 < max_depth:
+        _, le, med = grid_vertices(cscene, walk, t, hitm, None, xs, ys, sampler, sample_index,
+                                   7600 + depth, mdim + 15)
+        med["nee_dim"] = mdim + 12
+        seg_sc = seg_sc + le
+    return seg_tr, seg_sc, med
+
+
+def _medium_vertex_nee(cscene, med, rd, xs, ys, sampler, sample_index):
+    """NEE at the depth's medium vertices, times their weight, without beta."""
+    return med["w"] * _medium_nee(cscene, med["ro"], rd, med["scatter"], med["masks"], xs, ys,
+                                  sampler, sample_index, med["nee_dim"])
+
+
 def _trace_recorded(cscene, cp, xs, ys, W, H, sampler, sample_index, max_depth, grid):
     """Learning-phase walk -> (per-depth records for the reverse sweep,
     traced rays)."""
     n, dev = xs.shape[0], xs.device
     walk = PathWalk(cp, xs, ys, W, H, sampler, sample_index)
-    zero3 = torch.zeros(n, 3, device=dev)
+    zero3, one3 = torch.zeros(n, 3, device=dev), torch.ones(n, 3, device=dev)
     recs = dict(nee=[zero3] * max_depth, thr=[zero3] * max_depth, emit=[zero3] * max_depth,
                 cell=[torch.zeros(n, dtype=torch.int64, device=dev)] * max_depth,
-                valid=[torch.zeros(n, dtype=torch.bool, device=dev)] * max_depth)
+                valid=[torch.zeros(n, dtype=torch.bool, device=dev)] * max_depth,
+                # the media terms of the segment into vertex d
+                seg_tr=[one3] * max_depth, seg_sc=[zero3] * max_depth)
+    has_media = bool(cscene.media or cscene.grid_media)
     for depth in range(max_depth):
-        gidx, p_s, ns, ctx, wi_world, emis, le, mis, env = walk.hit(cscene)
+        t, gidx, hitm, mesh_tri = walk.trace(cscene)
+        med = None
+        if has_media:
+            recs["seg_tr"][depth], recs["seg_sc"][depth], med = _segment_media(
+                cscene, walk, t, hitm, xs, ys, sampler, sample_index, depth, max_depth)
+        gidx, p_s, ns, ctx, wi_world, emis, le, mis, env = walk.arrive(cscene, t, gidx, hitm,
+                                                                       mesh_tri, med)
         emit = zero3 if env is None else env[0] * env[1]  # arriving along this segment
         if mis is not None:
             emit = emit + torch.where(emis[:, None], le * mis[:, None], 0.0)
         recs["emit"][depth] = emit
         if depth + 1 >= max_depth:
             break
-        surf = walk.alive
+        surf, rd = walk.surf, walk.rd
         recs["nee"][depth], thr, valid, _ = walk.scatter(
             cscene, xs, ys, sampler, sample_index, 4 + depth * 16, gidx, p_s, ns, ctx, wi_world,
             surf)
         recs["thr"][depth] = torch.where((surf & valid)[:, None], thr, 0.0)
+        if med is not None:
+            sc = med["scatter"][:, None]
+            if cscene.lights:
+                recs["nee"][depth] = torch.where(
+                    sc, _medium_vertex_nee(cscene, med, rd, xs, ys, sampler, sample_index),
+                    recs["nee"][depth])
+            recs["thr"][depth] = torch.where(sc, med["w"], recs["thr"][depth])
         recs["cell"][depth] = grid.cell_of(p_s).long()
         recs["valid"][depth] = surf
     return recs, walk.n_rays
@@ -204,16 +253,25 @@ def _trace_with_cache(cscene, cp, xs, ys, W, H, sampler, sample_index, max_depth
     walk = PathWalk(cp, xs, ys, W, H, sampler, sample_index)
     L = torch.zeros(n, 3, device=dev)
     beta = torch.ones(n, 3, device=dev)
+    has_media = bool(cscene.media or cscene.grid_media)
     for depth in range(max_depth):
         dim = 4 + depth * 16
-        gidx, p_s, ns, ctx, wi_world, emis, le, mis, env = walk.hit(cscene)
+        t, gidx, hitm, mesh_tri = walk.trace(cscene)
+        med = None
+        if has_media:
+            seg_tr, seg_sc, med = _segment_media(cscene, walk, t, hitm, xs, ys, sampler,
+                                                 sample_index, depth, max_depth)
+            L = L + beta * seg_sc
+            beta = beta * seg_tr
+        gidx, p_s, ns, ctx, wi_world, emis, le, mis, env = walk.arrive(cscene, t, gidx, hitm,
+                                                                       mesh_tri, med)
         if env is not None:
             L = L + beta * env[0] * env[1]
         if mis is not None:
             L = L + torch.where(emis[:, None], beta * le * mis[:, None], 0.0)
         if depth + 1 >= max_depth:
             break
-        surf = walk.alive
+        surf, rd = walk.surf, walk.rd
         if depth >= starting_depth:
             # a surface vertex reached by a non-delta bounce ends in the cache
             use_cache = surf & ~walk.prev_delta
@@ -225,5 +283,10 @@ def _trace_with_cache(cscene, cp, xs, ys, W, H, sampler, sample_index, max_depth
         contrib, thr, valid, _ = walk.scatter(cscene, xs, ys, sampler, sample_index, dim, gidx,
                                               p_s, ns, ctx, wi_world, surf)
         L = L + beta * contrib
+        if med is not None and cscene.lights:
+            L = L + torch.where(med["scatter"][:, None], beta * _medium_vertex_nee(
+                cscene, med, rd, xs, ys, sampler, sample_index), 0.0)
         beta = torch.where((surf & valid)[:, None], beta * thr, beta)
+        if med is not None:
+            beta = torch.where(med["scatter"][:, None], beta * med["w"], beta)
     return L, walk.n_rays

@@ -13,8 +13,11 @@ and ``heightmap(file)``, the materials, the texture and procedural nodes
 point, spot and directional lights, the environment lights (``Sky``,
 ``Atmosphere``, ``ImageSky``), ThinLenCamera, Film and its tone mappers,
 the uniform, Halton, Sobol and blue-noise samplers, the math, vector,
-matrix and transform builtins, ``PathIntegrator``,
-``CachedPathIntegrator`` and ``render``, ``save`` and ``println``.  The
+matrix and transform builtins, CSG by the operators +, * and - on shapes,
+the phase functions (``HgPF``, ``Hg2PF``, ``CloudPF``) and media
+(``HomoMedium``, ``VDBMedium``), ``PathIntegrator``,
+``CachedPathIntegrator``, ``AOIntegrator``, ``VolIntegrator`` and
+``render``, ``save`` and ``println``.  The
 others raise NotImplementedError naming their ROADMAP.md modules item when
 called.  ``render`` renders on the device the interpreter was given.
 """
@@ -29,14 +32,12 @@ Pi = float(np.pi)
 
 # builtin -> the ROADMAP.md modules item that ports its target
 UNPORTED = {
-    "SDF": 9,
-    **dict.fromkeys(("HgPF", "Hg2PF", "CloudPF", "HomoMedium", "VDBMedium"), 11),
-    **dict.fromkeys(("AOIntegrator", "VolIntegrator", "RandomWalkIntegrator",
-                     "GuidedPathIntegrator", "MltIntegrator", "RestirIntegrator",
-                     "MicroRenderGI", "denoise"), 12),
+    **dict.fromkeys(("RandomWalkIntegrator", "GuidedPathIntegrator", "MltIntegrator",
+                     "RestirIntegrator", "MicroRenderGI", "denoise"), 12),
     # script lambdas evaluated over a batch of lanes (pine_tpu: under a jax trace);
-    # heightmap(size, fn) too (``heightmap(file)`` is ported)
-    **dict.fromkeys(("draw", "Function"), 15),
+    # heightmap(size, fn) too (``heightmap(file)`` is ported), and SDF, whose
+    # distance is a script lambda (the Python API's SDFShape takes a torch function)
+    **dict.fromkeys(("draw", "Function", "SDF"), 15),
 }
 
 
@@ -481,8 +482,37 @@ def make_registry(interp):
     reg["SobolSampler"] = lambda spp: samplers_mod.SobolSampler(int(spp))
     reg["BlueSampler"] = lambda spp: samplers_mod.BlueSampler(int(spp))
 
+    # ---- media (medium.cpp:342-354) ----------------------------------------
+    from pine_tpu_torch.scene import media as media_mod
+
+    reg["HgPF"] = lambda g=0.0: media_mod.HgPhaseFunction(float(g))
+    reg["Hg2PF"] = lambda g0, g1, w: media_mod.TwoLobeHgPhaseFunction(float(g0), float(g1),
+                                                                      float(w))
+    reg["CloudPF"] = lambda d=0.5: media_mod.CloudPhaseFunction(float(d))
+    reg["HomoMedium"] = lambda shape, pf, sigma_a, sigma_s: media_mod.HomogeneousMedium(
+        shape, pf, _f32(sigma_a), _f32(sigma_s))
+
+    @register("VDBMedium")
+    def _vdbmedium(filename, transform, pf, sigma_a, sigma_s, *rest):
+        # VDBMedium(file, transform, pf, sigma_a, sigma_s[, blackbody_intensity,
+        # temperature_scale]) (medium.cpp:152)
+        return media_mod.VDBMedium(str(filename), _data(transform), pf, _f32(sigma_a),
+                                   _f32(sigma_s), *[float(r) for r in rest])
+
     # ---- integrators (program_context.cpp:54-118) --------------------------
     reg["PathIntegrator"] = lambda sampler, max_len: PathIntegrator(sampler, int(max_len))
+
+    @register("AOIntegrator")
+    def _ao(sampler, radius=None):
+        from pine_tpu_torch.integrators.ao import AOIntegrator
+
+        return AOIntegrator(sampler, None if radius is None else float(radius))
+
+    @register("VolIntegrator")
+    def _vol(sampler):
+        from pine_tpu_torch.integrators.vol import VolIntegrator
+
+        return VolIntegrator(sampler)
 
     @register("CachedPathIntegrator")
     def _cached(sampler, max_len, resolution=128, starting_depth=1):

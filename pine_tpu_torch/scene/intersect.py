@@ -3,8 +3,9 @@
 Each analytic shape type has:
 
 - ``intersect_T(params (M,k), ro (N,3), rd (N,3), tmin (N,1), tmax (N,1))``
-  -> t (N,M), BIG on a miss: the brute-force product that scenes of 24 or
-  fewer prims use instead of the accel (CompiledScene.intersect);
+  -> t (N,M), BIG on a miss: pine_tpu's brute-force product for scenes of
+  24 or fewer prims, here the "plain" route's query of a type no kernel
+  tests (lines; accel/dense_traverse.plain_query);
 - ``surface_info_T(rows (N,k), p (N,3))`` -> (p_corrected, n, uv) for lanes
   whose closest hit is of type T (rows are the per-lane gathered params);
 - ``sample_T(rows, p, u)`` area sampling for NEE and ``pdf_T`` the matching
@@ -14,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from pine_tpu_torch.core import fmath as fm
 from pine_tpu_torch.core.sampling import sample_disk_concentric, uniform_hemisphere
 from pine_tpu_torch.core.vecmath import (
     Pi, cartesian_to_spherical, coordinate_system, cross, dot, dotk, length,
@@ -51,7 +53,7 @@ def intersect_sphere(params, ro, rd, tmin, tmax):
     b = (ro_p * d).sum(-1)
     cc = (ro_p * ro_p).sum(-1) - r * r
     disc = b * b - cc
-    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+    sq = fm.sqrt(torch.clamp_min(disc, 0.0))
     t0 = -b - sq
     t = torch.where(t0 < tmin, -b + sq, t0)
     return _valid_t(t, disc > 0.0, tmin, tmax)
@@ -68,12 +70,12 @@ def sample_sphere(rows, p, u):
     c, r = rows[:, 0:3], rows[:, 3]
     l = length(c - p)
     rl = r / l
-    cos_theta = torch.sqrt(torch.clamp_min(1.0 - rl * rl, 0.0))
+    cos_theta = fm.sqrt(torch.clamp_min(1.0 - rl * rl, 0.0))
     solid = 2 * Pi * (1.0 - cos_theta)
     cos_wo = 1.0 - u[:, 1] * (1.0 - cos_theta)
-    sin_wo = torch.sqrt(torch.clamp_min(1.0 - cos_wo * cos_wo, 0.0))
+    sin_wo = fm.sqrt(torch.clamp_min(1.0 - cos_wo * cos_wo, 0.0))
     phi = u[:, 0] * 2 * Pi
-    w_local = torch.stack([sin_wo * torch.cos(phi), sin_wo * torch.sin(phi), cos_wo], -1)
+    w_local = torch.stack([sin_wo * fm.cos(phi), sin_wo * fm.sin(phi), cos_wo], -1)
     z = (c - p) / l[..., None]
     t, b = coordinate_system(z)
     w = w_local[:, 0:1] * t + w_local[:, 1:2] * b + w_local[:, 2:3] * z
@@ -81,7 +83,7 @@ def sample_sphere(rows, p, u):
     bq = dot(ro_p, w)
     cq = length_squared(ro_p) - r * r
     disc = torch.clamp_min(bq * bq - cq, 0.0)
-    dist = -bq - torch.sqrt(disc)
+    dist = -bq - fm.sqrt(disc)
     sp = p + w * dist[..., None]
     n = safe_normalize(sp - c)
     pdf = 1.0 / torch.clamp_min(solid, EPS)
@@ -92,7 +94,7 @@ def pdf_sphere(rows, ro, rd, t, ns):
     c, r = rows[:, 0:3], rows[:, 3]
     l = length(c - ro)
     rl = r / l
-    cos_theta = torch.sqrt(torch.clamp_min(1.0 - rl * rl, 0.0))
+    cos_theta = fm.sqrt(torch.clamp_min(1.0 - rl * rl, 0.0))
     solid = 2 * Pi * (1.0 - cos_theta)
     return 1.0 / torch.clamp_min(solid, EPS)
 
@@ -311,13 +313,13 @@ def intersect_obb(params, ro, rd, tmin, tmax):
     m, mi = params[None, :, 6:18], params[None, :, 18:30]
     o_l = _apply34(mi, o)
     d_l = _apply34(mi, d, affine=False)
-    d_l = d_l / torch.clamp_min(torch.sqrt((d_l * d_l).sum(-1, keepdim=True)), 1e-20)
+    d_l = d_l / torch.clamp_min(fm.sqrt((d_l * d_l).sum(-1, keepdim=True)), 1e-20)
     near, far, ok = _slab(lower, upper, o_l, d_l, 0.0, BIG)
 
     def world_t(t_l):
         p_w = _apply34(m, o_l + t_l[..., None] * d_l)
         dw = p_w - o
-        return torch.sqrt((dw * dw).sum(-1))
+        return fm.sqrt((dw * dw).sum(-1))
 
     t = torch.where(near > 0.0, world_t(near), world_t(far))
     return torch.where(ok & (t > tmin) & (t <= tmax), t, BIG)
@@ -401,7 +403,7 @@ def intersect_cone(params, ro, rd, tmin, tmax):
     b = 2 * (-A2 * on * dn + (o * d).sum(-1))
     c = -A2 * on * on + (o * o).sum(-1)
     disc = b * b - 4 * a * c
-    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+    sq = fm.sqrt(torch.clamp_min(disc, 0.0))
     a_safe = torch.where(a == 0.0, EPS, a)
     t0 = (-b - sq) / (2 * a_safe)
     t = torch.where(t0 < tmin, t0 + sq / a_safe, t0)
@@ -429,7 +431,7 @@ def sample_cone(rows, p, u):
 
 def pdf_cone(rows, ro, rd, t, ns):
     r, h = rows[:, 9], rows[:, 10]
-    area = Pi * r * torch.sqrt(r * r + h * h)
+    area = Pi * r * fm.sqrt(r * r + h * h)
     return t * t / torch.clamp_min(area, EPS) * dot(ns, rd).abs()
 
 
@@ -445,7 +447,7 @@ def intersect_cylinder(params, ro, rd, tmin, tmax):
     b = 2 * (v * w).sum(-1)
     c = (w * w).sum(-1) - r * r
     disc = b * b - 4 * a * c
-    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+    sq = fm.sqrt(torch.clamp_min(disc, 0.0))
     a_safe = torch.where(a == 0.0, EPS, a)
     t0 = (-b - sq) / (2 * a_safe)
     t = torch.where(t0 < tmin, (-b + sq) / (2 * a_safe), t0)
@@ -497,7 +499,7 @@ def intersect_line(params, ro, rd, tmin, tmax):
     tt = torch.clamp((-dot(o, dd) + dz * o[..., 2]) / det, 0.0, 1.0)
     zhit = torch.minimum(torch.maximum(o[..., 2] + tt * dz, tmin + thick), tmax)
     closest = o + tt[..., None] * dd
-    dist = torch.sqrt(closest[..., 0] ** 2 + closest[..., 1] ** 2 + (closest[..., 2] - zhit) ** 2)
+    dist = fm.sqrt(closest[..., 0] ** 2 + closest[..., 1] ** 2 + (closest[..., 2] - zhit) ** 2)
     return torch.where(dist <= thick, zhit, BIG)
 
 
@@ -513,8 +515,8 @@ def sample_line(rows, p, u):
     tx, ty = rows[:, 6:9], rows[:, 9:12]
     thick, ln = rows[:, 15:16], rows[:, 16]
     phi = u[:, 1:2] * 2 * Pi
-    sp = p0 + (p1 - p0) * u[:, 0:1] + thick * torch.cos(phi) * tx + thick * torch.sin(phi) * ty
-    n = torch.cos(phi) * tx + torch.sin(phi) * ty
+    sp = p0 + (p1 - p0) * u[:, 0:1] + thick * fm.cos(phi) * tx + thick * fm.sin(phi) * ty
+    n = fm.cos(phi) * tx + fm.sin(phi) * ty
     dvec = sp - p
     dist = length(dvec)
     w = dvec / torch.clamp_min(dist[..., None], EPS)

@@ -8,8 +8,10 @@ light (``Scene.set``: Sky, Atmosphere or ImageSky), which joins the light
 list last, as pine_tpu's.  ``Scene.compile(device)`` flattens the scene into the arrays of
 pine_tpu_torch/convert.py and uploads them once; the renderer then queries
 the CompiledScene.  Scenes with 24 or fewer analytic prims, no mesh and no
-lazy instancing keep the brute-force per-type product (no accel, no
-kernel); the others go through the prim groups of accel/packet.py, whose
+lazy instancing build no accel: each prim type's table is one group of its
+own (``CompiledScene.type_groups``), swept whole by the dense kernel (lines
+by the "plain" route), as pine_tpu's per-type brute-force product; the
+others go through the prim groups of accel/packet.py, whose
 traversal runs on CUDA the dense kernel (groups of up to 512 prims), the
 lattice kernel (larger groups that form a regular lattice, fields a script
 builds in loops), the grid kernel (other larger groups), the BVH walk (groups
@@ -53,8 +55,15 @@ off unless ``CompiledScene.origin_sort`` is set, because on the H100 it cost
 more device time than it saved (PERF.md, PR 3).  The sort is a pure
 permutation: per-lane results do not change.
 
-Not ported yet, and refused with their ROADMAP.md row: SDF and CSG (modules
-item 9) at compile() and media (11) at ``add``.
+Signed-distance shapes and CSG trees take no prim row: the compiled scene
+keeps each in a list of its own, marches every SDF in plain PyTorch
+(``_sdf_march``: at most SDF_STEPS steps inside its bounding box) and walks
+every CSG tree's intervals (scene/csg_intersect.py) after the prim groups,
+in ``intersect``, ``any_hit`` and ``surface_info``, as pine_tpu does in XLA.
+Participating media (``Scene.add`` of a scene/media.py medium) split into
+homogeneous media, whose transmittance along a segment is the closed form
+over their shape's intervals, and grid media, tracked by
+scene/media_track.py (``CompiledScene.transmittance``).
 """
 from __future__ import annotations
 
@@ -63,9 +72,12 @@ import torch
 
 from pine_tpu_torch.accel import dense_traverse as DT
 from pine_tpu_torch.core.vecmath import dot
+from pine_tpu_torch.scene import csg_intersect as CI
 from pine_tpu_torch.scene import intersect as I
 from pine_tpu_torch.scene import lights as L
+from pine_tpu_torch.scene import media_track as MT
 from pine_tpu_torch.scene import shapes as S
+from pine_tpu_torch.scene.csg import CSGShape
 from pine_tpu_torch.scene.materials import SUBSURFACE
 from pine_tpu_torch.scene.nodes import eval_vec3_node
 
@@ -73,6 +85,8 @@ BIG = I.BIG
 SORT_MIN_LANES = 4096  # smaller wavefronts are not sorted
 # instancings that realize more triangle rows than this stay lazy
 FLATTEN_LIMIT = 200_000
+SDF_STEPS = 128  # sphere-tracing steps of an SDF march (pine_tpu's)
+EXIT_CHECK = 8  # march steps between the compactions of the marching lanes (``_sdf_march``)
 
 
 def _spread10(x):
@@ -115,6 +129,7 @@ class Scene:
         self.geometries = []  # (shape, material)
         self.instancings = []  # InstancedShape kept lazy
         self.lights = []
+        self.mediums = []
         self.env_light = None
         self.camera = None
         self._compiled = {}  # (device, small_kernel, mesh_kernel, inst_kernel) -> CompiledScene
@@ -135,7 +150,8 @@ class Scene:
 
     def add(self, *args):
         """add(name, material) | add(shape, material) | add(light) |
-        add(InstancedShape): flattened or kept lazy (module docstring)."""
+        add(medium) | add(InstancedShape): flattened or kept lazy (module
+        docstring)."""
         if len(args) == 2 and isinstance(args[0], str):
             return self.add_material(args[0], args[1])
         if len(args) == 2:
@@ -156,10 +172,13 @@ class Scene:
                 self.instancings.append(x)
                 self._compiled = {}
             return x
-        raise NotImplementedError(
-            f"Scene.add({type(x).__name__}) is not ported yet: media are ROADMAP.md "
-            "modules item 11"
-        )
+        from pine_tpu_torch.scene.media import GridMedium, HomogeneousMedium
+
+        if isinstance(x, (HomogeneousMedium, GridMedium)):
+            self.mediums.append(x)
+            self._compiled = {}
+            return x
+        raise TypeError(f"Scene.add: unsupported argument {type(x).__name__}")
 
     def load(self, filename, m=None):
         """PRL ``scene.load(file[, m])``: the GLB's primitives, transformed by
@@ -221,13 +240,21 @@ class CompiledScene:
 
     def __init__(self, device, g_type, g_local, g_mat, tables, type_global, unified,
                  materials, lights, camera=None, world_lo=None, world_span=1.0,
-                 kernels=(None, None, None)):
+                 kernels=(None, None, None), sdf_shapes=(), csg_shapes=(), mediums=(),
+                 type_groups=()):
+        from pine_tpu_torch.scene.media import GridMedium
+
         self.device = device
         self.n_global = int(g_type.shape[0])
         self.g_type, self.g_local, self.g_mat = g_type, g_local, g_mat
         self.tables = tables  # tid -> (n, w) unsnapped params
         self.type_global = type_global  # tid -> (n,) geometry ids
         self.unified = unified  # None, or prim groups (accel/packet.py) + mesh tables
+        self.type_groups = list(type_groups)  # without an accel: one dense group per table
+        self.sdf_shapes = list(sdf_shapes)  # (SDFShape, geometry id)
+        self.csg_shapes = list(csg_shapes)  # (CSG tree, geometry id)
+        self.media = [m for m in mediums if not isinstance(m, GridMedium)]
+        self.grid_media = [m for m in mediums if isinstance(m, GridMedium)]
         self.materials = materials  # per slot: dict of tag and parameter nodes (materials.PARAMS)
         self.lights = lights
         self.env_light = next((li for li in lights if isinstance(li, L.EnvironmentLight)), None)
@@ -309,7 +336,9 @@ class CompiledScene:
     def intersect(self, ro, rd, tmin, tmax, sort_perm=None):
         """Closest hit -> (t, gidx, hit, mesh_tri); t = BIG on a miss and
         mesh_tri the hit entity (0 on a miss), which surface_info reads for
-        mesh lanes.  ``sort_perm`` (from sort_perm) reorders the traversal."""
+        mesh lanes.  ``sort_perm`` (from sort_perm) reorders the traversal
+        of the prim groups.  The SDFs and CSG trees are tested after the
+        groups, each within the closest hit so far."""
         if self.unified is not None:
             from pine_tpu_torch.accel.packet import ent_to_gidx, packet_intersect
 
@@ -321,18 +350,34 @@ class CompiledScene:
             else:
                 t, ent = packet_intersect(self.unified, ro, rd, tmin, tmax)
             better = t < BIG
-            g = torch.where(better, ent_to_gidx(self.unified, ent), -1)
-            return t, g, better, torch.where(better, ent, 0)
-        n = ro.shape[0]
-        best_t = torch.full((n,), BIG, device=ro.device)
-        best_g = torch.full((n,), -1, dtype=torch.int32, device=ro.device)
-        for tid, params in self.tables.items():
-            tmat = I.INTERSECT[tid](params, ro, rd, tmin[:, None], tmax[:, None])
-            t_min, idx = tmat.min(1)
-            better = t_min < best_t
-            best_t = torch.where(better, t_min, best_t)
-            best_g = torch.where(better, self.type_global[tid][idx], best_g)
-        return best_t, best_g, best_t < BIG, torch.zeros_like(best_g)
+            best_t, best_g = t, torch.where(better, ent_to_gidx(self.unified, ent), -1)
+            mesh_tri = torch.where(better, ent, 0)
+        else:
+            best_t, best_g = self._type_groups_intersect(ro, rd, tmin, tmax)
+            mesh_tri = torch.zeros_like(best_g)
+        for sdf, gidx in self.sdf_shapes:
+            t = _sdf_march(sdf, ro, rd, tmin, torch.minimum(tmax, best_t))
+            better = t < best_t
+            best_t = torch.where(better, t, best_t)
+            best_g = torch.where(better, gidx, best_g)
+        for csg, gidx in self.csg_shapes:
+            t, hit_c = CI.csg_intersect(csg, ro, rd, tmin, torch.minimum(tmax, best_t))
+            better = hit_c & (t < best_t)
+            best_t = torch.where(better, t, best_t)
+            best_g = torch.where(better, gidx, best_g)
+        return best_t, best_g, best_t < BIG, mesh_tri
+
+    def _type_groups_intersect(self, ro, rd, tmin, tmax):
+        """The closest hit over the per-type groups -> (t, gidx), t = BIG on
+        a miss; a later type replaces a hit only on a strictly smaller t."""
+        best_t = tmax
+        best_g = torch.full_like(tmax, -1, dtype=torch.int32)
+        zero = torch.zeros_like(best_g)
+        for g in self.type_groups:
+            t_new, e_loc = DT.group_query(g, ro, rd, tmin, best_t, best_t, zero)
+            best_g = torch.where(t_new < best_t, self.type_global[g["tid"]][e_loc.long()], best_g)
+            best_t = t_new
+        return torch.where(best_t < tmax, best_t, BIG), best_g
 
     def any_hit(self, ro, rd, tmin, tmax, sort_perm=None):
         """Shadow-ray occlusion -> (N,) bool."""
@@ -341,10 +386,20 @@ class CompiledScene:
 
             if sort_perm is not None:
                 perm, inv = sort_perm
-                return packet_any_hit(self.unified, ro[perm], rd[perm], tmin[perm],
-                                      tmax[perm])[inv]
-            return packet_any_hit(self.unified, ro, rd, tmin, tmax)
-        return self.intersect(ro, rd, tmin, tmax)[2]
+                occ = packet_any_hit(self.unified, ro[perm], rd[perm], tmin[perm],
+                                     tmax[perm])[inv]
+            else:
+                occ = packet_any_hit(self.unified, ro, rd, tmin, tmax)
+        else:
+            hit = torch.zeros_like(tmax, dtype=torch.int32)
+            for g in self.type_groups:
+                _, hit = DT.group_query(g, ro, rd, tmin, tmax, tmax, hit, any_hit=True)
+            occ = hit != 0
+        for sdf, _ in self.sdf_shapes:
+            occ = occ | (_sdf_march(sdf, ro, rd, tmin, tmax) < BIG)
+        for csg, _ in self.csg_shapes:
+            occ = occ | CI.csg_intersect(csg, ro, rd, tmin, tmax)[1]
+        return occ
 
     def _rows_at(self, tid, local):
         params = self.tables[tid]
@@ -364,6 +419,10 @@ class CompiledScene:
             out_p = torch.where(m, pc, out_p)
             out_n = torch.where(m, nn, out_n)
             out_uv = torch.where(m, uv, out_uv)
+        for sdf, g in self.sdf_shapes:
+            out_n = torch.where((gidx == g)[:, None], _sdf_normal(sdf, p), out_n)
+        for csg, g in self.csg_shapes:
+            out_n = torch.where((gidx == g)[:, None], CI.csg_normal(csg, p), out_n)
         if self.has_meshes and mesh_tri is not None:
             from pine_tpu_torch.accel.unified import unified_surface_info_triangle
 
@@ -392,6 +451,28 @@ class CompiledScene:
             pdf = torch.where(gidx == g, p_t, pdf)
         return pdf / n_lights
 
+    def transmittance(self, ro, rd, tmax, key=None, grid=True):
+        """Chromatic transmittance (N,3) along [0, tmax]: the closed form over
+        each homogeneous medium's intervals (integrator.cpp:75-81), times,
+        with ``grid``, the ratio-tracked transmittance of each grid medium
+        (medium.cpp:264-290), whose walk ``key`` (N,) seeds (by default the
+        rays' bits, scene/media_track.ray_key; grid medium k takes key + k).
+        The path integrator's segments take ``grid`` False: its delta
+        tracking carries the grid media's extinction already."""
+        tr = torch.ones(ro.shape[0], 3, device=ro.device)
+        for med in self.media:
+            s, e = CI.intervals_of(med.shape, ro, rd)
+            lo = torch.minimum(torch.clamp_min(s, 0.0), tmax[:, None])
+            hi = torch.minimum(torch.clamp_min(e, 0.0), tmax[:, None])
+            overlap = torch.clamp_min(hi - lo, 0.0).sum(1)
+            tr = tr * torch.exp(-CI.on_device(med, "sigma_t", ro) * overlap[:, None])
+        if self.grid_media and grid:
+            if key is None:
+                key = MT.ray_key(ro, rd)
+            for gi, med in enumerate(self.grid_media):
+                tr = tr * MT.grid_transmittance(med, ro, rd, tmax, (key + gi) & 0xFFFFFFFF)
+        return tr
+
     def is_emissive_lane(self, gidx):
         m = torch.zeros_like(gidx, dtype=torch.bool)
         for g in self.emissive_globals:
@@ -410,10 +491,61 @@ class CompiledScene:
 
 
 def check_ported(shape):
-    """Refuse shapes the port cannot render yet."""
-    if shape.type_id not in S.PARAM_WIDTH and not isinstance(shape, S.Mesh):
-        raise NotImplementedError(
-            f"{type(shape).__name__} is not ported yet (ROADMAP.md, modules item 9)"
-        )
+    """Refuse shapes the port cannot render: a CSG tree with a child that
+    has no interval test."""
+    if isinstance(shape, CSGShape):
+        return CI.check_csg(shape)
+    if (shape.type_id not in S.PARAM_WIDTH and not isinstance(shape, (S.Mesh, S.SDFShape))):
+        raise TypeError(f"{type(shape).__name__} is not a shape the scene can render")
     return shape
 
+
+def _sdf_march(sdf, ro, rd, tmin, tmax, steps=SDF_STEPS, eps=1e-5):
+    """Sphere tracing (geometry.cpp:730-753) in ``steps`` steps at most, the
+    march clamped to the SDF's box -> t (N,), BIG on a miss.  Only the lanes
+    still marching are stepped: the march starts on the lanes whose window
+    meets the box, and every EXIT_CHECK steps drops those that have hit or
+    left it, and ends once none marches.  A step changes nothing on such a
+    lane, so this is exact (tests/test_torch_sdf.py)."""
+    c, h = CI.on_device(sdf, "center", ro), CI.on_device(sdf, "half", ro)  # get_aabb's float32 sums
+    inv = 1.0 / torch.where(rd.abs() < 1e-9, torch.where(rd < 0, -1e-9, 1e-9), rd)
+    t0b = ((c - h) - ro) * inv
+    t1b = ((c + h) - ro) * inv
+    enter = torch.minimum(t0b, t1b).amax(-1)
+    exit_ = torch.maximum(t0b, t1b).amin(-1)
+    t_lo = torch.maximum(torch.clamp_min(tmin, 0.0), enter)
+    t_hi = torch.minimum(tmax, exit_ + 1e-3)
+    out = torch.full_like(t_lo, BIG)
+    idx = torch.nonzero(t_lo <= t_hi)[:, 0]
+    t, o, d, hi = t_lo[idx], ro[idx], rd[idx], t_hi[idx]
+    done_hit = torch.zeros_like(t, dtype=torch.bool)
+    done_miss = torch.zeros_like(done_hit)
+    for i in range(steps):
+        if idx.numel() == 0:
+            break
+        dist = sdf.fn(o + torch.minimum(t, hi)[:, None] * d)
+        done_hit_next = done_hit | ((dist < eps) & ~done_miss)
+        done_miss = done_miss | ((t >= hi) & ~done_hit)
+        done_hit = done_hit_next
+        active = ~(done_hit | done_miss)
+        t = torch.where(active, torch.minimum(t + dist, hi + 1e-3), t)
+        if (i + 1) % EXIT_CHECK == 0:
+            out[idx] = torch.where(done_hit, t, BIG)
+            keep = torch.nonzero(active)[:, 0]
+            idx, t, o, d, hi, done_hit, done_miss = (
+                x[keep] for x in (idx, t, o, d, hi, done_hit, done_miss))
+    out[idx] = torch.where(done_hit, t, BIG)
+    return out
+
+
+def _sdf_normal(sdf, p, ops=1e-4):
+    """Central-difference normal (geometry.cpp:755-762; the step enlarged
+    for float32)."""
+    from pine_tpu_torch.core.vecmath import safe_normalize
+
+    g = []
+    for k in range(3):
+        d = torch.zeros(3, dtype=p.dtype, device=p.device)
+        d[k] = ops
+        g.append(sdf.fn(p + d) - sdf.fn(p - d))
+    return safe_normalize(torch.stack(g, -1))

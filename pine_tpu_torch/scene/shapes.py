@@ -2,7 +2,10 @@
 
 Counterpart of pine_tpu/scene/shapes.py: the same type ids, the same
 ``params()`` layouts and the same ``get_aabb()``, plus lines, triangle
-meshes, mesh instancing and heightmaps.  SDFs and CSG are not ported.
+meshes, mesh instancing and heightmaps; signed-distance shapes
+(``SDFShape``, whose distance function is a torch callable) and CSG trees
+(``a + b``, ``a * b``, ``a - b``: scene/csg.py), neither of which takes a
+prim row.
 """
 from __future__ import annotations
 
@@ -64,6 +67,22 @@ class Shape:
 
     def get_aabb(self):
         raise NotImplementedError
+
+    # CSG operator sugar (geometry.cpp:935-937): +, *, - build CSG shapes
+    def __add__(self, other):
+        from pine_tpu_torch.scene.csg import CSGUnion
+
+        return CSGUnion(self, other)
+
+    def __mul__(self, other):
+        from pine_tpu_torch.scene.csg import CSGIntersection
+
+        return CSGIntersection(self, other)
+
+    def __sub__(self, other):
+        from pine_tpu_torch.scene.csg import CSGDifference
+
+        return CSGDifference(self, other)
 
 
 class Sphere(Shape):
@@ -278,6 +297,22 @@ class Line(Shape):
     def get_aabb(self):
         return (np.minimum(self.p0, self.p1) - self.thickness,
                 np.maximum(self.p0, self.p1) + self.thickness)
+
+
+class SDFShape(Shape):
+    """Signed-distance shape (geometry.cpp:730-762): a box (``center`` +-
+    ``half_size``) that bounds the march, and ``fn``, a callable from an
+    (N,3) float32 tensor of points to (N,) distances."""
+
+    type_id = SDF_TYPE
+
+    def __init__(self, center, half_size, fn):
+        self.center = _np3(center)
+        self.half = _np3(half_size)
+        self.fn = fn
+
+    def get_aabb(self):
+        return self.center - self.half, self.center + self.half
 
 
 class Mesh(Shape):

@@ -42,6 +42,25 @@ asks: garden-imagesky (``garden_prl("imagesky", "HaltonSampler")``: an
 the ``Sky`` variant, and their reduced sizes (``REDUCED_GARDEN``: the film,
 spp and depth cut, as chip_smoke.py's phase 3 renders them).
 
+``cloud`` is the repository's ``bench_cloud.py`` scene: a 96^3 synthetic
+cumulus (``make_cloud``, scripts_cloud.py's, over ``fbm3``,
+scripts_explosion.py's) read as a ``VDBMedium`` from a ``.nvdb`` file
+written at run time, per-channel sigma_a and sigma_s and
+``CloudPhaseFunction(0.65)``, in the Cornell box (6 rects, one emissive, and
+2 AABB boxes) at 1920x1080.  ``explosion`` is scripts_explosion.py's: an
+emissive VDB (``density``, ``flames`` and ``temperature`` grids written by
+``write_nvdb_multi``) over a floor and a backdrop.
+
+``CSG_FOG_PRL`` is a script of the CSG and media paths at 640x640,
+BlueSampler(16), depth 5: the bench box's walls and light, a glass lens
+(``Sphere * Sphere``), a sphere minus a box, a cylinder united with a cone,
+an OBB minus a cylinder, and a fog (``HomoMedium`` over a box minus a
+sphere, ``HgPF(0.3)``).  It renders and saves ``csg_fog.png`` in the
+working directory.  ``csg_fog_prl`` gives it cut as a caller asks,
+``csg_fog`` builds its scene, and ``csg_fog_sdf`` adds a torus
+(``SDFShape`` with ``torus_sdf``, a torch distance function) through the
+Python API.
+
 ``house`` is the repository's ``scenes/house.pine``: ``assets/house.glb``
 (ten mesh primitives, 4,020 triangles in one triangle group, textured and
 factor-only Uber materials, an emissive window) under one DirectionalLight,
@@ -54,7 +73,9 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
 
+from pine_tpu_torch.core import fmath as fm
 from pine_tpu_torch.core.camera import ThinLenCamera
 from pine_tpu_torch.core.film import Film
 from pine_tpu_torch.core.vecmath import rotate_y, scale, translate
@@ -366,3 +387,224 @@ def garden(sky="atmosphere", size=640):
     """The garden's scene under ``sky`` (a key of SKIES) on a film ``size``
     pixels square, built (not rendered) through the port's interpreter."""
     return prl_scene(garden_prl(sky, size=size, integrator=None, save=None), "<garden>")
+
+
+# ---- the cloud, the explosion and the CSG fog box --------------------------
+
+def fbm3(shape, octaves=5, seed=3):
+    """Cheap value-noise fbm on a grid (deterministic): scripts_explosion.py's."""
+    rng = np.random.default_rng(seed)
+    n = shape[0]
+    out = np.zeros(shape, np.float32)
+    for o in range(octaves):
+        res = max(2, 2 ** (o + 1))
+        coarse = rng.standard_normal((res + 1,) * 3).astype(np.float32)
+        idx = np.linspace(0, res, n, endpoint=False)
+        i0 = idx.astype(np.int32)
+        f = (idx - i0).astype(np.float32)
+        f = f * f * (3 - 2 * f)
+
+        def lerp_axis(a, ax):
+            g0 = a.take(i0, axis=ax)
+            g1 = a.take(i0 + 1, axis=ax)
+            shape_f = [1, 1, 1]
+            shape_f[ax] = n
+            ff = f.reshape(shape_f)
+            return g0 * (1 - ff) + g1 * ff
+
+        g = lerp_axis(lerp_axis(lerp_axis(coarse, 0), 1), 2)
+        out += g * (0.6 ** o)
+    return out
+
+
+def make_cloud(n=96):
+    """The cumulus density grid (n, n, n): scripts_cloud.py's."""
+    g = (np.mgrid[0:n, 0:n, 0:n].astype(np.float32) / n) - 0.5
+    x, y, z = g
+    turb = fbm3((n, n, n), octaves=6, seed=7)
+    # a few overlapping puff lobes, eroded by fbm
+    lobes = [
+        ((0.0, 0.05, 0.0), 0.33), ((-0.22, -0.02, 0.08), 0.22),
+        ((0.2, -0.04, -0.1), 0.24), ((0.05, 0.18, -0.05), 0.2),
+        ((-0.1, 0.12, -0.15), 0.17),
+    ]
+    d = np.zeros_like(x)
+    for (cx, cy, cz), r in lobes:
+        rr = np.sqrt((x - cx) ** 2 + ((y - cy) * 1.35) ** 2 + (z - cz) ** 2)
+        d = np.maximum(d, np.clip((r - rr) * 9, 0, 1))
+    dens = np.clip(d * np.clip(0.55 + 0.8 * turb, 0, 1.4) - 0.08, 0, 1).astype(
+        np.float32
+    ) * 1.5
+    dens *= np.clip((y + 0.32) * 9, 0, 1)  # a flat-ish base
+    return dens
+
+
+def make_explosion(n=96):
+    """(density, flame, temperature) grids (n, n, n): scripts_explosion.py's."""
+    g = (np.mgrid[0:n, 0:n, 0:n].astype(np.float32) / n) - 0.5
+    x, y, z = g
+    turb = fbm3((n, n, n), seed=11)
+    r_head = np.sqrt(x * x + (y - 0.18) ** 2 * 1.4 + z * z)
+    r_stem = np.sqrt(x * x + z * z) * 2.2 + np.clip(-(y + 0.05), 0, 1) * 0.4
+    head = np.clip((0.26 + 0.10 * turb) - r_head, 0, 1) * 9
+    stem = np.clip((0.12 + 0.07 * turb) - r_stem, 0, 1) * 8 * (y < 0.22)
+    dens = np.clip(head + stem, 0, 1.6).astype(np.float32)
+    heat = fbm3((n, n, n), seed=23)
+    core = np.clip((0.20 + 0.08 * heat) - r_head, 0, 1) * 4 + np.clip(
+        (0.10 + 0.05 * heat) - r_stem, 0, 1
+    ) * 5
+    flame = (np.clip(core, 0, 1) * dens).astype(np.float32)
+    temp = np.clip(0.5 + 0.8 * np.clip(core, 0, 1) + 0.15 * heat, 0.0, 1.6).astype(
+        np.float32
+    )
+    return dens, flame, temp
+
+
+CLOUD_SIZE = (1920, 1080)  # bench_cloud.py's film
+CLOUD_GRID = 96
+
+
+def vdb_medium(grids, *args, path=None):
+    """A VDBMedium(path, *args) over ``grids`` ({name: (X,Y,Z) array}, a
+    "density" grid among them), written by ``write_nvdb_multi`` to ``path``,
+    or to a file in a temporary directory that is removed once read."""
+    import tempfile
+
+    from pine_tpu_torch.io.nvdb import write_nvdb_multi
+    from pine_tpu_torch.scene.media import VDBMedium
+
+    if path is not None:
+        write_nvdb_multi(path, grids)
+        return VDBMedium(path, *args)
+    with tempfile.TemporaryDirectory() as d:
+        f = os.path.join(d, "grids.nvdb")
+        write_nvdb_multi(f, grids)
+        return VDBMedium(f, *args)
+
+
+def cloud(size=CLOUD_SIZE, n=CLOUD_GRID):
+    """bench_cloud.py's scene at film ``size`` (width, height) with an
+    ``n``^3 cloud (n a multiple of 8)."""
+    from pine_tpu_torch.scene.media import CloudPhaseFunction
+
+    sc = Scene()
+    sc.add("white", M.Diffuse([0.9, 0.9, 0.9]))
+    sc.add("red", M.Diffuse([0.9, 0.2, 0.1]))
+    sc.add("green", M.Diffuse([0.25, 0.8, 0.1]))
+    sc.add(S.Rect([0, 0, 1], [2, 0, 0], [0, 0, 2]), "white")
+    sc.add(S.Rect([0, 2, 1], [2, 0, 0], [0, 0, 2]), "white")
+    sc.add(S.Rect([0, 1, 2], [2, 0, 0], [0, 2, 0]), "white")
+    sc.add(S.Rect([-1, 1, 1], [0, 0, 2], [0, 2, 0]), "red")
+    sc.add(S.Rect([1, 1, 1], [0, 0, 2], [0, 2, 0]), "green")
+    sc.add(S.BoxAABB([-0.75, 0.0, 0.9], [-0.45, 1.45, 1.25]), "white")
+    sc.add(S.BoxAABB([0.1, 0.0, 1.0], [0.75, 0.62, 1.7]), "white")
+    sc.add(S.Rect([0, 1.98, 1.0], [0.35, 0, 0], [0, 0, 0.35]), M.Emissive([42.0, 40.0, 37.0]))
+    m = np.eye(4, dtype=np.float32)
+    m[:3, :3] = np.diag([1.7, 0.9, 1.3]).astype(np.float32)
+    m[:3, 3] = [-0.85, 0.95, 0.45]
+    sc.add(vdb_medium({"density": make_cloud(n)}, m, CloudPhaseFunction(0.65),
+                      [1.2, 2.2, 4.0], [38.0, 30.0, 22.0]))
+    sc.set(ThinLenCamera(Film(size, "uncharted2"), [0, 1.0, -2.6], [0, 1.0, 1.0], 0.44))
+    return sc
+
+
+def explosion(size=400, n=72):
+    """scripts_explosion.py's scene at a film ``size`` pixels square with
+    ``n``^3 grids (n a multiple of 8)."""
+    from pine_tpu_torch.scene.media import CloudPhaseFunction
+
+    dens, flame, temp = make_explosion(n)
+    m = np.eye(4, dtype=np.float32)
+    m[:3, :3] *= np.diag([2.4, 2.4, 2.4]).astype(np.float32)
+    m[:3, 3] = [-1.2, 0.0, -1.2]
+    sc = Scene()
+    sc.add("floor", M.Diffuse([0.45, 0.42, 0.4]))
+    sc.add(S.Rect([0, 0, 0], [12, 0, 0], [0, 0, 12]), "floor")
+    sc.add(S.Rect([0, 0.01, 6], [12, 0, 0], [0, 10, 0], True), "floor")  # backdrop
+    sc.add(S.Rect([-4, 7, -6], [2.5, 0, 0], [0, 0, 2.5]), M.Emissive([16.0, 15.0, 14.0]))
+    sc.add(vdb_medium({"density": dens, "flames": flame, "temperature": temp}, m,
+                      CloudPhaseFunction(0.6), [6.0, 6.0, 6.0], [4.0, 4.0, 4.0], 3.0, 0.9))
+    sc.set(ThinLenCamera(Film((size, size), "uncharted2"), [0, 1.6, -4.6], [0, 1.1, 0], 0.3))
+    return sc
+
+
+CSG_FOG_PRL = """
+scene := Scene();
+image_size := [640, 640];
+
+scene.add("floor", Diffuse([0.9, 0.9, 0.9]));
+scene.add("red", Diffuse([0.9, 0.1, 0.05]));
+scene.add("green", Diffuse([0.2, 0.9, 0.05]));
+scene.add("glass", Glass([1, 1, 1], 0.0, 1.5));
+scene.add("metal", Metal([0.95, 0.8, 0.55], 0.2));
+scene.add("blue", Diffuse([0.2, 0.35, 0.85]));
+
+scene.add(Rect([0, 0, 1], [2, 0, 0], [0, 0, 2]), "floor");
+scene.add(Rect([0, 2, 1], [2, 0, 0], [0, 0, 2]), "floor");
+scene.add(Rect([-1, 1, 1], [0, 0, 2], [0, 2, 0]), "red");
+scene.add(Rect([1, 1, 1], [0, 0, 2], [0, 2, 0]), "green");
+scene.add(Rect([0, 1, 2], [2, 0, 0], [0, 2, 0]), "floor");
+scene.add(Rect([0.0, 1.9, 0.5], [0.1, 0, 0], [0, 0, 0.1]), Emissive(600 * [1.0, 0.64, 0.185]));
+
+lens := Sphere([-0.45, 1.1, 0.55], 0.4) * Sphere([-0.45, 1.1, 1.05], 0.4);
+scene.add(lens, "glass");
+scene.add(Sphere([0.45, 0.3, 1.3], 0.3) - AABB([0.45, 0.3, 0.9], [0.85, 0.7, 1.3]), "metal");
+scene.add(Cylinder([-0.55, 0, 1.5], [-0.55, 0.45, 1.5], 0.1) + Cone([-0.55, 0.45, 1.5], Y, 0.25, 0.3), "blue");
+scene.add(Box(AABB([0, 0, 0], [1, 1, 1]), translate([-0.05, 0.0, 0.45]) * rotate_y(0.5) * scale([0.4, 0.4, 0.4])) - Cylinder([0.15, 0.2, -0.2], [0.15, 0.2, 1.4], 0.12), "floor");
+
+scene.add(HomoMedium(AABB([-1, 0, 0], [1, 2, 2]) - Sphere([0.0, 1.3, 1.2], 0.45), HgPF(0.3), [0.02, 0.02, 0.02], [0.3, 0.3, 0.3]));
+scene.set(ThinLenCamera(Film(image_size, Uncharted2()), [0, 1, -4], [0, 1, 0], 0.25));
+
+PathIntegrator(BlueSampler(16), 5).render(scene);
+scene.camera.film().save("csg_fog.png");
+"""
+
+
+def csg_fog_prl(size=640, spp=16, depth=5, integrator="PathIntegrator", save="csg_fog.png"):
+    """CSG_FOG_PRL on a film ``size`` pixels square, rendered by
+    ``integrator`` (a PRL name taking (sampler, depth), or None for no
+    render) with BlueSampler(``spp``) at ``depth``, saved to ``save`` (None:
+    not saved)."""
+    render = ("" if integrator is None
+              else f"{integrator}(BlueSampler({spp}), {depth}).render(scene);")
+    save_line = "" if save is None else f"scene.camera.film().save({save!r});"
+    src = CSG_FOG_PRL
+    for old, new in (("image_size := [640, 640];", f"image_size := [{size}, {size}];"),
+                     ("PathIntegrator(BlueSampler(16), 5).render(scene);", render),
+                     ('scene.camera.film().save("csg_fog.png");', save_line)):
+        assert old in src, old
+        src = src.replace(old, new)
+    return src
+
+
+def csg_fog(size=640):
+    """The CSG fog box's scene on a film ``size`` pixels square, built (not
+    rendered) through the port's interpreter."""
+    return prl_scene(csg_fog_prl(size, integrator=None, save=None), "<csg fog>")
+
+
+TORUS = dict(center=(0.35, 0.1, 0.35), major=0.2, minor=0.07)
+
+
+def torus_sdf(p, center=TORUS["center"], major=TORUS["major"], minor=TORUS["minor"]):
+    """Signed distance (N,) of points p (N,3) to a torus around the y axis
+    through ``center``, written out term by term."""
+    x = p[:, 0] - center[0]
+    y = p[:, 1] - center[1]
+    z = p[:, 2] - center[2]
+    q = fm.sqrt(x * x + z * z) - major
+    return fm.sqrt(q * q + y * y) - minor
+
+
+def torus_shape(fn=torus_sdf):
+    """An SDFShape of the torus with distance function ``fn``, its box the
+    torus's bounds widened by 0.01."""
+    r = TORUS["major"] + TORUS["minor"] + 0.01
+    return S.SDFShape(TORUS["center"], (r, TORUS["minor"] + 0.01, r), fn)
+
+
+def csg_fog_sdf(size=640):
+    """The CSG fog box with the torus added through the Python API."""
+    scene = csg_fog(size)
+    scene.add(torus_shape(), M.Diffuse([0.85, 0.55, 0.2]))
+    return scene

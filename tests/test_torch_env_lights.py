@@ -321,10 +321,10 @@ def test_heightmap_file_matches(tmp_path):
 
 @pytest.mark.parametrize("src, item", [
     ("s := SDF(AABB([0, 0, 0], [1, 1, 1]), (p: vec3): f32 { return length(p) - 0.5; });",
-     "item 9"),
-    ("s := Scene(); s.add(HomoMedium([1, 1, 1], [0, 0, 0], HgPF(0.0)));", "item 11"),
-    ("VDBMedium(\"a.nvdb\", identity4x4(), HgPF(0.0), [1, 1, 1], [1, 1, 1]);", "item 11"),
-    ("AOIntegrator(UniformSampler(4));", "item 12"),
+     "item 15"),
+    ("RestirIntegrator(UniformSampler(4), 4);", "item 12"),
+    ("GuidedPathIntegrator(UniformSampler(4), 4);", "item 12"),
+    ("RandomWalkIntegrator(UniformSampler(4), 4);", "item 12"),
     ("MltIntegrator(UniformSampler(4), 4);", "item 12"),
     ("draw([4, 4], (u: vec2): vec3 { return [u.x, u.y, 0.5]; });", "item 15"),
     ("m := Diffuse(Function((p: vec3): vec3 { return p; }));", "item 15"),

@@ -2,7 +2,8 @@
 
 1. ``bssrdf_walk`` against pine_tpu's on a seeded state: 4,096 lanes on a
    Subsurface sphere standing on a ground rect beside a fence of lines (a
-   scene of 24 prims, which both packages intersect by brute force), most
+   scene of 24 prims: no accel in either package, pine_tpu's brute force
+   and the port's per-type groups), most
    lanes on the BSSRDF lobe, sigma_s from 4 to 60, SobolSampler dims of
    depth 1 of a depth-5 path.  The walk's exit decision, ``t_surf <
    t_med``, may flip on a lane whose t differs in the last ulp between XLA
@@ -60,7 +61,7 @@ def walk_scenes():
         js.add(JS.Line([x, 0, 0.5], [x, 0.8, 0.5], 0.02), wood)
     cam = ThinLenCamera(Film((8, 8)), [0, 1, -2], [0, 0.3, 0], 0.4)
     jcs = js.compile()
-    assert jcs.has_subsurface and jcs.unified is None  # brute force in both
+    assert jcs.has_subsurface and jcs.unified is None  # no accel in either
     pcs = compiled_scene_from_arrays(jax_scene_arrays(jcs, cam), "cpu")
     assert pcs.has_subsurface and pcs.unified is None
     return jcs, pcs

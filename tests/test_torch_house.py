@@ -417,8 +417,8 @@ def test_remaining_refusals_name_their_item():
     for src, item in (('s := Scene(); s.add("skin", Diffuse(Function((p: vec3): vec3 '
                        '{ return p; })));', "item 15"),
                       ("m := heightmap([8, 8], (p: vec2): f32 { return p.x; });", "item 15"),
-                      ("s := Scene(); s.add(HomoMedium([1, 1, 1], [0, 0, 0], HgPF(0.0)));"
-                       "CachedPathIntegrator(BlueSampler(4), 4).render(s);", "item 11")):
+                      ("s := Scene(); RandomWalkIntegrator(BlueSampler(4), 4).render(s);",
+                       "item 12")):
         with pytest.raises(NotImplementedError, match=item):
             Interpreter(device="cpu").run(src)
     with pytest.raises(NotImplementedError, match="item 15"):

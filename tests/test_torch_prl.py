@@ -129,11 +129,11 @@ def test_errors_and_unported_builtins():
     with pytest.raises(PRLRuntimeError):
         Interpreter(device="cpu").run("println(nope);")
     for src, item in (("SDF(AABB([0, 0, 0], [1, 1, 1]), (p: vec3): f32 { return 0.5; });",
-                       "item 9"),
+                       "item 15"),
                       ("Function((p: vec3): vec3 { return p; });", "item 15"),
                       ("heightmap([4, 4], (p: vec2): f32 { return p.x; });", "item 15"),
-                      ("AOIntegrator(UniformSampler(4));", "item 12"),
-                      ("HgPF(0.2);", "item 11"),
+                      ("RandomWalkIntegrator(UniformSampler(4), 4);", "item 12"),
+                      ("GuidedPathIntegrator(UniformSampler(4), 4);", "item 12"),
                       ("draw([4, 4], (u: vec2): vec3 { return [u.x, u.y, 0.5]; });", "item 15")):
         with pytest.raises(NotImplementedError, match=item):
             Interpreter(device="cpu").run(src)
@@ -146,6 +146,15 @@ def test_errors_and_unported_builtins():
             "scene.set(Sky([1, 1, 1])); s := SobolSampler(4); h := HaltonSampler(4);")
     cs = itp.get_var("scene").compile("cpu")
     assert cs.has_subsurface and cs.env_light is not None and len(cs.lights) == 2
+    # and so do the media slice's: CSG by the operators, media, AO and Vol
+    itp.run('scene.add(Sphere([0, 0, 0], 1.0) - AABB([0, 0, 0], [1, 1, 1]), "skin");'
+            "scene.add(HomoMedium(Sphere([0, 0, 0], 2.0), HgPF(0.2), [0.1, 0.1, 0.1], "
+            "[0.2, 0.2, 0.2])); ao := AOIntegrator(UniformSampler(4));"
+            "vol := VolIntegrator(UniformSampler(4));")
+    cs = itp.get_var("scene").compile("cpu")
+    assert len(cs.csg_shapes) == 1 and len(cs.media) == 1
+    assert [type(itp.get_var(k)).__name__ for k in ("ao", "vol")] == ["AOIntegrator",
+                                                                     "VolIntegrator"]
 
 
 def test_cbox_script_builds_the_benchmark_box():

@@ -27,7 +27,8 @@
    rays meet the floor between its front edge and z = 1.3, whichever
    traversal the port takes there
    (``test_front_edge_differences_are_not_the_lattice``).
-4. A scene of 24 or fewer prims (brute force, no accel, no kernel) through
+4. A scene of 24 or fewer prims (no accel: each prim type's table one group
+   on the dense route, ``dense_plain`` on the CPU) through
    each package's own Scene API and PathIntegrator, with a point light and
    every ported material; the same criteria.  Measured: 99.8 % of pixels
    agree, the means differ by 4e-4 relative.
@@ -444,8 +445,23 @@ def test_unported_features_are_refused():
     assert cs.materials[0]["tag"] == M.SUBSURFACE and cs.has_subsurface
     # Uber is ported now: it compiles into a material record of its own tag
     assert compile_with(sphere, M.Uber([1, 1, 1], 0.5)).materials[0]["tag"] == M.UBER
-    with pytest.raises(NotImplementedError, match="item 11"):  # instancing is ported now
+    # media, CSG trees and SDFs are ported now: they compile into lists of their own
+    from pine_tpu_torch.scene import media as Med
+
+    scene = Scene()
+    scene.add(sphere - S.BoxAABB([0, 0, 0], [1, 1, 1]), M.Diffuse([1, 1, 1]))
+    scene.add(S.SDFShape([0, 0, 0], [1, 1, 1], lambda p: p.norm(dim=-1) - 0.5),
+              M.Diffuse([1, 1, 1]))
+    scene.add(Med.HomogeneousMedium(S.Sphere([0, 0, 0], 2.0), Med.HgPhaseFunction(0.3), [0.1] * 3,
+                                    [0.2] * 3))
+    scene.add(Med.GridMedium(np.ones((8, 8, 8), np.float32), np.eye(4), Med.HgPhaseFunction(0.0),
+                             0.5, 1.0))
+    cs = scene.compile("cpu")
+    assert [len(x) for x in (cs.csg_shapes, cs.sdf_shapes, cs.media, cs.grid_media)] == [1] * 4
+    with pytest.raises(TypeError, match="Scene.add"):  # instancing is ported too
         Scene().add(object())
+    with pytest.raises(TypeError, match="interval"):  # a CSG child with no interval test
+        compile_with(sphere + S.Disk([0, 0, 0], [0, 1, 0], 1.0), M.Diffuse([1, 1, 1]))
     # meshes are ported now: a one-triangle mesh compiles into a triangle group
     tri = S.Mesh(np.eye(3, dtype=np.float32), [[0, 1, 2]])
     groups = compile_with(tri, M.Diffuse([1, 1, 1])).unified["groups"]

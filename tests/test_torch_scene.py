@@ -57,7 +57,8 @@ def _unit(rng, n):
 
 @pytest.mark.parametrize("name", list(TYPES))
 def test_brute_force_intersect_matches(name):
-    """The (rays x prims) product scenes of 24 or fewer prims use."""
+    """The (rays x prims) product: pine_tpu's brute force for scenes of 24 or
+    fewer prims, the port's "plain" route for lines."""
     tid = TYPES[name]
     rng = np.random.default_rng(70 + tid)
     params = np.stack([make_shape(tid, rng).params() for _ in range(7)]).astype(np.float32)
