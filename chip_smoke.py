@@ -82,7 +82,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    with SobolSampler and with BlueSampler; the media slice's reduced
    scenes (``media_parity``): the cloud and the emissive explosion on 16^3
    grids, the CSG fog box with the torus (depth 5), the fog box by the
-   cached integrator, AO on the reduced box and the volume integrator.
+   cached integrator, AO on the reduced box and the volume integrator; the
+   lambda slice's (``lambda_parity``, each script run through the PRL
+   interpreter on its device): a heightmap of an fbm lambda with a
+   Function-node albedo, an SDF whose lambda runs a traced while and a
+   traced if, the reduced box by RandomWalkIntegrator and by the path
+   integrator with denoise(scene).
 4. The main paths at full width through ``Scene.compile`` and
    ``render_wavefront`` on the card: the benchmark Cornell box (420 cones;
    built from bench.py's script through the port's PRL interpreter, as
@@ -90,7 +95,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    arrays), the cone forest (the box's floor at twice the density: 1,600
    cones in one lattice group, from its script) and the mesh benchmark's
    terrain (99,458 triangles, one rect light) at 640x640, BlueSampler(16),
-   depth 4; the instancing benchmark's field (1,024 rocks, a plane, one rect
+   depth 4 (the forest and the terrain, and the forced-kernel paths below,
+   at depth 2 since the lambda slice: VARIANT_DEPTH; each path one timed
+   render after its recording render, no longer three, for the time); the instancing
+   benchmark's field (1,024 rocks, a plane, one rect
    light) at 512x512, BlueSampler(4), depth 3; then, at 640x640x16 spp,
    depth 4, the terrain grown to 2,004,002 triangles (the BVH walk, its
    default; depth 2, TERRAIN2M_DEPTH), the terrain with
@@ -130,8 +138,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    garden (scenes.GARDEN_PRL: an Atmosphere, a SpotLight, 420 cones of
    Noise3f albedo on a checkered ground, a Subsurface, a Glass and a Metal
    sphere, 24 fence lines) at 640x640, SobolSampler(16), depth 5, and under
-   the ImageSky of images/cbox0.png with HaltonSampler(16), depth 4 since
-   the media slice (GARDEN_IMAGESKY_DEPTH), as main paths:
+   the ImageSky of images/cbox0.png with HaltonSampler(16), depth 2 since
+   the lambda slice (GARDEN_IMAGESKY_DEPTH), as main paths:
    the dense kernel on its sphere, rect and cone groups (the subsurface
    walk's eight intersects per depth among its launches), held to
    dense_plain bit for bit on every launch of a 1-spp render (kernel-line
@@ -141,7 +149,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the ``garden_setup`` record, with the script's build and an Atmosphere's
    map built alone, apart from compile_s).  The media slice's paths
    (``phase_media``): bench_cloud.py's chromatic cloud (pine_tpu_torch.
-   bench_cloud's build_scene and render: 1920x1080, a 96^3 VDB, depth 6,
+   bench_cloud's build_scene and render: 1920x1080, a 96^3 VDB, depth 4
+   (CLOUD_DEPTH; bench_cloud's 6),
    CLOUD_SPP of bench_cloud's 256 samples, the cut printed), the CSG fog
    box (CSG_FOG_PRL, 640x640, BlueSampler(16), depth 5) with and without an
    SDF torus, and AOIntegrator(BlueSampler(16)) on the bench box at
@@ -161,7 +170,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``cone_probe.VARIANT_OPS`` a ray-row pair and ``EARLY_OPS`` a pair
    whose discriminant rules out a hit, counted on these rays by
    ``cone_probe.early_misses``) beside the full sweep's, and phase 2k's
-   plain times.
+   plain times.  The lambda slice's paths (``phase_lambdas``): storm
+   (STORM_PRL as written, 640x640 ``draw``) in process, its image against
+   the CPU's (its non-finite values, where 0.5 - dot(u, u) is an exact 0,
+   the same on both and at most STORM_NONFINITE_SHARE); tests/test_prl.py's
+   traced fragments at 640x640, card against CPU bit for bit, their syncs
+   per call (and the halving loop with a sync every iteration); the fog
+   box with its torus as a PRL SDF lambda (CSG_FOG_SDF_PRL, 640x640,
+   BlueSampler(16), depth 5) as a main path, its image against phase
+   media's torch-function torus, and the host time inside the distance
+   function per march step, the lambda's and the torch function's (the
+   ``sdf_lambda_host`` record); scenes/benchmark.pine in full with the
+   interpreter on the host CPU (exact, the tier taken, wall, syncs),
+   and at 10 outer iterations on the card with the masked loop's check
+   every iteration and every EXIT_CHECK, in turns;
+   RandomWalkIntegrator(BlueSampler(16), 4) and PathIntegrator(BlueSampler
+   (16), 4) + denoise(scene) on the bench box as main paths (kernel-line
+   entries ``dense_traverse.{csg_fog_sdf_prl,randomwalk,denoise}.*``, the
+   dense kernel held to dense_plain bit for bit on every launch of a 1-spp
+   render).
 5. The CLI: the benchmark box's script plus a render and a save, run as
    ``python -m pine_tpu_torch cbox.pine`` in a subprocess on the card; its
    image must equal phase 4's in-process render of the box (same sampler,
@@ -176,6 +203,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``python -m pine_tpu_torch csg_fog.pine`` (CSG_FOG_PRL as it stands): its
    image equal to phase 4's fog box on 97 % of the pixels; a VDBMedium
    script over an .nvdb written to build/chip_smoke/: its PNG finite and lit;
+   ``python -m pine_tpu_torch storm.pine`` (STORM_PRL as written): its PNG
+   equal to phase 4's in-process run on 97 % of the pixels; ``python -m
+   pine_tpu_torch.bench_prl`` (benchmark.pine in full, the lanes on the
+   card): 502498700 through the batched tier; ``--seq``'s timing, in
+   process: the sequential tier's wall beside the eager interpreter's, the
+   same output;
    ``python -m pine_tpu_torch.lab.cone_probe``: seven records, ``full`` and ``inva``
    finite, ``inva`` with ``max_dev_vs_full``; ``python -m
    pine_tpu_torch.lab.kernel_lab``: a time for every workload, route and
@@ -213,26 +246,34 @@ TYPE_NAMES = {0: "sphere", 1: "rect", 2: "disk", 3: "plane", 4: "aabb", 5: "obb"
 T_RTOL, T_ATOL = 1e-5, 1e-6  # as tests/test_torch_dense_kernel.py
 N_RAYS = 65536
 MAIN_SIZE, MAIN_SPP, MAIN_DEPTH = 640, 16, 4  # bench.py's and bench_mesh.py's configuration
+# the depth of the cone forest, the terrain and the forced-kernel paths (the
+# bench box keeps MAIN_DEPTH: phase 5's CLI and bench hold it), 2 since the
+# lambda slice's paths came in, for chip_smoke.py's time
+VARIANT_DEPTH = 2
 INST_SIZE, INST_SPP, INST_DEPTH = 512, 4, 3  # bench_instanced.py's configuration
 GRID_MISMATCH_SHARE = 1e-4  # lanes where a culling kernel may differ from its plain version
 MAIN_RAYS = {}  # traced rays of each main path's render, by tag
+MAIN_IMAGES = {}  # the image of each main path's timed render, by tag
 # the 2 M terrain's depth: 2, not MAIN_DEPTH, since the garden's paths came
-# in; its plain BVH walk takes 20-24 s a launch, and the kernel line holds
-# every launch of a 1-spp render to it (3 at depth 2, 7 at depth 4)
+# in (at depth 1 a path casts no shadow ray: the any-hit form would not run);
+# its plain BVH walk takes 20-24 s a launch, and the kernel line holds every
+# launch of a 1-spp render to it (3 at depth 2, 7 at depth 4)
 TERRAIN2M_DEPTH = 2
 # the garden (pine_tpu_torch/scenes.py GARDEN_PRL): its full width, and the
 # groups it compiles to (the fence's lines on the "plain" route, no kernel)
 GARDEN_SIZE, GARDEN_SPP, GARDEN_DEPTH = 640, 16, 5
-# garden-imagesky's depth: 4 since the media slice's paths came in (the
-# garden itself keeps the script's 5: phase 5 holds the CLI's image to it)
-GARDEN_IMAGESKY_DEPTH = 4
+# garden-imagesky's depth: 4 since the media slice's paths came in, 2 since
+# the lambda slice's (the garden itself keeps the script's 5: phase 5 holds
+# the CLI's image to it)
+GARDEN_IMAGESKY_DEPTH = 2
 GARDEN_GROUPS = [("dense", 0, 3), ("dense", 1, 1), ("dense", 7, 424), ("plain", 9, 24)]
 # the media slice's paths: the cloud (bench_cloud.py's scene and film, 96^3,
-# depth 6; its spp cut from bench_cloud's 256 to CLOUD_SPP for the time), the
+# CLOUD_DEPTH; its spp cut from bench_cloud's 256 to CLOUD_SPP for the time), the
 # CSG fog box (CSG_FOG_PRL as written) with and without the torus, AO on the
 # bench box; scenes of 24 or fewer prims sweep each type's table on the dense
 # kernel (CompiledScene.type_groups)
-CLOUD_SPP, CLOUD_DEPTH, CLOUD_FULL_SPP = 4, 6, 256
+# depth 4 (bench_cloud's 6) since the lambda slice's paths came in
+CLOUD_SPP, CLOUD_DEPTH, CLOUD_FULL_SPP = 4, 4, 256
 CLOUD_GROUPS = [("dense", 1, 6), ("dense", 4, 2)]
 FOG_SIZE, FOG_SPP, FOG_DEPTH = 640, 16, 5
 FOG_GROUPS = [("dense", 1, 6)]
@@ -1206,6 +1247,7 @@ def phase_render_parity():
     house_parity()
     garden_parity()
     media_parity()
+    lambda_parity()
 
 
 def media_parity():
@@ -1746,11 +1788,12 @@ def path_render(cs, scene, W, H, sampler, spp, depth, return_stats=False):
 
 def phase_main_path(dev_name, tag, what, scene, groups_want, heavy_want, kinds,
                     size=MAIN_SIZE, spp=MAIN_SPP, depth=MAIN_DEPTH, kernels=None, checked=None,
-                    label=None, also=(), sampler="blue", render_fn=path_render, reps=3):
+                    label=None, also=(), sampler="blue", render_fn=path_render, reps=1,
+                    forms=("closest", "any_hit")):
     """One main path at full width: compile on the card (routed under the
-    forced-kernel settings ``kernels``), record the kernels' inputs, warm up,
-    three timed renders (launch counts zeroed just before the first, read
-    just after), the image checked and saved, a profile, and the kernel
+    forced-kernel settings ``kernels``), record the kernels' inputs (the
+    recording render warms the path up), ``reps`` timed renders (launch
+    counts zeroed just before the first, read just after), the image checked and saved, a profile, and the kernel
     line's entries for ``kinds`` (the plain version on the first ``checked``
     launches of each form, or on all; ``label`` as kernel_line_entry's) and
     for the path's other kernels ``also`` (the plain version on every
@@ -1758,8 +1801,9 @@ def phase_main_path(dev_name, tag, what, scene, groups_want, heavy_want, kinds,
     core.samplers.SAMPLERS key, ``size`` the film's edge or (width,
     height), ``render_fn`` the integrator's render (``path_render``'s
     arguments); ``reps`` timed renders, after a warm-up where reps > 1 (the
-    recording render warms the path up too).  -> (entries, compiled
-    scene)."""
+    recording render warms the path up too); ``forms`` the kernel forms the
+    path launches (a path without shadow rays launches no any-hit).  ->
+    (entries, compiled scene)."""
     import numpy as np
     import torch
 
@@ -1792,7 +1836,7 @@ def phase_main_path(dev_name, tag, what, scene, groups_want, heavy_want, kinds,
         walls.append(time.perf_counter() - t0)
         if k == 0:
             launches = dict(DT.LAUNCHES)
-    want = {f"{kind}.{form}" for kind, _, _ in groups_want for form in ("closest", "any_hit")}
+    want = {f"{kind}.{form}" for kind, _, _ in groups_want for form in forms}
     for form in sorted(want):
         if launches[form] <= 0:
             fail(f"the {tag} main path never launched {form}: {launches}")
@@ -1800,6 +1844,7 @@ def phase_main_path(dev_name, tag, what, scene, groups_want, heavy_want, kinds,
     finite = bool(np.isfinite(img).all())
     rays = int(stats["traced_rays"])
     MAIN_RAYS[tag] = rays
+    MAIN_IMAGES[tag] = img
     rec = dict(phase="main_path", scene=what, size=f"{W}x{H}", spp=spp, depth=depth,
                sampler=type(sampler).__name__, device=dev_name, kernels=kernels, groups=groups,
                compile_s=compile_s,
@@ -1819,7 +1864,7 @@ def phase_main_path(dev_name, tag, what, scene, groups_want, heavy_want, kinds,
                                  launches[f"{kind}.{form}"], *((checked, label) if kind in kinds
                                                                else (None, tag)))
                for kind in (*kinds, *also)
-               for form, any_hit in (("closest", False), ("any_hit", True))]
+               for form, any_hit in (("closest", False), ("any_hit", True)) if form in forms]
     if (cs.heavy_traversal or cs.inst_traversal) and not kernels:
         emit(coherence_sort_record(cs, tag, kinds, lambda: render(1), W * H))
     emit(dict(phase="path_time", scene=tag, seconds=time.perf_counter() - t_path))
@@ -1828,7 +1873,7 @@ def phase_main_path(dev_name, tag, what, scene, groups_want, heavy_want, kinds,
 
 def phase_garden(dev_name):
     """The garden (GARDEN_PRL) at full width, 640x640, 16 spp, as main
-    paths: under its Atmosphere with SobolSampler (depth 5) and under the
+    paths: under its Atmosphere with SobolSampler (depth GARDEN_DEPTH) and under the
     ImageSky of images/cbox0.png with HaltonSampler (depth
     GARDEN_IMAGESKY_DEPTH).  Each: the dense
     kernel held to dense_plain bit for bit on every launch of a 1-spp render
@@ -1934,7 +1979,7 @@ def media_setup_record(tag, cs, render):
 
 def phase_media(dev_name):
     """The media slice's main paths at full width: the cloud (bench_cloud's
-    build_scene and render: 1920x1080, 96^3, depth 6, CLOUD_SPP of its 256
+    build_scene and render: 1920x1080, 96^3, depth CLOUD_DEPTH, CLOUD_SPP of its 256
     samples), the CSG fog box and the fog box with the torus (CSG_FOG_PRL,
     640x640, BlueSampler(16), depth 5), AO on the bench box (640x640,
     BlueSampler(16)).  Each as phase_main_path: the dense kernel held to
@@ -2394,6 +2439,360 @@ def phase_lab_modules():
         fail(f"the kernel lab did not time every route and ray set: {recs}")
 
 
+
+# ---- the script-lambda slice: draw, traced control flow, SDF lambdas,
+# hot host loops, the random walk and the denoiser --------------------------
+
+LAMBDA_SIZE = 640  # storm's, the traced fragments' and the lambda SDF cell's film edge
+RW_SPP, RW_DEPTH = 16, 4  # RandomWalkIntegrator(BlueSampler(16), 4) on the bench box
+BOX_GROUPS = [("dense", 1, 6), ("dense", 5, 2), ("dense", 7, 424)]
+# tests/test_prl.py's traced fragments (as tests/test_torch_trace_flow.py runs them)
+TRACED_FLOW = {
+    "while_per_lane": """(u: vec2): vec3 {
+    x := u.x + 0.01;
+    n := 0.0;
+    while x > 0.1 {
+        x = x / 2.0;
+        n += 1.0;
+    }
+    return [n / 8.0, x, 0.0];
+}""",
+    "while_replay": """(u: vec2): vec3 {
+    t := 0.0;
+    i := 0.0;
+    while t < 1.0 {
+        t += 0.3 * (u.x + 0.2);
+        i += 1.0;
+    }
+    return [t, i, 0.0];
+}""",
+    "if_merge": """(u: vec2): vec3 {
+    c := 0.0;
+    if u.x < 0.5 {
+        c = 1.0;
+    } else if u.y < 0.5 {
+        c = 2.0;
+    } else {
+        c = 3.0;
+    }
+    return vec3(c / 3.0);
+}""",
+    "all_return": """(u: vec2): vec3 {
+    if u.x < 0.5 {
+        return [1.0, 0.0, 0.0];
+    } else {
+        return [0.0, 1.0, 0.0];
+    }
+}""",
+}
+# phase 3's reduced lambda scenes: a heightmap of an fbm lambda with a
+# Function-node albedo; an SDF whose lambda runs a traced while and a traced if
+LAMBDA_TERRAIN_PRL = """
+scene := Scene();
+scene.add(Rect([0, 3, 0], [2, 0, 0], [0, 0, 2]), Emissive([6, 6, 6]));
+hm := heightmap([40, 40], (p: vec2): f32 { return fbm(p * 3.0, 5) * 0.4; });
+scene.add(hm, Diffuse(Function((c: NodeEvalCtx): vec3 {
+    return [0.4 + 0.3 * c.n.y, 0.5 + 0.4 * sin(c.p.x * 6.0), 0.35];
+})));
+scene.set(ThinLenCamera(Film([64, 64]), [0, 1.6, -2.4], [0, 0, 0], 0.45));
+PathIntegrator(BlueSampler(4), 4).render(scene);
+"""
+LAMBDA_SDF_PRL = """
+scene := Scene();
+scene.add(Rect([0, 3, 0], [2, 0, 0], [0, 0, 2]), Emissive([8, 8, 8]));
+scene.add(Rect([0, -0.7, 0], [3, 0, 0], [0, 0, 3]), Diffuse([0.7, 0.7, 0.7]));
+scene.add(SDF([0, 0, 0], [1, 1, 1], (p: vec3): f32 {
+    d := length(p) - 0.6;
+    k := 0.0;
+    while k < 3.0 {
+        d = d * 0.5 + (length(p) - 0.6) * 0.5;
+        k += 1.0;
+    }
+    if d > 0.5 {
+        d = d * 0.75 + 0.125;
+    }
+    return d;
+}), Diffuse([0.8, 0.4, 0.3]));
+scene.set(ThinLenCamera(Film([64, 64]), [0, 0.4, -3], [0, 0, 0], 0.5));
+PathIntegrator(BlueSampler(4), 4).render(scene);
+"""
+
+
+STORM_NONFINITE_SHARE = 1e-5  # storm's values where 0.5 - dot(u, u) is an exact 0
+
+
+def parity_record(what, g, c, nonfinite_share=0.0, **extra):
+    """Hold a card image ``g`` to the CPU's ``c`` by render_parity's rule
+    (97 % of the pixels to 1e-3 relative or 1e-4 absolute, means to 1 %,
+    finite and lit); the record says whether they are equal bit for bit.
+    ``nonfinite_share``: the share of each image's values that may be
+    non-finite (a pixel with one disagrees; storm's fragment divides by
+    0.5 - dot(u, u), an exact 0 where a lane's float32 u lands on that
+    circle, a chaotic lane's last bits deciding which)."""
+    import numpy as np
+
+    bad_g, bad_c = ~np.isfinite(g), ~np.isfinite(c)
+    g0, c0 = np.where(bad_g, 0.0, g), np.where(bad_c, 0.0, c)
+    d = np.where(bad_g | bad_c, np.inf, np.abs(g0 - c0))
+    agree = float(((d <= 1e-3 * np.abs(c0)) | (d <= 1e-4)).all(-1).mean())
+    rec = dict(phase="render_parity", scene=what, pixels_agree=agree,
+               bits_equal=bool(np.array_equal(g, c, equal_nan=True)),
+               mean_cuda=float(g0.mean()), mean_cpu=float(c0.mean()),
+               finite=bool(not bad_g.any()), nonfinite_values=[int(bad_g.sum()), int(bad_c.sum())],
+               **extra)
+    emit(rec)
+    if not (max(bad_g.mean(), bad_c.mean()) <= nonfinite_share and agree >= 0.97 and g0.mean() > 0
+            and abs(g0.mean() - c0.mean()) <= 0.01 * abs(c0.mean())):
+        fail(f"card image disagrees with the CPU image: {rec}")
+    return rec
+
+
+def lambda_parity():
+    """Phase 3's lambda scenes, card against CPU, each built and rendered
+    through the PRL interpreter on its device (64x64, BlueSampler(4), depth
+    4): the heightmap of an fbm lambda (40x40, 3,042 triangles) with a
+    Function-node albedo; the SDF whose lambda runs a traced while and a
+    traced if; the reduced box (36 cones) by RandomWalkIntegrator and by
+    PathIntegrator with denoise(scene)."""
+    from pine_tpu_torch import scenes
+    from pine_tpu_torch.prl.interp import Interpreter
+
+    box = scenes.CBOX_PRL.replace("-1.0 ~ 0.1 ~ 1.0", "-0.3 ~ 0.1 ~ 0.3").replace(
+        "0.0 ~ 0.1 ~ 2.0", "0.5 ~ 0.1 ~ 1.0").replace("[640, 640]", "[64, 64]")
+    cases = {"heightmap(size, fn) + Function albedo": LAMBDA_TERRAIN_PRL,
+             "SDF lambda with a traced while and if": LAMBDA_SDF_PRL,
+             "reduced cbox, RandomWalkIntegrator": box
+             + "RandomWalkIntegrator(BlueSampler(4), 4).render(scene);",
+             "reduced cbox, PathIntegrator + denoise": box
+             + "PathIntegrator(BlueSampler(4), 4).render(scene); denoise(scene);"}
+    for what, src in cases.items():
+        out = {}
+        for dev in ("cuda", "cpu"):
+            itp = Interpreter(device=dev, out=lambda s: None)
+            itp.run(src, f"<{what}>")
+            out[dev] = itp.get_var("scene").camera.film.rgb.cpu().numpy()
+        parity_record(what, out["cuda"], out["cpu"], size="64x64x4spp depth 4")
+
+
+def host_ms_in_sdf(cs, render):
+    """Run ``render()`` with the scene's one SDF distance function timed on
+    the host (each call as the host issues it, no sync) -> (calls, host ms)."""
+    import torch
+
+    (sdf, _), = cs.sdf_shapes
+    real, spent = sdf.fn, []
+
+    def timed(p):
+        t0 = time.perf_counter()
+        r = real(p)
+        spent.append(time.perf_counter() - t0)
+        return r
+
+    sdf.fn = timed
+    try:
+        render()
+        torch.cuda.synchronize()
+    finally:
+        sdf.fn = real
+    return len(spent), sum(spent) * 1e3
+
+
+def phase_lambdas(dev_name):
+    """The slice's paths at full width on the card.  storm (STORM_PRL as
+    written, 640x640 draw) in process: wall, card image against the CPU's.
+    The traced fragments at 640x640: card against CPU bit for bit, the
+    masked loops' device-to-host syncs per call.  The lambda SDF cell
+    (CSG_FOG_SDF_PRL: the fog box with the torus as a PRL SDF lambda,
+    640x640, BlueSampler(16), depth 5) as a main path, its image against
+    phase_media's csg_fog_sdf (the torch-function torus), and the host time
+    spent in the lambda (walking its AST and issuing its launches) per
+    march step beside the torch function's.  benchmark.pine in full:
+    exact, the batched tier taken, wall and syncs with the interpreter on
+    the host CPU (on the card: phase_lambda_cli's python -m
+    pine_tpu_torch.bench_prl), and at 10 outer iterations on the
+    card with the masked loop's check every iteration against every
+    EXIT_CHECK.  RandomWalkIntegrator(BlueSampler(16), 4) and
+    PathIntegrator(BlueSampler(16), 4) + denoise(scene) on the bench box as
+    main paths: the dense kernel held to its plain version on every launch
+    of a 1-spp render.  -> kernel-line entries."""
+    import numpy as np
+    import torch
+
+    from pine_tpu_torch import bench_prl, scenes
+    from pine_tpu_torch.integrators.denoiser import denoise_scene
+    from pine_tpu_torch.integrators.path import render_wavefront
+    from pine_tpu_torch.prl import loop_jit, trace_flow
+    from pine_tpu_torch.prl.interp import Interpreter
+
+    def draw_image(src, dev):
+        itp = Interpreter(device=dev, out=lambda s: None)
+        syncs = trace_flow.SYNCS[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        itp.run(src)
+        img = itp.get_var("img").data
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return img.cpu().numpy(), wall, trace_flow.SYNCS[0] - syncs
+
+    # storm: the script as written (saved beside the CLI's), then its image
+    storm_png = os.path.join(OUT_DIR, "chip_smoke_storm.png")
+    t0 = time.perf_counter()
+    Interpreter(out=lambda s: None).run(scenes.storm_prl(LAMBDA_SIZE, storm_png), "<storm>")
+    script_wall = time.perf_counter() - t0
+    raw = scenes.STORM_PRL.replace('}).save("storm.png");', "});").replace(
+        "draw(image_size", "img := draw(image_size")
+    g, g_wall, _ = draw_image(raw, "cuda")
+    g, g_wall, _ = draw_image(raw, "cuda")  # warm
+    c, c_wall, _ = draw_image(raw, "cpu")
+    parity_record("storm, 640x640 draw", g, c, STORM_NONFINITE_SHARE, card_draw_s=g_wall,
+                  cpu_draw_s=c_wall, script_wall_s=script_wall)
+    # the traced fragments
+    flows = {}
+    for name, frag in TRACED_FLOW.items():
+        src = f"img := draw([{LAMBDA_SIZE}, {LAMBDA_SIZE}], {frag});"
+        g, g_wall, g_syncs = draw_image(src, "cuda")
+        c, c_wall, c_syncs = draw_image(src, "cpu")
+        flows[name] = dict(bits_equal=bool(np.array_equal(g, c)), card_s=g_wall, cpu_s=c_wall,
+                           syncs_card=g_syncs, syncs_cpu=c_syncs)
+        if not flows[name]["bits_equal"]:
+            emit(dict(phase="traced_flow", fragments=flows))
+            fail(f"the traced fragment {name} differs on the card from the CPU")
+    saved = trace_flow.EXIT_CHECK
+    trace_flow.EXIT_CHECK = 1  # a sync every iteration, for the record
+    try:
+        src = f"img := draw([{LAMBDA_SIZE}, {LAMBDA_SIZE}], {TRACED_FLOW['while_replay']});"
+        draw_image(src, "cuda")
+        _, every_s, every_syncs = draw_image(src, "cuda")
+    finally:
+        trace_flow.EXIT_CHECK = saved
+    emit(dict(phase="traced_flow", size=f"{LAMBDA_SIZE}x{LAMBDA_SIZE}", fragments=flows,
+              exit_check=saved, while_replay_every_iteration=dict(card_s=every_s,
+                                                                   syncs=every_syncs)))
+
+    # the lambda SDF cell
+    scene = scenes.prl_scene(scenes.csg_fog_sdf_prl(FOG_SIZE, integrator=None, save=None),
+                             "<csg fog + lambda torus>")
+    entries, cs = phase_main_path(
+        dev_name, "csg_fog_sdf_prl", "the CSG fog box with the torus as a PRL SDF lambda "
+        "(CSG_FOG_SDF_PRL)", scene, FOG_GROUPS, False, ["dense"], FOG_SIZE, FOG_SPP, FOG_DEPTH,
+        label="csg_fog_sdf_prl", reps=1)
+    parity_record("lambda torus against the torch-function torus, 640x640x16spp, "
+                  "both on the card", MAIN_IMAGES["csg_fog_sdf_prl"], MAIN_IMAGES["csg_fog_sdf"])
+    from pine_tpu_torch.core.samplers import BlueSampler
+
+    steps = {}
+    for what, sc in (("lambda", scene), ("torch function", scenes.csg_fog_sdf(FOG_SIZE))):
+        c2 = cs if sc is scene else sc.compile()
+        calls, ms = host_ms_in_sdf(c2, lambda: path_render(
+            c2, sc, FOG_SIZE, FOG_SIZE, BlueSampler(FOG_SPP), 1, FOG_DEPTH))
+        steps[what] = dict(calls=calls, host_ms=ms, host_ms_per_call=ms / max(calls, 1))
+    emit(dict(phase="sdf_lambda_host", per="one 1-spp render", distance_calls=steps,
+              note="host time inside the distance function as the host issues it (no sync): "
+                   "for the lambda, walking its AST plus issuing its launches"))
+    del cs
+    torch.cuda.empty_cache()
+
+    # benchmark.pine on the host CPU (on the card: phase_lambda_cli's
+    # python -m pine_tpu_torch.bench_prl), then 10 outer iterations on the card
+    # with the masked loop asking for its active lanes every iteration and
+    # every EXIT_CHECK
+    out, wall, runs, syncs = bench_prl.run_prl("cpu")
+    rec = dict(phase="benchmark_pine", device="cpu", output=out, wall_s=wall, tiers=runs,
+               masked_loop_syncs=syncs)
+    emit(rec)
+    if out != [str(bench_prl.OUTER * bench_prl.PER_OUTER)] or not runs["batch"]:
+        fail(f"benchmark.pine is wrong or skipped the batched tier: {rec}")
+    checks = {}
+    for k in (1, trace_flow.EXIT_CHECK, 1, trace_flow.EXIT_CHECK):
+        saved, trace_flow.EXIT_CHECK = trace_flow.EXIT_CHECK, k
+        try:
+            out, wall, runs, syncs = bench_prl.run_prl(None, outer=10)
+        finally:
+            trace_flow.EXIT_CHECK = saved
+        if out != [str(10 * bench_prl.PER_OUTER)] or not runs["batch"]:
+            fail(f"benchmark.pine at 10 outer iterations is wrong: {out} {runs}")
+        checks.setdefault(f"exit_check_{k}", []).append(dict(wall_s=wall, syncs=syncs))
+    emit(dict(phase="benchmark_pine_exit_check", outer=10, device="card", runs=checks))
+
+    # the random walk and the denoiser on the bench box
+    box = scenes.prl_scene(scenes.CBOX_PRL, "<bench cbox>")
+
+    def rw_render(cs, scene, W, H, sampler, spp, depth, return_stats=False):
+        return render_wavefront(cs, scene.camera, W, H, sampler, spp, depth, nee=False,
+                                return_stats=return_stats)
+
+    def denoised_render(cs, scene, W, H, sampler, spp, depth, return_stats=False):
+        out = path_render(cs, scene, W, H, sampler, spp, depth, return_stats)
+        img = out[0] if return_stats else out
+        scene.camera.film.set_rgb(img)
+        den = denoise_scene(scene).rgb
+        return (den, out[1]) if return_stats else den
+
+    entries += phase_main_path(
+        dev_name, "randomwalk", "RandomWalkIntegrator(BlueSampler(16), 4) on the bench cbox",
+        box, BOX_GROUPS, False, ["dense"], MAIN_SIZE, RW_SPP, RW_DEPTH, label="randomwalk",
+        render_fn=rw_render, reps=1, forms=("closest",))[0]
+    entries += phase_main_path(
+        dev_name, "denoise", "PathIntegrator(BlueSampler(16), 4) + denoise(scene) on the "
+        "bench cbox", box, BOX_GROUPS, False, ["dense"], MAIN_SIZE, RW_SPP, RW_DEPTH,
+        label="denoise", render_fn=denoised_render, reps=1)[0]
+    loop_jit._CACHE.clear()
+    torch.cuda.empty_cache()
+    return entries
+
+
+STORM_CLI_ROWS = 0.97  # the CLI's storm PNG against the in-process one, pixels that agree
+
+
+def phase_lambda_cli():
+    """``python -m pine_tpu_torch storm.pine`` (STORM_PRL as written, its
+    save to storm.png) from build/chip_smoke/: its PNG against phase 4's
+    in-process run of the script on 97 % of the pixels; ``python -m
+    pine_tpu_torch.bench_prl`` (benchmark.pine in full, the batched tier's
+    lanes on the card): 502498700, the
+    batched tier taken; bench_prl.run_seq (``--seq``'s timing, in process):
+    the sequential tier's wall against the eager interpreter's, the same
+    output."""
+    import numpy as np
+
+    from pine_tpu_torch import scenes
+
+    out = os.path.join(OUT_DIR, "storm.png")
+    if os.path.exists(out):
+        os.remove(out)
+    with open(os.path.join(OUT_DIR, "storm.pine"), "w") as f:
+        f.write(scenes.STORM_PRL)
+    proc, wall, _ = run_module(["pine_tpu_torch", "storm.pine"], "the storm CLI run")
+    lines = proc.stdout.strip().splitlines()
+    got = read_png(out).astype(np.float32)
+    ref = read_png(os.path.join(OUT_DIR, "chip_smoke_storm.png")).astype(np.float32)
+    d = np.abs(got - ref)
+    rec = dict(phase="cli", command="python -m pine_tpu_torch storm.pine", wall_s=wall,
+               finished=lines[-1] if lines else "", mean=float(got.mean()),
+               pixels_agree=float(((d <= 1e-3 * np.abs(ref)) | (d <= 1e-4)).all(-1).mean()))
+    emit(rec)
+    if not rec["finished"].startswith("Finished in") or got.shape != ref.shape or (
+            rec["pixels_agree"] < STORM_CLI_ROWS) or not got.mean() > 0:
+        fail(f"the storm CLI image is wrong: {rec}")
+    proc, wall, objs = run_module(["pine_tpu_torch.bench_prl"], "python -m pine_tpu_torch.bench_prl")
+    lines = proc.stdout.strip().splitlines()
+    rec = dict(phase="bench_prl", command="python -m pine_tpu_torch.bench_prl",
+               process_wall_s=wall, output=lines[0] if lines else "",
+               result=objs[-1] if objs else None)
+    emit(rec)
+    if rec["output"] != "502498700" or not (rec["result"] or {}).get("tiers", {}).get("batch"):
+        fail(f"bench_prl did not print 502498700 through the batched tier: {rec}")
+    from pine_tpu_torch import bench_prl
+
+    seq, eager, outs = bench_prl.run_seq()
+    rec = dict(phase="bench_prl_seq", what="bench_prl.SEQ_PRL, best of 3 each", seq_wall_s=seq,
+               eager_wall_s=eager, speedup=eager / seq, same_output=outs["seq"] == outs["eager"])
+    emit(rec)
+    if not rec["same_output"]:
+        fail(f"the sequential tier's output differs from the eager interpreter's: {outs}")
+
 def main():
     try:
         import torch
@@ -2472,13 +2871,15 @@ def main():
     kernels += phase_main_path(
         name, "forest", "cone forest, 1,600 cones, from CONE_FOREST_PRL",
         scenes.prl_scene(scenes.CONE_FOREST_PRL, "<cone forest>"),
-        [("dense", 1, 6), ("dense", 5, 2), ("lattice", 7, 1604)], False, ["lattice"])[0]
+        [("dense", 1, 6), ("dense", 5, 2), ("lattice", 7, 1604)], False, ["lattice"],
+        depth=VARIANT_DEPTH)[0]
     terrain = scenes.terrain((W, H))
     entries, cs = phase_main_path(
         name, "terrain", "bench_mesh terrain, 99,458 triangles + 1 rect", terrain,
-        [("dense", 1, 1), ("grid", 6, 99458)], True, ["grid"], also=["dense"])
+        [("dense", 1, 1), ("grid", 6, 99458)], True, ["grid"], depth=VARIANT_DEPTH, also=["dense"])
     kernels += entries
-    kernel_ab_record(cs, terrain, "bench_mesh terrain", 6, ["grid", "sctree", "bvh", "grid_mxu"])
+    kernel_ab_record(cs, terrain, "bench_mesh terrain", 6, ["grid", "sctree", "bvh", "grid_mxu"],
+                     depth=VARIANT_DEPTH)
     field = scenes.instanced((INST_SIZE, INST_SIZE))
     entries, cs = phase_main_path(
         name, "instanced", "bench_instanced rock field, 1,024 x 4,802 triangles + plane + rect",
@@ -2499,22 +2900,22 @@ def main():
     kernels += phase_main_path(
         name, "terrain_sctree", "bench_mesh terrain, 99,458 triangles + 1 rect, "
         "mesh_kernel sctree", scenes.terrain((W, H)), [("dense", 1, 1), ("sctree", 6, 99458)],
-        True, ["sctree"], kernels=dict(mesh_kernel="sctree"))[0]
+        True, ["sctree"], depth=VARIANT_DEPTH, kernels=dict(mesh_kernel="sctree"))[0]
     kernels += phase_main_path(
         name, "cbox_scdense", "bench cbox, 420 cones, from CBOX_PRL, small_kernel scdense", box,
         [("scdense", 1, 6), ("scdense", 5, 2), ("scdense", 7, 424)], False, ["scdense"],
-        kernels=dict(small_kernel="scdense"))[0]
+        depth=VARIANT_DEPTH, kernels=dict(small_kernel="scdense"))[0]
     # the slice-6 paths: kernel 7 on the box's rect and cone groups, the grid
     # kernel's MXU form on the terrain (pine_tpu's default route for it) and
     # the instanced kernel's MXU leaf form on the rock field
     kernels += phase_main_path(
         name, "cbox_mxup", "bench cbox, 420 cones, from CBOX_PRL, small_kernel mxup", box,
         [("mxup", 1, 6), ("dense", 5, 2), ("mxup", 7, 424)], False, ["mxup"],
-        kernels=dict(small_kernel="mxup"))[0]
+        depth=VARIANT_DEPTH, kernels=dict(small_kernel="mxup"))[0]
     kernels += phase_main_path(
         name, "terrain_mxu", "bench_mesh terrain, 99,458 triangles + 1 rect, mesh_kernel mxu",
         terrain, [("dense", 1, 1), ("grid_mxu", 6, 99458)], True, ["grid_mxu"],
-        kernels=dict(mesh_kernel="mxu"))[0]
+        depth=VARIANT_DEPTH, kernels=dict(mesh_kernel="mxu"))[0]
     kernels += phase_main_path(
         name, "instanced_mxu", "bench_instanced rock field, 1,024 x 4,802 triangles + plane + "
         "rect, inst_kernel mxu", field, [("dense", 1, 1), ("dense", 3, 1), ("inst_mxu", 6, 1024)],
@@ -2526,6 +2927,8 @@ def main():
     elapsed("garden", t_start)
     kernels += phase_media(name)
     elapsed("media", t_start)
+    kernels += phase_lambdas(name)
+    elapsed("lambdas", t_start)
     kernels += phase_lab(name, probe_recs)
     phase_cli()
     phase_bench(MAIN_RAYS["cbox"])
@@ -2533,6 +2936,7 @@ def main():
     phase_garden_cli()
     elapsed("lab, CLIs and bench of slices 1-8", t_start)
     phase_media_cli()
+    phase_lambda_cli()
     phase_lab_modules()
     emit(dict(phase="done", seconds=time.perf_counter() - t_start))
     emit({"kernels": kernels})

@@ -60,9 +60,10 @@ Keys (``i`` counts from 0):
   ``["unary", op, a]`` for op in - s r f, ``["lerp", t, a, b]``,
   ``["checker", p, ratio]``, ``["noisef", p, octaves]``, ``["noise3f", p,
   octaves]``, ``["comp", p, index]``, ``["vec3", a...]``, ``["texture", p,
-  k]`` reading image ``k``;
+  k]`` reading image ``k``, ``["function", k]`` Function node ``k``;
 - ``n_images``; ``image.<k>`` float32 (H, W, C), the texture images the
-  node trees read, each once;
+  node trees read, each once; ``n_functions``; ``function.<k>`` the
+  Function nodes they read (objects: a closure has no array form);
 - ``n_lights``, in pine_tpu's order: the scene's point, spot and
   directional lights as added, then the emissive shapes in geometry order,
   then the environment light; ``light.<i>.kind`` ("point", "spot",
@@ -131,7 +132,7 @@ def scene_arrays(scene) -> dict:
             mat_slots.append(mat)
         return mat_of[id(mat)]
 
-    images = []
+    images, fns = [], []
     g_type, g_local, g_mat = [], [], []
     per_type, type_global = {}, {}
     prims, meshes, area_lights, sdfs, csgs = [], [], [], [], []
@@ -155,7 +156,7 @@ def scene_arrays(scene) -> dict:
             meshes.append((shape, gidx))
             if mat.is_emissive():
                 area_lights.append(dict(kind="mesh", tris=shape.triangles(), gidx=gidx,
-                                        **param_record("color", mat.color, images)))
+                                        **param_record("color", mat.color, images, fns)))
             continue
         tid = shape.type_id
         rows = per_type.setdefault(tid, [])
@@ -165,7 +166,7 @@ def scene_arrays(scene) -> dict:
         prims.append((tid, shape.params(), gidx, (lo, hi)))
         if mat.is_emissive():
             area_lights.append(dict(kind="area", tid=tid, params=shape.params(), gidx=gidx,
-                                    **param_record("color", mat.color, images)))
+                                    **param_record("color", mat.color, images, fns)))
     inst_records = []
     for inst in scene.instancings:
         corners = box_corners(*inst.shape.get_aabb())
@@ -216,8 +217,10 @@ def scene_arrays(scene) -> dict:
 
     a["n_materials"] = np.asarray(len(mat_slots))
     for i, mat in enumerate(mat_slots):
-        a.update({f"mat.{i}.{k}": v for k, v in material_record(mat, images).items()})
+        a.update({f"mat.{i}.{k}": v for k, v in material_record(mat, images, fns).items()})
     a["n_images"] = np.asarray(len(images))
+    a["n_functions"] = np.asarray(len(fns))
+    a.update({f"function.{k}": fn for k, fn in enumerate(fns)})
     a.update({f"image.{k}": im for k, im in enumerate(images)})
 
     lights = [light_record(li) for li in scene.lights] + area_lights
@@ -241,10 +244,11 @@ def scene_arrays(scene) -> dict:
 NODE_KINDS = {"Position": "position", "Normal": "normal", "UV": "uv"}
 
 
-def node_spec(node, images):
+def node_spec(node, images, fns=None):
     """A node tree (of the port's nodes or pine_tpu's, by class name) as a
     JSON-able spec (module docstring); texture images are appended to
-    ``images`` once each."""
+    ``images`` once each, the port's Function nodes to ``fns`` (a spec of a
+    closure only indexes it: without ``fns`` such a node is refused)."""
     kind = type(node).__name__
     if not hasattr(node, "eval"):  # a plain value (pine_tpu's Uber keeps ior as a float)
         return ["const", np.asarray(node, np.float32).tolist()]
@@ -253,33 +257,43 @@ def node_spec(node, images):
     if kind in NODE_KINDS:
         return [NODE_KINDS[kind]]
     if kind == "Binary":
-        return [node.op, node_spec(node.a, images), node_spec(node.b, images)]
+        return [node.op, node_spec(node.a, images, fns), node_spec(node.b, images, fns)]
     if kind == "Unary":
-        return ["unary", node.op, node_spec(node.a, images)]
+        return ["unary", node.op, node_spec(node.a, images, fns)]
     if kind == "Lerp":
-        return ["lerp"] + [node_spec(x, images) for x in (node.t, node.a, node.b)]
+        return ["lerp"] + [node_spec(x, images, fns) for x in (node.t, node.a, node.b)]
     if kind == "Checkerboard":
-        return ["checker", node_spec(node.p, images), float(node.ratio)]
+        return ["checker", node_spec(node.p, images, fns), float(node.ratio)]
     if kind in ("Noisef", "Noise3f"):
-        return [kind.lower(), node_spec(node.p, images), node_spec(node.octaves, images)]
+        return [kind.lower(), node_spec(node.p, images, fns), node_spec(node.octaves, images, fns)]
     if kind == "Component":
-        return ["comp", node_spec(node.p, images), int(node.index)]
+        return ["comp", node_spec(node.p, images, fns), int(node.index)]
     if kind == "ToVec3":
-        return ["vec3"] + [node_spec(x, images) for x in node.args]
+        return ["vec3"] + [node_spec(x, images, fns) for x in node.args]
     if kind == "Texture":
         image = np.array(node.image, np.float32)  # a copy: pine_tpu's are read-only
         k = next((k for k, im in enumerate(images) if np.array_equal(im, image)), None)
         if k is None:
             images.append(image)
             k = len(images) - 1
-        return ["texture", node_spec(node.p, images), k]
-    raise NotImplementedError(f"{kind} nodes are not ported yet (ROADMAP.md, modules item 15)")
+        return ["texture", node_spec(node.p, images, fns), k]
+    if kind == "Function":
+        if fns is None or not isinstance(node, N.Function):
+            raise NotImplementedError(
+                "a Function node wraps a script closure, which a node spec cannot carry: "
+                "build the node in this package (run the same script through its interpreter)")
+        fns.append(node)
+        return ["function", len(fns) - 1]
+    raise NotImplementedError(f"{kind} nodes have no spec")
 
 
-def node_of(spec, images):
-    """The port's node of a spec of ``node_spec``; ``images`` (H,W,C) arrays."""
+def node_of(spec, images, fns=()):
+    """The port's node of a spec of ``node_spec``; ``images`` (H,W,C) arrays,
+    ``fns`` the Function nodes it indexes."""
     kind, args = spec[0], spec[1:]
-    sub = lambda x: node_of(x, images)  # noqa: E731
+    sub = lambda x: node_of(x, images, fns)  # noqa: E731
+    if kind == "function":
+        return fns[args[0]]
     if kind == "const":
         return N.Constant(args[0])
     if kind in ("position", "normal", "uv"):
@@ -306,10 +320,10 @@ def node_of(spec, images):
 VEC3_PARAMS = ("albedo", "color", "sigma_s")
 
 
-def param_record(name, node, images):
+def param_record(name, node, images, fns=None):
     """One node parameter as record keys: ``name`` the constant ((3,) for
     VEC3_PARAMS, else a scalar), or ``name.node`` its spec as JSON."""
-    spec = node_spec(node, images)
+    spec = node_spec(node, images, fns)
     if spec[0] != "const":
         return {f"{name}.node": np.asarray(json.dumps(spec))}
     if name in VEC3_PARAMS:
@@ -317,21 +331,21 @@ def param_record(name, node, images):
     return {name: np.asarray(np.asarray(spec[1], np.float32).reshape(-1)[0])}
 
 
-def param_of(rec, name, images, default):
+def param_of(rec, name, images, default, fns=()):
     """The node of a parameter recorded by ``param_record`` in the keys of
     ``rec`` (a mapping), or Constant(``default``) where it is absent."""
     if f"{name}.node" in rec:
-        return node_of(json.loads(str(rec[f"{name}.node"])), images)
+        return node_of(json.loads(str(rec[f"{name}.node"])), images, fns)
     return N.Constant(rec[name] if name in rec else default)
 
 
-def material_record(mat, images) -> dict:
+def material_record(mat, images, fns=None) -> dict:
     """One material (the port's, or pine_tpu's by its attributes) as the
     ``mat.<i>.*`` keys without their prefix: ``tag``, and each parameter a
     constant or a ``.node`` spec (module docstring)."""
     rec = {"tag": np.asarray(mat.tag)}
     for name, default in M.PARAMS.items():
-        rec.update(param_record(name, getattr(mat, name, default), images))
+        rec.update(param_record(name, getattr(mat, name, default), images, fns))
     return rec
 
 
@@ -367,7 +381,7 @@ def light_record(li) -> dict:
     raise TypeError(f"{kind} is not a light")
 
 
-def light_of(rec, images, device):
+def light_of(rec, images, device, fns=()):
     """The port's light of a ``light.<i>.*`` record (keys without the prefix)."""
     from pine_tpu_torch.scene import env_lights as E
 
@@ -386,7 +400,7 @@ def light_of(rec, images, device):
         if kind == "atmosphere":
             return E.Atmosphere(rec["sun_direction"], rec["sun_color"], distr=distr)
         return E.ImageSky(rec["image"], rec["tint"], distr=distr, l2w=rec.get("l2w"))
-    color = param_of(rec, "color", images, M.PARAMS["color"])
+    color = param_of(rec, "color", images, M.PARAMS["color"], fns)
     if kind == "mesh":
         return L.MeshLight(rec["tris"], int(rec["gidx"]), color, device)
     return L.AreaLight(int(rec["tid"]), torch.as_tensor(np.array(rec["params"]), device=device),
@@ -499,12 +513,13 @@ def compiled_scene_from_arrays(arrays: dict, device=None, small_kernel=None,
         route(type_groups)
 
     images = [arrays[f"image.{k}"] for k in range(int(arrays.get("n_images", 0)))]
+    fns = [arrays[f"function.{k}"] for k in range(int(arrays.get("n_functions", 0)))]
     materials = []
     for i in range(int(arrays["n_materials"])):
         rec = _prefixed(arrays, f"mat.{i}.")
-        materials.append({"tag": int(rec["tag"]), **{name: param_of(rec, name, images, default)
+        materials.append({"tag": int(rec["tag"]), **{name: param_of(rec, name, images, default, fns)
                                                      for name, default in M.PARAMS.items()}})
-    lights = [light_of(_prefixed(arrays, f"light.{i}."), images, dev)
+    lights = [light_of(_prefixed(arrays, f"light.{i}."), images, dev, fns)
               for i in range(int(arrays["n_lights"]))]
 
     camera = None

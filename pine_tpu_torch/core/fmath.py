@@ -38,3 +38,22 @@ log = _rounded(torch.log)
 exp = _rounded(torch.exp)
 atan = _rounded(torch.atan)
 tan = _rounded(torch.tan)
+tanh = _rounded(torch.tanh)
+sinh = _rounded(torch.sinh)
+cosh = _rounded(torch.cosh)
+acos = _rounded(torch.acos)
+asin = _rounded(torch.asin)
+log2 = _rounded(torch.log2)
+log10 = _rounded(torch.log10)
+
+
+def pow(x, y):
+    """x ** y in float64, rounded to float32 (either may be a Python number)."""
+    xd = x.double() if isinstance(x, torch.Tensor) else x
+    yd = y.double() if isinstance(y, torch.Tensor) else y
+    return torch.pow(xd, yd).to(torch.float32)
+
+
+def atan2(y, x):
+    """atan2 in float64, rounded to float32."""
+    return torch.atan2(y.double(), x.double()).to(torch.float32)

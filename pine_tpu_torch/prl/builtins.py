@@ -3,42 +3,45 @@ src/pine/core/program_context.cpp:23-125 and the per-module *_context
 registrations; names per SURVEY.md Appendix A).
 
 Each name maps to one Python callable that dispatches on argument types and
-arity.  Every name pine_tpu registers is registered here.  Those whose
-target the port has run it: the Scene and its ``add``/``set``/``load``
-(GLB files) and ``get_aabb``, the analytic shapes, lines, ``Mesh(file)``
-and ``heightmap(file)``, the materials, the texture and procedural nodes
-(``UV``, ``Texture``, ``Position``, ``Normal``, ``Checkerboard``,
-``Noisef``, ``Noise3f``, ``Vec3``, ``Comp`` and ``lerp``, ``sqr``,
-``sqrt``, ``fract`` of nodes), the noise functions and ``load_image``,
-point, spot and directional lights, the environment lights (``Sky``,
-``Atmosphere``, ``ImageSky``), ThinLenCamera, Film and its tone mappers,
-the uniform, Halton, Sobol and blue-noise samplers, the math, vector,
-matrix and transform builtins, CSG by the operators +, * and - on shapes,
-the phase functions (``HgPF``, ``Hg2PF``, ``CloudPF``) and media
-(``HomoMedium``, ``VDBMedium``), ``PathIntegrator``,
-``CachedPathIntegrator``, ``AOIntegrator``, ``VolIntegrator`` and
-``render``, ``save`` and ``println``.  The
-others raise NotImplementedError naming their ROADMAP.md modules item when
-called.  ``render`` renders on the device the interpreter was given.
+arity.  Every name pine_tpu registers is registered here, and all but the
+integrators of ``UNPORTED`` run: the Scene and its ``add``/``set``/``load``
+(GLB files) and ``get_aabb``, the analytic shapes, lines, ``SDF`` (its
+distance a script lambda), ``Mesh(file)``, ``heightmap(file)`` and
+``heightmap(size, fn)``, the materials, the texture and procedural nodes
+(``Function`` of a script lambda among them), the noise functions,
+``load_image`` and ``draw``, the lights and environment lights,
+ThinLenCamera, Film and its tone mappers, the samplers, the math, vector,
+matrix and transform builtins (over traced lanes too), CSG by the operators
++, * and - on shapes, the phase functions and media, the path, cached,
+random-walk, AO and volume integrators, ``denoise``, and ``render``,
+``save`` and ``println``.  The others raise NotImplementedError naming
+their ROADMAP.md modules item when called.  ``render``, ``draw``,
+``heightmap(size, fn)`` and ``denoise`` run on the device the interpreter
+was given (the card unless it was given the CPU).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from pine_tpu_torch.prl.values import PrlMat, PrlVec, make_vec, prl_to_string, to_float_vec
+from pine_tpu_torch.core import fmath as fm
+from pine_tpu_torch.prl.values import (
+    PrlMat,
+    PrlVec,
+    as_tensor,
+    is_traced,
+    lanes_of,
+    make_vec,
+    prl_to_string,
+    scalar_of,
+    to_float_vec,
+)
 
 Pi = float(np.pi)
 
 # builtin -> the ROADMAP.md modules item that ports its target
-UNPORTED = {
-    **dict.fromkeys(("RandomWalkIntegrator", "GuidedPathIntegrator", "MltIntegrator",
-                     "RestirIntegrator", "MicroRenderGI", "denoise"), 12),
-    # script lambdas evaluated over a batch of lanes (pine_tpu: under a jax trace);
-    # heightmap(size, fn) too (``heightmap(file)`` is ported), and SDF, whose
-    # distance is a script lambda (the Python API's SDFShape takes a torch function)
-    **dict.fromkeys(("draw", "Function", "SDF"), 15),
-}
+UNPORTED = dict.fromkeys(("GuidedPathIntegrator", "MltIntegrator", "RestirIntegrator",
+                          "MicroRenderGI"), 12)
 
 
 def _data(x):
@@ -61,10 +64,16 @@ def _unported(name, item):
 
 
 class Array2dValue:
-    """PRL Array2d* value: a numpy (H,W,C) or (H,W) array."""
+    """PRL Array2d* value: a numpy (H,W,C) or (H,W) array, or the tensor
+    ``draw`` leaves on its device until the image is read (``host``)."""
 
     def __init__(self, data):
         self.data = data
+
+    def host(self):
+        if is_traced(self.data):
+            self.data = self.data.cpu().numpy()
+        return self.data
 
     def size(self):
         h, w = self.data.shape[:2]
@@ -72,20 +81,24 @@ class Array2dValue:
 
     def get(self, p):
         x, y = int(p.data[0]), int(p.data[1])
-        v = self.data[y, x]
+        v = self.host()[y, x]
         if np.ndim(v) == 0:
             return float(v)
         return PrlVec(np.asarray(v, np.float32))
 
     def set(self, p, v):
         x, y = int(p.data[0]), int(p.data[1])
-        self.data[y, x] = _data(v)
+        self.host()[y, x] = _data(v)
 
 
 def _vecfn(fn):
-    """A batched torch helper of the port's core as a PRL vec -> vec builtin."""
+    """A batched torch helper of the port's core as a PRL vec -> vec builtin
+    (over traced lanes on their device)."""
 
     def f(*args):
+        like = lanes_of(*args)
+        if like is not None:
+            return PrlVec(fn(*[as_tensor(_data(a), like, torch.float32) for a in args]))
         t = [torch.as_tensor(np.asarray(_data(a), np.float32)) for a in args]
         return PrlVec(fn(*t).numpy())
 
@@ -112,6 +125,11 @@ def make_registry(interp):
 
     reg = {name: _unported(name, item) for name, item in UNPORTED.items()}
 
+    def _device():
+        from pine_tpu_torch.core.place import resolve_device
+
+        return resolve_device(interp.device)
+
     def register(name):
         def deco(fn):
             reg[name] = fn
@@ -134,21 +152,36 @@ def make_registry(interp):
     interp.globals.declare("Z", PrlVec([0.0, 0.0, 1.0]))
 
     # ---- scalar & vector math (math.cpp, vecmath.cpp) ----------------------
+    # Over traced values (tensors over lanes) the same builtins run in torch on
+    # the lanes' device; square roots and transcendental functions go through
+    # core/fmath (float64, rounded), so the card and the CPU give the same bits.
     def _nodeish(*args):
         return any(isinstance(a, N.Node) for a in args)
 
-    def _reduce(np_fn, py_fn):
+    def _reduce(np_fn, py_fn, t_fn):
         def fn(*args):
             if _nodeish(*args):
                 raise TypeError("min/max over nodes is not registered in PRL")
             if len(args) == 1 and _isvec(args[0]):
-                return float(np_fn.reduce(args[0].data))
+                d = args[0].data
+                if is_traced(d):
+                    return (d.amin if np_fn is np.minimum else d.amax)(-1)
+                return float(np_fn.reduce(d))
+            vs = [_data(a) for a in args]
+            if any(is_traced(v) for v in vs):
+                like = lanes_of(*vs)
+                if any(_isvec(a) for a in args):  # a lane scalar meets vectors
+                    vs = [v[..., None] if is_traced(v) and not _isvec(a) else v
+                          for a, v in zip(args, vs)]
+                r = as_tensor(vs[0], like)
+                for v in vs[1:]:
+                    r = t_fn(r, as_tensor(v, like))
+                return PrlVec(r) if any(_isvec(a) for a in args) else r
             if all(not _isvec(a) for a in args):
                 r = args[0]
                 for a in args[1:]:
                     r = py_fn(r, a)
                 return r
-            vs = [_data(a) for a in args]
             r = vs[0]
             for v in vs[1:]:
                 r = np_fn(r, v)
@@ -156,26 +189,40 @@ def make_registry(interp):
 
         return fn
 
-    reg["min"] = _reduce(np.minimum, min)
-    reg["max"] = _reduce(np.maximum, max)
+    reg["min"] = _reduce(np.minimum, min, torch.minimum)
+    reg["max"] = _reduce(np.maximum, max, torch.maximum)
 
     @register("abs")
     def _abs(x):
         if _isvec(x):
-            return PrlVec(np.abs(x.data), x.is_int)
-        return abs(x)
+            d = x.data
+            return PrlVec(d.abs() if is_traced(d) else np.abs(d), x.is_int)
+        return x.abs() if is_traced(x) else abs(x)
 
     @register("clamp")
     def _clamp(x, lo, hi):
+        xd, lo, hi = _data(x), _data(lo), _data(hi)
+        if any(is_traced(v) for v in (xd, lo, hi)):
+            like = lanes_of(xd, lo, hi)
+            r = torch.minimum(torch.maximum(as_tensor(xd, like), as_tensor(scalar_of(lo), like)),
+                              as_tensor(scalar_of(hi), like))
+            return PrlVec(r) if _isvec(x) else r
         if _isvec(x):
-            return PrlVec(np.clip(x.data, _data(lo), _data(hi)))
-        return float(np.clip(x, _data(lo), _data(hi)))
+            return PrlVec(np.clip(xd, lo, hi))
+        return float(np.clip(xd, lo, hi))
 
     @register("lerp")
     def _lerp(t, a, b):
         if _nodeish(t, a, b):
             return N.Lerp(matarg(t), matarg(a), matarg(b))
         ad, bd, td = _data(a), _data(b), _data(t)
+        if any(is_traced(v) for v in (ad, bd, td)):
+            like = lanes_of(ad, bd, td)
+            ad, bd, td = (as_tensor(scalar_of(v), like) for v in (ad, bd, td))
+            if (_isvec(a) or _isvec(b)) and not _isvec(t) and td.ndim:
+                td = td[..., None]  # a lane scalar against vector components
+            r = ad + (bd - ad) * td
+            return PrlVec(r) if _isvec(a) or _isvec(b) else r
         r = ad + (bd - ad) * td
         if _isvec(a) or _isvec(b):
             return PrlVec(r)
@@ -187,66 +234,140 @@ def make_registry(interp):
             return N.Unary("s", x)
         return PrlVec(x.data * x.data, x.is_int) if _isvec(x) else x * x
 
-    def _elementwise(np_fn, node_op=None):
-        """An elementwise builtin; of a node, the Unary node ``node_op``
-        (pine_tpu registers sqrt and fract of nodes)."""
+    def _elementwise(np_fn, t_fn, node_op=None):
+        """An elementwise builtin: ``np_fn`` on concrete values, ``t_fn`` on
+        traced ones; of a node, the Unary node ``node_op`` (pine_tpu
+        registers sqrt and fract of nodes)."""
         def fn(x):
             if isinstance(x, N.Node):
                 if node_op is None:
                     raise TypeError("this function of a texture node is not registered in PRL")
                 return N.Unary(node_op, x)
+            d = _data(x)
+            if is_traced(d):
+                r = t_fn(d.to(torch.float32) if not d.dtype.is_floating_point else d)
+                return PrlVec(r) if _isvec(x) else r
             if _isvec(x):
-                return PrlVec(np_fn(x.data.astype(np.float32) if x.is_int else x.data))
+                return PrlVec(np_fn(d.astype(np.float32) if x.is_int else d))
             return float(np_fn(x))
 
         return fn
 
-    reg["sqrt"] = _elementwise(np.sqrt, "r")
-    reg["fract"] = _elementwise(lambda x: x - np.floor(x), "f")
-    reg["floor"] = _elementwise(np.floor)
-    reg["ceil"] = _elementwise(np.ceil)
-    for nm, f in (("exp", np.exp), ("log2", np.log2), ("log", np.log), ("log10", np.log10),
-                  ("sin", np.sin), ("cos", np.cos), ("tan", np.tan), ("acos", np.arccos),
-                  ("asin", np.arcsin), ("sinh", np.sinh), ("cosh", np.cosh),
-                  ("tanh", np.tanh)):
-        reg[nm] = _elementwise(f)
+    reg["sqrt"] = _elementwise(np.sqrt, fm.sqrt, "r")
+    reg["fract"] = _elementwise(lambda x: x - np.floor(x), lambda x: x - torch.floor(x), "f")
+    reg["floor"] = _elementwise(np.floor, torch.floor)
+    reg["ceil"] = _elementwise(np.ceil, torch.ceil)
+    for nm, f, tf in (("exp", np.exp, fm.exp), ("log2", np.log2, fm.log2),
+                      ("log", np.log, fm.log), ("log10", np.log10, fm.log10),
+                      ("sin", np.sin, fm.sin), ("cos", np.cos, fm.cos), ("tan", np.tan, fm.tan),
+                      ("acos", np.arccos, fm.acos), ("asin", np.arcsin, fm.asin),
+                      ("sinh", np.sinh, fm.sinh), ("cosh", np.cosh, fm.cosh),
+                      ("tanh", np.tanh, fm.tanh)):
+        reg[nm] = _elementwise(f, tf)
 
-    reg["powi"] = lambda b, e: int(b**e)
+    reg["powi"] = lambda b, e: b**e if is_traced(b) or is_traced(e) else int(b**e)
 
     @register("pow")
     def _pow(b, e):
+        bd, ed = _data(b), _data(e)
+        if is_traced(bd) or is_traced(ed):
+            like = lanes_of(bd, ed)
+            bd = as_tensor(scalar_of(bd), like, torch.float32)
+            ed = scalar_of(ed) if not isinstance(ed, np.ndarray) else as_tensor(ed, like)
+            if _isvec(b) and not _isvec(e) and is_traced(ed) and ed.ndim:
+                ed = ed[..., None]
+            r = fm.pow(bd, ed)
+            return PrlVec(r) if _isvec(b) else r
         if _isvec(b):
-            return PrlVec(np.power(b.data.astype(np.float32) if b.is_int else b.data, _data(e)))
+            return PrlVec(np.power(bd.astype(np.float32) if b.is_int else bd, ed))
         return float(np.power(b, e))
 
-    reg["atan2"] = lambda y, x: float(np.arctan2(y, x))
+    @register("atan2")
+    def _atan2(y, x):
+        if is_traced(y) or is_traced(x):
+            like = lanes_of(y, x)
+            return fm.atan2(as_tensor(scalar_of(y), like, torch.float32),
+                            as_tensor(scalar_of(x), like, torch.float32))
+        return float(np.arctan2(y, x))
+
+    def _sum_last(d):
+        """Sum over the last axis, term by term in order (the same bits on
+        the card and the CPU)."""
+        r = d[..., 0]
+        for i in range(1, d.shape[-1]):
+            r = r + d[..., i]
+        return r
+
+    def _vec_pair(a, b):
+        ad, bd = _data(a), _data(b)
+        like = lanes_of(ad, bd)
+        return as_tensor(ad, like, torch.float32), as_tensor(bd, like, torch.float32)
 
     @register("normalize")
     def _normalize(v):
         d = v.data
+        if is_traced(d):
+            d = d.to(torch.float32)
+            return PrlVec(d / fm.sqrt(_sum_last(d * d))[..., None])
         return PrlVec(d / np.sqrt(np.sum(d * d, -1)))
 
     @register("length")
     def _length(v, _ignored=None):
         d = _data(v)
+        if is_traced(d):
+            d = d.to(torch.float32)
+            return fm.sqrt(_sum_last(d * d))
         return float(np.sqrt(np.sum(d * d, -1)))
 
-    reg["distance"] = lambda a, b: _length(PrlVec(_data(a) - _data(b)))
-    reg["dot"] = lambda a, b: float(np.sum(_data(a) * _data(b), -1))
-    reg["cross"] = lambda a, b: PrlVec(np.cross(_data(a), _data(b)))
-    reg["sum"] = lambda v: float(np.sum(_data(v), -1))
-    reg["max_value"] = lambda v: float(np.max(_data(v), -1))
-    reg["min_value"] = lambda v: float(np.min(_data(v), -1))
-    reg["max_axis"] = lambda v: int(np.argmax(_data(v)))
-    reg["min_axis"] = lambda v: int(np.argmin(_data(v)))
+    @register("distance")
+    def _distance(a, b):
+        if is_traced(_data(a)) or is_traced(_data(b)):
+            ad, bd = _vec_pair(a, b)
+            return _length(PrlVec(ad - bd))
+        return _length(PrlVec(_data(a) - _data(b)))
+
+    @register("dot")
+    def _dot(a, b):
+        if is_traced(_data(a)) or is_traced(_data(b)):
+            return _sum_last(torch.mul(*_vec_pair(a, b)))
+        return float(np.sum(_data(a) * _data(b), -1))
+
+    @register("cross")
+    def _cross(a, b):
+        if is_traced(_data(a)) or is_traced(_data(b)):
+            ad, bd = _vec_pair(a, b)
+            ad, bd = torch.broadcast_tensors(ad, bd)
+            return PrlVec(torch.stack([ad[..., 1] * bd[..., 2] - ad[..., 2] * bd[..., 1],
+                                       ad[..., 2] * bd[..., 0] - ad[..., 0] * bd[..., 2],
+                                       ad[..., 0] * bd[..., 1] - ad[..., 1] * bd[..., 0]], -1))
+        return PrlVec(np.cross(_data(a), _data(b)))
+
+    def _over_last(np_fn, t_fn, cast):
+        def fn(v):
+            d = _data(v)
+            return t_fn(d) if is_traced(d) else cast(np_fn(d))
+
+        return fn
+
+    reg["sum"] = _over_last(lambda d: np.sum(d, -1), _sum_last, float)
+    reg["max_value"] = _over_last(lambda d: np.max(d, -1), lambda d: d.amax(-1), float)
+    reg["min_value"] = _over_last(lambda d: np.min(d, -1), lambda d: d.amin(-1), float)
+    reg["max_axis"] = _over_last(np.argmax, lambda d: d.argmax(-1).to(torch.int32), int)
+    reg["min_axis"] = _over_last(np.argmin, lambda d: d.argmin(-1).to(torch.int32), int)
 
     # ---- vec/mat constructors ----------------------------------------------
     def vec_ctor(n, is_int):
         dt = np.int32 if is_int else np.float32
+        tdt = torch.int32 if is_int else torch.float32
 
         def fn(*args):
             if len(args) == 1:
                 a = args[0]
+                d = _data(a)
+                if is_traced(d):
+                    if _isvec(a):
+                        return PrlVec(d[..., :n].to(tdt), is_int)
+                    return PrlVec(d.to(tdt)[..., None].expand(*d.shape, n), is_int)
                 if _isvec(a):
                     return PrlVec(a.data[..., :n].astype(dt), is_int)
                 return PrlVec(np.full(n, a, dt), is_int)
@@ -257,6 +378,8 @@ def make_registry(interp):
                 else:
                     flat.append(c)
             v = make_vec(flat[:n] if len(flat) >= n else flat)
+            if is_traced(v.data):
+                return PrlVec(v.data.to(tdt), is_int)
             return PrlVec(v.data.astype(dt), is_int)
 
         return fn
@@ -266,17 +389,24 @@ def make_registry(interp):
         reg[f"vec{n}i"] = vec_ctor(n, True)
 
     def mat_ctor(*cols):
-        return PrlMat(np.stack([_data(c) for c in cols], -1))
+        ds = [_data(c) for c in cols]
+        like = lanes_of(*ds)
+        if like is not None:
+            ds = [as_tensor(d, like, torch.float32) for d in ds]
+            return PrlMat(torch.stack(torch.broadcast_tensors(*ds), -1))
+        return PrlMat(np.stack(ds, -1))
 
     reg["mat2"] = reg["mat3"] = mat_ctor
     reg["mat4"] = lambda *cols: (
         cols[0] if len(cols) == 1 and isinstance(cols[0], PrlMat) else mat_ctor(*cols))
     reg["identity3x3"] = lambda: PrlMat(np.eye(3, dtype=np.float32))
     reg["identity4x4"] = lambda: PrlMat(np.eye(4, dtype=np.float32))
-    reg["transpose"] = lambda m: PrlMat(np.swapaxes(m.data, -1, -2))
+    reg["transpose"] = lambda m: PrlMat(m.data.transpose(-1, -2) if is_traced(m.data)
+                                        else np.swapaxes(m.data, -1, -2))
     reg["determinant"] = lambda m: float(np.linalg.det(np.asarray(m.data)))
     reg["inverse"] = lambda m: PrlMat(
-        np.linalg.inv(np.asarray(m.data, np.float64)).astype(np.float32))
+        torch.linalg.inv(m.data) if is_traced(m.data)
+        else np.linalg.inv(np.asarray(m.data, np.float64)).astype(np.float32))
     reg["solve"] = lambda m, b: PrlVec(
         np.linalg.solve(np.asarray(m.data), np.asarray(_data(b))).astype(np.float32))
 
@@ -326,7 +456,7 @@ def make_registry(interp):
     reg["unit_square_to_cartesian"] = _vecfn(unit_square_to_cart)
     reg["cartesian_to_spherical"] = _vecfn(vm.cartesian_to_spherical)
     reg["cartesian_to_unit_square"] = _vecfn(
-        lambda d: vm.cartesian_to_spherical(d) / torch.tensor([2 * Pi, Pi]))
+        lambda d: vm.cartesian_to_spherical(d) / torch.tensor([2 * Pi, Pi], device=d.device))
     reg["sample_disk_polar"] = _vecfn(smp.sample_disk_polar)
     reg["sample_disk_concentric"] = _vecfn(smp.sample_disk_concentric)
     reg["cosine_weighted_hemisphere"] = _vecfn(smp.cosine_weighted_hemisphere)
@@ -355,12 +485,12 @@ def make_registry(interp):
         if _isvec(x):
             return N.Constant(_f32(x))
         if isinstance(x, Array2dValue):
-            return N.Texture(N.UV(), x.data)
+            return N.Texture(N.UV(), x.host())
         return N.Constant(float(x))
 
     reg["UV"] = lambda: N.UV()
     reg["Texture"] = lambda p, image: N.Texture(
-        matarg(p), image.data if isinstance(image, Array2dValue) else image)
+        matarg(p), image.host() if isinstance(image, Array2dValue) else image)
     reg["Position"] = lambda: N.Position()
     reg["Normal"] = lambda: N.Normal()
     reg["Checkerboard"] = lambda p=None, ratio=0.5: N.Checkerboard(
@@ -369,10 +499,15 @@ def make_registry(interp):
     reg["Noise3f"] = lambda p, octaves: N.Noise3f(matarg(p), matarg(octaves))
     reg["Vec3"] = lambda *a: N.ToVec3(*map(matarg, a))
     reg["Comp"] = lambda p, i: N.Component(matarg(p), int(i))
+    reg["Function"] = lambda f: N.Function(f.as_node_fn())
 
     # ---- noise (node.cpp pnoise/fbm) on script values -----------------------
     def noise_call(fn, x, arg):
-        r = fn(torch.as_tensor(np.asarray(_data(x), np.float32)), arg).numpy()
+        d = _data(x)
+        if is_traced(d):  # lanes: a scalar (N,) or a vector (N, k)
+            r = fn(d.to(torch.float32), scalar_of(arg))
+            return r if r.ndim <= 1 else PrlVec(r)
+        r = fn(torch.as_tensor(np.asarray(d, np.float32)), arg).numpy()
         return float(r) if r.ndim == 0 else PrlVec(r)
 
     def pnoise_k(k):
@@ -437,15 +572,35 @@ def make_registry(interp):
 
         return mesh_from_glb(filename)
 
+    @register("SDF")
+    def _sdf(*a):
+        """SDF(center, half_size, fn) or SDF(aabb, fn): the distance a script
+        lambda over the march's lanes (geometry.cpp:730-762)."""
+        if len(a) == 3:
+            center, half, fn = a
+            return S.SDFShape(_f32(center), _f32(half), fn.as_vec3_to_f32())
+        aabb, fn = a
+        return S.SDFShape((aabb.lower + aabb.upper) / 2, (aabb.upper - aabb.lower) / 2,
+                          fn.as_vec3_to_f32())
+
     @register("heightmap")
     def _heightmap(*a):
         """heightmap(file): the mesh of the image's first channel, x along
-        the image's width (geometry.cpp heightmap)."""
-        if len(a) != 1 or not isinstance(a[0], str):
-            _refuse("`heightmap(size, function)`", 15)
-        from pine_tpu_torch.io.image_io import load_image
+        the image's width; heightmap(size, fn): of the script lambda over the
+        pixel centres, meshgrid "ij", then (w, h) (geometry.cpp heightmap)."""
+        if len(a) == 1 and isinstance(a[0], str):
+            from pine_tpu_torch.io.image_io import load_image
 
-        return S.heightmap_from_array(load_image(a[0])[..., 0].T)
+            return S.heightmap_from_array(load_image(a[0])[..., 0].T)
+        size, fn = a
+        w, h = int(size.data[0]), int(size.data[1])
+        xs = (np.arange(w, dtype=np.float32) + 0.5) / w
+        ys = (np.arange(h, dtype=np.float32) + 0.5) / h
+        X, Yg = np.meshgrid(xs, ys, indexing="ij")
+        uv = torch.as_tensor(np.stack([X, Yg], -1).reshape(-1, 2), device=_device())
+        vals = _data(fn(PrlVec(uv)))
+        vals = as_tensor(scalar_of(vals), uv, torch.float32).expand(uv.shape[0])
+        return S.heightmap_from_array(vals.cpu().numpy().reshape(w, h))
 
     # ---- lights (light.cpp:174-186) ----------------------------------------
     reg["PointLight"] = lambda p, c: L.PointLight(_f32(p), _f32(c))
@@ -514,6 +669,18 @@ def make_registry(interp):
 
         return VolIntegrator(sampler)
 
+    @register("RandomWalkIntegrator")
+    def _rw(sampler, max_len):
+        from pine_tpu_torch.integrators.randomwalk import RandomWalkIntegrator
+
+        return RandomWalkIntegrator(sampler, int(max_len))
+
+    @register("denoise")
+    def _denoise(scene):
+        from pine_tpu_torch.integrators.denoiser import denoise_scene
+
+        return denoise_scene(scene, device=interp.device)
+
     @register("CachedPathIntegrator")
     def _cached(sampler, max_len, resolution=128, starting_depth=1):
         from pine_tpu_torch.integrators.cachedpath import CachedPathIntegrator
@@ -543,7 +710,7 @@ def make_registry(interp):
         if isinstance(target, Film):
             target.save(filename)
             return
-        arr = np.asarray(target.data if isinstance(target, Array2dValue) else target)
+        arr = np.asarray(target.host() if isinstance(target, Array2dValue) else target)
         save_image(filename, arr, invert_y=bool(invert_y), encode_srgb=True)
 
     # ---- arrays (array.cpp) ------------------------------------------------
@@ -564,13 +731,26 @@ def make_registry(interp):
             return x.size()
         raise TypeError("size() expects an image/array")
 
-    reg["mse"] = lambda a, b: float(np.mean(
-        (np.asarray(a.data, np.float32) - np.asarray(b.data, np.float32)) ** 2))
+    @register("draw")
+    def _draw(size, frag):
+        """The (h, w, 3) image of the fragment lambda over the pixel centres
+        (u.x along the width), computed on the interpreter's device and left
+        there until the image is read."""
+        w, h = int(size.data[0]), int(size.data[1])
+        X, Yg = np.meshgrid(np.arange(w, dtype=np.float32), np.arange(h, dtype=np.float32),
+                            indexing="xy")
+        coords = (np.stack([X, Yg], -1).reshape(-1, 2) + 0.5) / np.asarray([w, h], np.float32)
+        img = frag.as_fragment()(torch.as_tensor(coords, device=_device()))
+        return Array2dValue(img.reshape(h, w, 3))
+
+    def _host_f32(x):
+        return np.asarray(x.host() if isinstance(x, Array2dValue) else _data(x), np.float32)
+
+    reg["mse"] = lambda a, b: float(np.mean((_host_f32(a) - _host_f32(b)) ** 2))
 
     @register("rmse")
     def _rmse(ref, b):
-        da = np.asarray(ref.data, np.float32)
-        db = np.asarray(b.data, np.float32)
+        da, db = _host_f32(ref), _host_f32(b)
         return float(np.sqrt(np.mean(((da - db) / np.maximum(np.abs(da), 1e-2)) ** 2)))
 
     # ---- parallel (parallel.cpp:10-15) -------------------------------------

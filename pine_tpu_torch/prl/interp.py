@@ -1,27 +1,44 @@
-"""PRL eager tree-walk interpreter.  Counterpart of pine_tpu/prl/interp.py.
+"""PRL eager tree-walk interpreter and its lambda bridges.  Counterpart of
+pine_tpu/prl/interp.py.
 
 The reference compiles PRL scripts to native code through LLVM
 (jit.cpp:2219-2354); the script *is* the program that builds the scene and
-invokes renders.  Here a script evaluates eagerly in Python over numpy
-values, and ``render`` runs the port's renderer on the interpreter's device
-(the card unless it was given the CPU).
+invokes renders.  Here:
+
+- scene-building code evaluates eagerly in Python over numpy values, and
+  ``render`` runs the port's renderer on the interpreter's device (the card
+  unless it was given the CPU);
+- lambdas handed to consumers that run them over lanes (``draw``
+  fragments, ``SDF`` distances, texture ``Function`` nodes,
+  ``heightmap(size, fn)``) are entered with tensors over those lanes
+  (values.py), on the lanes' device, through the same evaluator; a
+  condition over lanes hands its ``while``/``for``/``if`` to trace_flow.py
+  (masked loops, merged branches);
+- hot host loops go to loop_jit.py (iterations as lanes, or the loop
+  lowered to a Python function), which falls back to this evaluator
+  whenever a loop is not eligible.
 
 Method-call sugar, overloaded free functions, ``:=``/``=``/``&=`` statement
 forms, class desugaring (ctor synthesizes `self`, members ref-bind into
-scope), and capture semantics mirror jit.cpp's emit rules.  pine_tpu's
-re-entry of lambdas under a jax trace (trace_flow: data-dependent control
-flow on traced values) and its hand-off of hot host loops to XLA (loop_jit)
-are not ported (ROADMAP.md, modules item 15): a script runs at the eager
-interpreter's speed, which suits scene scripts.
+scope), and capture semantics mirror jit.cpp's emit rules.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from pine_tpu_torch.prl import ast as A
-from pine_tpu_torch.prl import ops
+from pine_tpu_torch.prl import loop_jit, ops
 from pine_tpu_torch.prl.parser import PRLSyntaxError, parse  # noqa: F401 (re-exported)
-from pine_tpu_torch.prl.values import PrlMat, PrlVec, make_vec, to_float_vec
+from pine_tpu_torch.prl.values import (
+    PrlMat,
+    PrlVec,
+    as_tensor,
+    is_traced,
+    make_vec,
+    scalar_of,
+    to_float_vec,
+)
 
 
 class PRLRuntimeError(Exception):
@@ -114,7 +131,55 @@ class PrlFunction:
 
 
 class PrlLambda(PrlFunction):
-    """Lambda `(x: T): R {...}`, called eagerly."""
+    """Lambda `(x: T): R {...}`; also consumable by the bridges that run it
+    over lanes (the tensors they are given fix the device)."""
+
+    def as_vec3_to_f32(self):
+        """-> f(p (N,3) tensor) -> (N,) for SDF shapes."""
+
+        def fn(p):
+            return _lanes(self(PrlVec(p)), p, ())
+
+        return fn
+
+    def as_fragment(self):
+        """-> f(uv (N,2) tensor) -> (N,3) for draw()."""
+
+        def fn(uv):
+            return _lanes(self(PrlVec(uv)), uv, (3,))
+
+        return fn
+
+    def as_node_fn(self):
+        """-> f(ctx dict of (N,k) tensors) for texture Function nodes
+        (NodeEvalCtx members p, n, uv)."""
+
+        def fn(ctx):
+            r = self(NodeCtxValue(ctx))
+            return r.data if isinstance(r, (PrlVec, PrlMat)) else r
+
+        return fn
+
+
+def _lanes(r, like, tail):
+    """A lambda's result as a float32 tensor (N,) + ``tail`` over the lanes
+    of ``like``: a concrete value or a lane scalar broadcast."""
+    d = r.data if isinstance(r, PrlVec) else r
+    d = as_tensor(scalar_of(d), like, torch.float32)
+    n = like.shape[0]
+    if tail and d.ndim == 1 and d.shape[0] == n and not isinstance(r, PrlVec):
+        d = d[:, None]
+    return d.expand((n,) + tail)
+
+
+class NodeCtxValue:
+    """PRL view of NodeEvalCtx {p, n, uv} (node.h:13-19)."""
+
+    def __init__(self, ctx):
+        self.ctx = ctx
+
+    def member(self, name):
+        return PrlVec(self.ctx[name])
 
 
 class PrlClass:
@@ -288,7 +353,23 @@ class Interpreter:
         elif k is A.Block:
             self.exec_block(node, env)
         elif k is A.While:
-            while bool(self.eval(node.cond, env)):
+            # a loop may start concrete and become traced mid-flight (e.g.
+            # `t := 0.0; while t < 9 { t += sdf(...) }`): check per iteration
+            n_iter = 0
+            while True:
+                c = self.eval(node.cond, env)
+                if is_traced(c):
+                    from pine_tpu_torch.prl.trace_flow import trace_while
+
+                    trace_while(self, c, node.cond, node.body, None, env)
+                    break
+                if not bool(c):
+                    break
+                n_iter += 1
+                if n_iter == loop_jit.WHILE_HOT_ITERS:
+                    # hot host loop: hand the continuation to loop_jit
+                    if loop_jit.maybe_run_compiled_while(self, node, env):
+                        break
                 try:
                     self.exec_block(node.body, env)
                 except BreakEx:
@@ -296,9 +377,19 @@ class Interpreter:
                 except ContinueEx:
                     continue
         elif k is A.For:
+            if loop_jit.maybe_run_compiled_for(self, node, env):
+                return
             scope = Env(env)
             self.exec_elem(node.init, scope)
-            while bool(self.eval(node.cond, scope)):
+            while True:
+                c = self.eval(node.cond, scope)
+                if is_traced(c):
+                    from pine_tpu_torch.prl.trace_flow import trace_while
+
+                    trace_while(self, c, node.cond, node.body, node.inc, scope)
+                    break
+                if not bool(c):
+                    break
                 try:
                     self.exec_block(node.body, scope)
                 except BreakEx:
@@ -307,8 +398,17 @@ class Interpreter:
                     pass
                 self.eval(node.inc, scope)
         elif k is A.IfChain:
-            for cond, blk in zip(node.conds, node.blocks):
-                if bool(self.eval(cond, env)):
+            for i, (cond, blk) in enumerate(zip(node.conds, node.blocks)):
+                c = self.eval(cond, env)
+                if is_traced(c):
+                    from pine_tpu_torch.prl.trace_flow import trace_ifchain
+
+                    # earlier conds were concrete-false; lower the rest of the
+                    # chain (later conds may still be concrete: they broadcast)
+                    vals = [c] + [self.eval(cn, env) for cn in node.conds[i + 1:]]
+                    trace_ifchain(self, vals, node.blocks[i:], node.else_block, env)
+                    return
+                if bool(c):
                     self.exec_block(blk, env)
                     return
             if node.else_block is not None:
@@ -386,12 +486,12 @@ class Interpreter:
             return new
         if op == "&&":
             a = self.eval(node.a, env)
-            if not a:
+            if not is_traced(a) and not a:
                 return False
             return ops.binary("&&", a, self.eval(node.b, env))
         if op == "||":
             a = self.eval(node.a, env)
-            if a:
+            if not is_traced(a) and a:
                 return True
             return ops.binary("||", a, self.eval(node.b, env))
         return ops.binary(op, self.eval(node.a, env), self.eval(node.b, env))
@@ -443,7 +543,7 @@ class Interpreter:
     def member_get(self, base, name):
         if isinstance(base, (PrlVec, PrlMat)):
             return base.member(name)
-        if isinstance(base, PrlObject):
+        if isinstance(base, (PrlObject, NodeCtxValue)):
             return base.member(name)
         if hasattr(base, name):
             return getattr(base, name)

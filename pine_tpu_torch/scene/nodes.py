@@ -10,9 +10,9 @@ up at fract(p.xy), the glTF importer's base-color textures), ``Binary`` (+ -
 * / ^ of two nodes, which node arithmetic and the glTF importer's ``Texture *
 factor`` build), ``Unary`` (negation, square, square root, fract),
 ``Lerp``, ``Checkerboard``, the fbm noises ``Noisef`` and ``Noise3f``
-(core/noise.py), ``Component`` and ``ToVec3``.  Script functions as nodes
-(PRL ``Function``) are not ported yet (ROADMAP.md, modules item 15):
-``as_node`` refuses a callable.
+(core/noise.py), ``Component``, ``ToVec3`` and ``Function``, a callable of
+the ctx (PRL ``Function`` of a script lambda, run over the hits' lanes on
+their device; ``as_node`` makes one of any callable).
 """
 from __future__ import annotations
 
@@ -223,13 +223,25 @@ class Texture(Node):
         return img[y.long(), x.long()]
 
 
+class Function(Node):
+    """A callable f(ctx) -> value over the ctx's lanes (node.h NodeFunction;
+    in the reference a JIT-compiled PRL closure, here a script lambda's
+    bridge, interp.PrlLambda.as_node_fn)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def eval(self, ctx):
+        v = self.fn(ctx)
+        return v if isinstance(v, torch.Tensor) else torch.as_tensor(
+            np.asarray(v, np.float32), device=ctx["p"].device)
+
+
 def as_node(x):
     if isinstance(x, Node):
         return x
     if callable(x):
-        raise NotImplementedError(
-            "script-function material parameters are not ported yet (ROADMAP.md, modules "
-            "item 15)")
+        return Function(x)
     return Constant(x)
 
 

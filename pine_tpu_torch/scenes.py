@@ -608,3 +608,72 @@ def csg_fog_sdf(size=640):
     scene = csg_fog(size)
     scene.add(torus_shape(), M.Diffuse([0.85, 0.55, 0.2]))
     return scene
+
+
+# README's draw() example (the Shadertoy-derived "storm" fragment), as the
+# repository's golden test runs it, saving storm.png in the working directory
+STORM_PRL = """
+image_size = [640, 640];
+
+draw(image_size, (u: vec2): vec3 {
+    u *= image_size;
+    v = vec2(image_size);
+    u = 0.2 * (2 * u - v) / v.y;
+    w = u;
+
+   o = [1, 2, 3.0];
+   z = o;
+   a = 0.5;
+   t = 4.2;
+    for i in 0..19 {
+        a += 0.03;
+        t += 1;
+        t2 = vec2(t);
+        v = cos(t2 - 7 * u * pow(a, i)) - 5 * u;
+        m = mat2(cos(vec2(i + 0.02 * t) - vec2(0, 11)), cos(vec2(i + 0.02 * t) - vec2(33, 0)));
+        u = m * u;
+        u += tanh(40 * dot(u, u) * cos(100 * [u.y, u.x] + t2)) / 200
+           + 0.2 * a * u
+           + cos(4 / exp(dot(o, o) / 100) + t) / 300;
+
+        o += 0.4 * (vec3(1) + cos(z + vec3(t))) / length( (1 + i * length(v, v)) * sin(1.5 * u / (0.5 - dot(u, u)) - 9 * [u.y, u.x] + t2) );
+    }
+
+    w -= u;
+   return pow((25.6 / (min(o, vec3(13)) + 164 / o) - dot(w, w) / 250), 4);
+}).save("storm.png");
+"""
+
+
+def storm_prl(size=640, save="storm.png"):
+    """STORM_PRL on a ``size`` x ``size`` image, saved to ``save``."""
+    src = STORM_PRL
+    for old, new in (("image_size = [640, 640];", f"image_size = [{size}, {size}];"),
+                     ('.save("storm.png");', f".save({save!r});")):
+        assert old in src, old
+        src = src.replace(old, new)
+    return src
+
+
+# the torus of TORUS as a PRL SDF lambda: csg_fog_sdf's torus_sdf written in
+# the script, its box torus_shape's
+TORUS_SDF_PRL = """scene.add(SDF([0.35, 0.1, 0.35], [0.28, 0.08, 0.28], (p: vec3): f32 {
+    x := p.x - 0.35;
+    y := p.y - 0.1;
+    z := p.z - 0.35;
+    q := sqrt(x * x + z * z) - 0.2;
+    return sqrt(q * q + y * y) - 0.07;
+}), Diffuse([0.85, 0.55, 0.2]));
+"""
+_FOG_CAMERA = ("scene.set(ThinLenCamera(Film(image_size, Uncharted2()), [0, 1, -4], [0, 1, 0], "
+               "0.25));\n")
+CSG_FOG_SDF_PRL = CSG_FOG_PRL.replace(_FOG_CAMERA, _FOG_CAMERA + TORUS_SDF_PRL).replace(
+    '"csg_fog.png"', '"csg_fog_sdf.png"')
+assert TORUS_SDF_PRL in CSG_FOG_SDF_PRL
+
+
+def csg_fog_sdf_prl(size=640, spp=16, depth=5, integrator="PathIntegrator",
+                    save="csg_fog_sdf.png"):
+    """CSG_FOG_SDF_PRL cut as csg_fog_prl cuts CSG_FOG_PRL."""
+    src = csg_fog_prl(size, spp, depth, integrator, save)
+    return src.replace(_FOG_CAMERA, _FOG_CAMERA + TORUS_SDF_PRL)

@@ -23,7 +23,8 @@ pine_tpu.
   by pine_tpu) through the port's interpreter on the CPU, patched as
   tests/test_house.py patches them: RMSE < 0.025, that test's bound.
   Measured: 5.3e-5 (path) and 6.2e-5 (cached).
-- The refusals that remain name their ROADMAP.md item.
+- What earlier slices refused here (Function nodes, heightmap(size, fn),
+  the random walk) builds pine_tpu's values now.
 
 The GPU test renders the reduced house on the card and holds it to the CPU
 render by the port's render-parity rule; it skips without a card.
@@ -412,17 +413,21 @@ def test_cached_path_argument_checks():
 
 
 def test_remaining_refusals_name_their_item():
-    from pine_tpu_torch.prl.interp import Interpreter
+    """What this test once held refused (script functions as nodes,
+    heightmap(size, fn), the random walk) is ported: the same lines build
+    pine_tpu's values, and a Python callable is a Function node."""
+    import jax.numpy as jnp
+    from pine_tpu.scene import nodes as JN
+    from test_torch_lambdas import lines_agree, run_line, values_agree
 
-    for src, item in (('s := Scene(); s.add("skin", Diffuse(Function((p: vec3): vec3 '
-                       '{ return p; })));', "item 15"),
-                      ("m := heightmap([8, 8], (p: vec2): f32 { return p.x; });", "item 15"),
-                      ("s := Scene(); RandomWalkIntegrator(BlueSampler(4), 4).render(s);",
-                       "item 12")):
-        with pytest.raises(NotImplementedError, match=item):
-            Interpreter(device="cpu").run(src)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        PN.as_node(lambda ctx: 1.0)
+    lines_agree('s := Scene(); m := Diffuse(Function((c: NodeEvalCtx): vec3 { return c.p; }));'
+                ' s.add("skin", m); r := m.albedo;')
+    lines_agree("r := heightmap([8, 8], (p: vec2): f32 { return p.x; });")
+    p, j = run_line("s := Scene(); r := RandomWalkIntegrator(BlueSampler(4), 4);")
+    values_agree(p.get_var("r"), j.get_var("r"))
+    with pytest.raises(RuntimeError, match="camera"):  # a scene without a camera
+        p.get_var("r").render(p.get_var("s"), device="cpu")
+    values_agree(PN.as_node(lambda ctx: 1.0), JN.Function(lambda ctx: jnp.float32(1.0)))
 
 
 @pytest.mark.cuda

@@ -6,7 +6,8 @@
 - The snippets print the same lines through both interpreters; ``!=`` on
   vectors, where the two depart on purpose, is held to each side's result.
 - A builtin whose target is not ported raises NotImplementedError naming
-  its ROADMAP.md modules item; the garden slice's scene model (Subsurface,
+  its ROADMAP.md modules item; those of script lambdas and the random walk
+  build what pine_tpu's build; the garden slice's scene model (Subsurface,
   Line, SpotLight, Sky, the Sobol and Halton samplers) builds and compiles.
 - ``CBOX_PRL`` through the port's interpreter gives exactly the scene arrays
   of ``scenes.cbox``, and pine_tpu's interpreter the same tables, materials,
@@ -128,15 +129,18 @@ def test_errors_and_unported_builtins():
         parse("x := ;")
     with pytest.raises(PRLRuntimeError):
         Interpreter(device="cpu").run("println(nope);")
-    for src, item in (("SDF(AABB([0, 0, 0], [1, 1, 1]), (p: vec3): f32 { return 0.5; });",
-                       "item 15"),
-                      ("Function((p: vec3): vec3 { return p; });", "item 15"),
-                      ("heightmap([4, 4], (p: vec2): f32 { return p.x; });", "item 15"),
-                      ("RandomWalkIntegrator(UniformSampler(4), 4);", "item 12"),
-                      ("GuidedPathIntegrator(UniformSampler(4), 4);", "item 12"),
-                      ("draw([4, 4], (u: vec2): vec3 { return [u.x, u.y, 0.5]; });", "item 15")):
-        with pytest.raises(NotImplementedError, match=item):
-            Interpreter(device="cpu").run(src)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        Interpreter(device="cpu").run("GuidedPathIntegrator(UniformSampler(4), 4);")
+    # the lambdas' builtins and the random walk are ported: the same line in
+    # both packages builds the same value (tests/test_torch_lambdas.py)
+    from test_torch_lambdas import lines_agree
+
+    for src in ("r := SDF(AABB([0, 0, 0], [1, 1, 1]), (p: vec3): f32 { return 0.5; });",
+                "r := Function((c: NodeEvalCtx): vec3 { return c.p; });",
+                "r := heightmap([4, 4], (p: vec2): f32 { return p.x; });",
+                "r := RandomWalkIntegrator(UniformSampler(4), 4);",
+                "r := draw([4, 4], (u: vec2): vec3 { return [u.x, u.y, 0.5]; });"):
+        lines_agree(src)
     # the scene model of the garden slice builds: Subsurface, lines, a spot light, skies
     itp = Interpreter(device="cpu")
     itp.run('scene := Scene(); scene.add("skin", Subsurface([1, 1, 1], 0.0, 40.0));')

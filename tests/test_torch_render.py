@@ -466,7 +466,12 @@ def test_unported_features_are_refused():
     tri = S.Mesh(np.eye(3, dtype=np.float32), [[0, 1, 2]])
     groups = compile_with(tri, M.Diffuse([1, 1, 1])).unified["groups"]
     assert [(g["tid"], g["kind"]) for g in groups] == [(S.TRIANGLE, "dense")]
-    with pytest.raises(NotImplementedError, match="item 15"):  # script functions as nodes
-        M.Diffuse(lambda ctx: 1.0)
+    # script functions as nodes are ported: a callable is a Function node, as
+    # pine_tpu's Function of the same callable
+    from pine_tpu.scene import nodes as JN
+    from test_torch_lambdas import values_agree
+
+    values_agree(M.Diffuse(lambda ctx: ctx["p"][..., 0] * 0.5).albedo,
+                 JN.Function(lambda ctx: ctx["p"][..., 0] * 0.5))
     with pytest.raises(TypeError, match="Scene.set"):  # environment lights are ported now
         Scene().set(object())
