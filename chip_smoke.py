@@ -87,7 +87,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    interpreter on its device): a heightmap of an fbm lambda with a
    Function-node albedo, an SDF whose lambda runs a traced while and a
    traced if, the reduced box by RandomWalkIntegrator and by the path
-   integrator with denoise(scene).
+   integrator with denoise(scene); the guided slice's (``guided_parity``,
+   24x24, BlueSampler(4)): the reduced box with the tree and with the grid,
+   the CSG fog box, the 16^3 cloud and the explosion, each iteration run on
+   both devices from the CPU's guide (lockstep) and held by the rule, the
+   guide's entries that differ after it printed; the cloud also rendered
+   whole on each device at 8 spp, each training its own guide, held to the
+   means.
 4. The main paths at full width through ``Scene.compile`` and
    ``render_wavefront`` on the card: the benchmark Cornell box (420 cones;
    built from bench.py's script through the port's PRL interpreter, as
@@ -152,10 +158,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    bench_cloud's build_scene and render: 1920x1080, a 96^3 VDB, depth 4
    (CLOUD_DEPTH; bench_cloud's 6),
    CLOUD_SPP of bench_cloud's 256 samples, the cut printed), the CSG fog
-   box (CSG_FOG_PRL, 640x640, BlueSampler(16), depth 5) with and without an
-   SDF torus, and AOIntegrator(BlueSampler(16)) on the bench box at
-   640x640: the dense kernel held to dense_plain bit for bit on every launch
-   of a 1-spp render (entries ``dense_traverse.cloud.*``,
+   box (CSG_FOG_PRL, 640x640, BlueSampler(16), depth 5) and with an SDF
+   torus (depth 3 since the guided slice, FOG_SDF_DEPTH), and
+   AOIntegrator(BlueSampler(16)) on the bench box at 640x640: the dense
+   kernel held to dense_plain bit for bit on every launch of a 1-spp
+   render (entries ``dense_traverse.cloud.*``,
    ``dense_traverse.csg_fog.*``, ``dense_traverse.csg_fog_sdf.*``,
    ``dense_traverse.ao.*``; the cloud's and the fog box's 8 and 6 prims
    build no accel, so each prim type's table is a group of its own), and a
@@ -177,8 +184,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    traced fragments at 640x640, card against CPU bit for bit, their syncs
    per call (and the halving loop with a sync every iteration); the fog
    box with its torus as a PRL SDF lambda (CSG_FOG_SDF_PRL, 640x640,
-   BlueSampler(16), depth 5) as a main path, its image against phase
-   media's torch-function torus, and the host time inside the distance
+   BlueSampler(16), depth FOG_SDF_DEPTH) as a main path, its image against
+   phase media's torch-function torus, and the host time inside the distance
    function per march step, the lambda's and the torch function's (the
    ``sdf_lambda_host`` record); scenes/benchmark.pine in full with the
    interpreter on the host CPU (exact, the tier taken, wall, syncs),
@@ -188,7 +195,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (16), 4) + denoise(scene) on the bench box as main paths (kernel-line
    entries ``dense_traverse.{csg_fog_sdf_prl,randomwalk,denoise}.*``, the
    dense kernel held to dense_plain bit for bit on every launch of a 1-spp
-   render).
+   render).  The guided slice's paths (``phase_guided``):
+   GuidedPathIntegrator on the bench box with the tree and with the grid
+   (640x640, BlueSampler(16), depth 4), the CSG fog box (640x640,
+   GUIDED_FOG_SPP, depth 5) and the cloud (1920x1080, BlueSampler(4),
+   GUIDED_CLOUD_DEPTH), each as a main path (entries
+   ``dense_traverse.guided_*``), with a
+   ``guided`` record: each iteration's spp and seconds, the host's
+   refinement ms, the trees' sizes and depths, the peak device memory.
 5. The CLI: the benchmark box's script plus a render and a save, run as
    ``python -m pine_tpu_torch cbox.pine`` in a subprocess on the card; its
    image must equal phase 4's in-process render of the box (same sampler,
@@ -209,6 +223,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    card): 502498700 through the batched tier; ``--seq``'s timing, in
    process: the sequential tier's wall beside the eager interpreter's, the
    same output;
+   ``python -m pine_tpu_torch guided.pine`` (the box's script with
+   GuidedPathIntegrator(BlueSampler(16), 4)): its PNG equal to phase 4's
+   guided box on 97 % of the pixels;
    ``python -m pine_tpu_torch.lab.cone_probe``: seven records, ``full`` and ``inva``
    finite, ``inva`` with ``max_dev_vs_full``; ``python -m
    pine_tpu_torch.lab.kernel_lab``: a time for every workload, route and
@@ -276,6 +293,10 @@ GARDEN_GROUPS = [("dense", 0, 3), ("dense", 1, 1), ("dense", 7, 424), ("plain", 
 CLOUD_SPP, CLOUD_DEPTH, CLOUD_FULL_SPP = 4, 4, 256
 CLOUD_GROUPS = [("dense", 1, 6), ("dense", 4, 2)]
 FOG_SIZE, FOG_SPP, FOG_DEPTH = 640, 16, 5
+# the fog box with the torus (the torch function's and the PRL lambda's) at
+# depth 3 since the guided slice's paths came in, for the time (csg_fog
+# itself keeps the script's 5: phase 5 holds its CLI image to it)
+FOG_SDF_DEPTH = 3
 FOG_GROUPS = [("dense", 1, 6)]
 AO_SPP = 16
 
@@ -1248,6 +1269,7 @@ def phase_render_parity():
     garden_parity()
     media_parity()
     lambda_parity()
+    guided_parity()
 
 
 def media_parity():
@@ -1691,11 +1713,12 @@ def coherence_sort_record(cs, tag, kinds, render, n):
                 ms_sorted_each=sorted_each, ms_unsorted_each=unsorted_each)
 
 
-def profile_render(what, render):
+def profile_render(what, render, spp=2):
     """Where a render's device time goes: torch.profiler's trace of the
-    card's activity over one render, device time by kernel name summed from
-    the trace's raw events (key_averages would spend 0.2-0.45 ms of host
-    time on each launch), and the device's busy share of the host wall."""
+    card's activity over one render of ``spp`` samples, device time by
+    kernel name summed from the trace's raw events (key_averages would
+    spend 0.2-0.45 ms of host time on each launch), the device's busy share
+    of the host wall, and the launches a sample."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1715,10 +1738,11 @@ def profile_render(what, render):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     emit(dict(
         phase="profile", scene=what,
-        what="one 2-spp render of the main path under torch.profiler (the card's activity)",
+        what=f"one {spp}-spp render of the main path under torch.profiler (the card's activity)",
         wall_ms=wall * 1e3, device_busy_ms=busy_ms,
         device_busy_share=busy_ms / (wall * 1e3) if busy_ms else "not measured",
         launches=sum(n for _, n in by_name.values()),
+        launches_per_sample=sum(n for _, n in by_name.values()) / spp,
         **{f"{k}_ms": sum(ms for name, (ms, _) in by_name.items() if f"::{k}<" in name)
            for k in ("dense_kernel", "scdense_kernel", "grid_kernel", "grid_mxu_kernel",
                      "sctree_kernel", "bvh_kernel", "inst_kernel", "lattice_kernel",
@@ -1789,7 +1813,7 @@ def path_render(cs, scene, W, H, sampler, spp, depth, return_stats=False):
 def phase_main_path(dev_name, tag, what, scene, groups_want, heavy_want, kinds,
                     size=MAIN_SIZE, spp=MAIN_SPP, depth=MAIN_DEPTH, kernels=None, checked=None,
                     label=None, also=(), sampler="blue", render_fn=path_render, reps=1,
-                    forms=("closest", "any_hit")):
+                    forms=("closest", "any_hit"), profile_spp=2):
     """One main path at full width: compile on the card (routed under the
     forced-kernel settings ``kernels``), record the kernels' inputs (the
     recording render warms the path up), ``reps`` timed renders (launch
@@ -1802,8 +1826,9 @@ def phase_main_path(dev_name, tag, what, scene, groups_want, heavy_want, kinds,
     height), ``render_fn`` the integrator's render (``path_render``'s
     arguments); ``reps`` timed renders, after a warm-up where reps > 1 (the
     recording render warms the path up too); ``forms`` the kernel forms the
-    path launches (a path without shadow rays launches no any-hit).  ->
-    (entries, compiled scene)."""
+    path launches (a path without shadow rays launches no any-hit);
+    ``profile_spp`` the samples of the profiled render.  -> (entries,
+    compiled scene)."""
     import numpy as np
     import torch
 
@@ -1858,7 +1883,7 @@ def phase_main_path(dev_name, tag, what, scene, groups_want, heavy_want, kinds,
     scene.camera.film.set_rgb(torch.from_numpy(img))
     scene.camera.film.save(os.path.join(OUT_DIR, f"chip_smoke_{tag}.png"))
 
-    profile_render(tag, lambda: render(2))
+    profile_render(tag, lambda: render(profile_spp), profile_spp)
 
     entries = [kernel_line_entry(kind, form, recorded[(kind, any_hit)],
                                  launches[f"{kind}.{form}"], *((checked, label) if kind in kinds
@@ -1981,8 +2006,8 @@ def phase_media(dev_name):
     """The media slice's main paths at full width: the cloud (bench_cloud's
     build_scene and render: 1920x1080, 96^3, depth CLOUD_DEPTH, CLOUD_SPP of its 256
     samples), the CSG fog box and the fog box with the torus (CSG_FOG_PRL,
-    640x640, BlueSampler(16), depth 5), AO on the bench box (640x640,
-    BlueSampler(16)).  Each as phase_main_path: the dense kernel held to
+    640x640, BlueSampler(16), depth 5 and FOG_SDF_DEPTH), AO on the bench box
+    (640x640, BlueSampler(16)).  Each as phase_main_path: the dense kernel held to
     dense_plain bit for bit on every launch of a 1-spp render (kernel-line
     entries ``dense_traverse.<tag>.*``); the media_setup record times the
     plain routes.  -> kernel-line entries."""
@@ -2016,13 +2041,14 @@ def phase_media(dev_name):
     for tag, make in (("csg_fog", lambda: scenes.csg_fog(FOG_SIZE)),
                       ("csg_fog_sdf", lambda: scenes.csg_fog_sdf(FOG_SIZE))):
         scene = make()
+        depth = FOG_SDF_DEPTH if tag.endswith("sdf") else FOG_DEPTH
         e, cs = phase_main_path(
             dev_name, tag, "the CSG fog box from CSG_FOG_PRL" + (
                 ", + an SDF torus (Python API)" if tag.endswith("sdf") else ""),
-            scene, FOG_GROUPS, False, ["dense"], FOG_SIZE, FOG_SPP, FOG_DEPTH, label=tag, reps=1)
+            scene, FOG_GROUPS, False, ["dense"], FOG_SIZE, FOG_SPP, depth, label=tag, reps=1)
         entries += e
         routes = media_setup_record(tag, cs, lambda: path_render(
-            cs, scene, FOG_SIZE, FOG_SIZE, BlueSampler(FOG_SPP), 1, FOG_DEPTH))
+            cs, scene, FOG_SIZE, FOG_SIZE, BlueSampler(FOG_SPP), 1, depth))
         if not (routes.get("csg_walk") and routes.get("homogeneous_scatter")) or (
                 tag.endswith("sdf") and not routes.get("sdf_march")):
             fail(f"the {tag} render skipped a plain route: {sorted(routes)}")
@@ -2603,8 +2629,8 @@ def phase_lambdas(dev_name):
     The traced fragments at 640x640: card against CPU bit for bit, the
     masked loops' device-to-host syncs per call.  The lambda SDF cell
     (CSG_FOG_SDF_PRL: the fog box with the torus as a PRL SDF lambda,
-    640x640, BlueSampler(16), depth 5) as a main path, its image against
-    phase_media's csg_fog_sdf (the torch-function torus), and the host time
+    640x640, BlueSampler(16), depth FOG_SDF_DEPTH) as a main path, its image
+    against phase_media's csg_fog_sdf (the torch-function torus), and the host time
     spent in the lambda (walking its AST and issuing its launches) per
     march step beside the torch function's.  benchmark.pine in full:
     exact, the batched tier taken, wall and syncs with the interpreter on
@@ -2676,17 +2702,18 @@ def phase_lambdas(dev_name):
                              "<csg fog + lambda torus>")
     entries, cs = phase_main_path(
         dev_name, "csg_fog_sdf_prl", "the CSG fog box with the torus as a PRL SDF lambda "
-        "(CSG_FOG_SDF_PRL)", scene, FOG_GROUPS, False, ["dense"], FOG_SIZE, FOG_SPP, FOG_DEPTH,
-        label="csg_fog_sdf_prl", reps=1)
-    parity_record("lambda torus against the torch-function torus, 640x640x16spp, "
-                  "both on the card", MAIN_IMAGES["csg_fog_sdf_prl"], MAIN_IMAGES["csg_fog_sdf"])
+        "(CSG_FOG_SDF_PRL)", scene, FOG_GROUPS, False, ["dense"], FOG_SIZE, FOG_SPP,
+        FOG_SDF_DEPTH, label="csg_fog_sdf_prl", reps=1)
+    parity_record(f"lambda torus against the torch-function torus, 640x640x16spp, depth "
+                  f"{FOG_SDF_DEPTH}, both on the card", MAIN_IMAGES["csg_fog_sdf_prl"],
+                  MAIN_IMAGES["csg_fog_sdf"])
     from pine_tpu_torch.core.samplers import BlueSampler
 
     steps = {}
     for what, sc in (("lambda", scene), ("torch function", scenes.csg_fog_sdf(FOG_SIZE))):
         c2 = cs if sc is scene else sc.compile()
         calls, ms = host_ms_in_sdf(c2, lambda: path_render(
-            c2, sc, FOG_SIZE, FOG_SIZE, BlueSampler(FOG_SPP), 1, FOG_DEPTH))
+            c2, sc, FOG_SIZE, FOG_SIZE, BlueSampler(FOG_SPP), 1, FOG_SDF_DEPTH))
         steps[what] = dict(calls=calls, host_ms=ms, host_ms_per_call=ms / max(calls, 1))
     emit(dict(phase="sdf_lambda_host", per="one 1-spp render", distance_calls=steps,
               note="host time inside the distance function as the host issues it (no sync): "
@@ -2792,6 +2819,232 @@ def phase_lambda_cli():
     emit(rec)
     if not rec["same_output"]:
         fail(f"the sequential tier's output differs from the eager interpreter's: {outs}")
+
+# ---------------------------------------------------------------- guided ----
+
+# the guided slice's paths: the bench box with the tree and with the grid at
+# 640x640, BlueSampler(16) (iterations of 2, 4 and 10 spp), depth 4; the CSG
+# fog box at 640x640, depth 5, BlueSampler(GUIDED_FOG_SPP) (2 and 2: cut
+# from 16 for the time); the cloud at 1920x1080, BlueSampler(4) (2 and 2),
+# depth GUIDED_CLOUD_DEPTH (cut from 4 for the time).  The box with the
+# tree is profiled over 4 samples (2 and 2: the first trains the guide),
+# the others over a final iteration alone (GUIDED_PROFILE_SPP), for the time
+GUIDED_SPP, GUIDED_FOG_SPP, GUIDED_CLOUD_SPP, GUIDED_CLOUD_DEPTH = 16, 4, 4, 3
+GUIDED_PROFILE_SPP = {"guided_cbox": 4, "guided_cbox_grid": 2, "guided_csg_fog": 2,
+                      "guided_cloud": 1}
+# phase 3's guided renders, card against CPU: 24x24 lockstep at 4 spp
+# (iterations of 2 and 2; 32x32 at 8 cut for the CPU's time), the cloud's
+# free-running render at 8 (2, 4 and 2: two trainings)
+GUIDED_REDUCED = dict(size=24, spp=4, free_spp=8)
+# their "grid" structure's cells a side (the default 32 at full width): its
+# float64 sums cover the whole histogram, which the CPU side pays for
+GUIDED_GRID_RES = 16
+GUIDED_PRL = "GuidedPathIntegrator(BlueSampler(16), 4).render(scene);"
+
+
+def guided_render(struct, last):
+    """A main path's ``render_fn`` by render_guided with the structure
+    ``struct``; the timed render (return_stats) leaves its stats and its
+    peak device memory in ``last``."""
+    def render(cs, scene, W, H, sampler, spp, depth, return_stats=False):
+        import torch
+
+        from pine_tpu_torch.integrators.guidedpath import render_guided
+
+        if return_stats:
+            torch.cuda.reset_peak_memory_stats()
+        out = render_guided(cs, scene.camera, W, H, sampler, spp, depth, scene.get_aabb(),
+                            struct=struct, return_stats=return_stats)
+        if return_stats:
+            last.update(out[1], peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        return out
+    return render
+
+
+def arenas_differ(a, b):
+    """Per training iteration, the entries of each guide array (the
+    collector and counts as the iteration left them, the refined arenas; or
+    the histogram) that differ between two renders' ``arenas``."""
+    return [{k: int((x[k] != y[k]).sum()) if x[k].shape == y[k].shape
+             else f"shapes {x[k].shape} and {y[k].shape}" for k in x} for x, y in zip(a, b)]
+
+
+def guided_parity():
+    """Phase 3's guided renders, card against CPU (GUIDED_REDUCED: 24x24,
+    BlueSampler(4), iterations of 2 and 2 spp): the reduced box (36
+    cones, depth 4) with the tree and with the grid (GUIDED_GRID_RES cells a
+    side), the CSG fog box, the 16^3 cloud and the emissive explosion (depth
+    3, for the CPU's time).
+    In lockstep: each iteration on both devices from the same guide, the
+    CPU's (its tree refined on the host after the CPU's iteration, or its
+    histogram), each iteration's image held by render_parity's rule
+    (parity_record), beside the guide's entries that differ after it.
+    Then, for the cloud, the whole render on each device at
+    GUIDED_REDUCED["free_spp"], each training its own guide: its image,
+    traced rays and trees beside the CPU's, held to the means rule (1 %)
+    and finite.  The card's shading
+    is not the CPU's bit for bit (a CUDA division by a host scalar
+    multiplies by its reciprocal: the BSDFs' pdfs, the tracking's weight;
+    the dense kernel's t against its plain version on the CPU on a few
+    lanes a call), so a
+    quadrant whose flux a differing lane moves across the 1 % split
+    (guiding_tree.FLUX_SUBDIV) gives another tree, and every later sample
+    differs (the cloud's shadow rays' ratio tracking is keyed by the bits of
+    their origins)."""
+    import numpy as np
+
+    from pine_tpu_torch import scenes
+    from pine_tpu_torch.convert import guide_state
+    from pine_tpu_torch.core.samplers import BlueSampler
+    from pine_tpu_torch.integrators import guidedpath as G
+
+    size, spp = GUIDED_REDUCED["size"], GUIDED_REDUCED["spp"]
+    box = lambda: scenes.cbox((size, size), (-0.3, 0.1, 0.3), (0.5, 0.1, 1.0))  # noqa: E731
+    devs = ("cuda", "cpu")
+    for what, make, struct, depth, free_running in (
+            ("reduced cbox", box, "tree", 4, False), ("reduced cbox", box, "grid", 4, False),
+            ("CSG fog box", lambda: scenes.csg_fog(size), "tree", 3, False),
+            ("reduced cloud, 16^3", lambda: scenes.cloud((size, size), 16), "tree", 3, True),
+            ("reduced explosion, 16^3, emissive", lambda: scenes.explosion(size, 16), "tree", 3,
+             False)):
+        sc = make()
+        cs = {d: sc.compile(d) for d in devs}
+        setup = {d: G.new_guide(cs[d], sc.get_aabb(), size * size, struct, GUIDED_GRID_RES)
+                 for d in devs}
+        lanes = {d: G.film_lanes(size, size, cs[d].device) for d in devs}
+        gt, state = setup["cpu"][0], setup["cpu"][2]
+        state = gt.arrays() if gt is not None else {"hist": state["hist"].numpy()}
+        for it in G.iterative_scheme(spp):
+            out = {}
+            for d in devs:
+                I, _, gst, rays = G.run_iteration(
+                    cs[d], sc.camera.params(cs[d].device), *lanes[d], size, size,
+                    BlueSampler(spp), it, depth, setup[d][1], guide_state(state, d))
+                out[d] = (I.cpu().numpy().reshape(size, size, 3), int(rays),
+                          {k: gst[k].cpu().numpy() for k in ("dcoll", "scount", "hist")
+                           if k in gst})
+            (g, rg, ag), (c, rc, ac) = out["cuda"], out["cpu"]
+            parity_record(f"guided {struct}, lockstep: {what}", g, c,
+                          size=f"{size}x{size}, iteration {it['number']} ({it['spp']} spp), "
+                               f"depth {depth}", rays_cuda=rg, rays_cpu=rc,
+                          arenas_differ={k: int((ag[k] != ac[k]).sum()) for k in ac},
+                          arena_nonzero={k: int((ac[k] != 0).sum()) for k in ac})
+            if abs(rg - rc) > 0.005 * rc:
+                fail(f"guided {what}: the card's traced rays are not the CPU's ({rg}, {rc})")
+            if it["is_final"]:
+                continue
+            if gt is not None:
+                gt.absorb(ac["dcoll"], ac["scount"])
+                gt.refine(G.refine_threshold(size * size, it["spp"]))
+                state = gt.arrays()
+            else:
+                state = {"hist": ac["hist"]}
+        if not free_running:
+            continue
+        free, fspp = {}, GUIDED_REDUCED["free_spp"]
+        for d in devs:
+            img, st, _ = G._render_guided(cs[d], sc.camera, size, size, BlueSampler(fspp), fspp,
+                                          depth, sc.get_aabb(), GUIDED_GRID_RES, struct,
+                                          keep_arenas=True)
+            free[d] = (img.cpu().numpy(), st)
+        (g, gst), (c, cst) = free["cuda"], free["cpu"]
+        d = np.abs(g - c)
+        rec = dict(phase="guided_free_running", scene=what, struct=struct,
+                   size=f"{size}x{size}x{fspp}spp depth {depth}",
+                   pixels_agree=float(((d <= 1e-3 * np.abs(c)) | (d <= 1e-4)).all(-1).mean()),
+                   mean_cuda=float(g.mean()), mean_cpu=float(c.mean()),
+                   rays_cuda=gst["traced_rays"], rays_cpu=cst["traced_rays"],
+                   arenas_differ=arenas_differ(gst["arenas"], cst["arenas"]),
+                   tree_cuda=[(it.get("spatial_leaves"), it.get("quadtree_nodes"))
+                              for it in gst["iterations"][:-1]],
+                   tree_cpu=[(it.get("spatial_leaves"), it.get("quadtree_nodes"))
+                             for it in cst["iterations"][:-1]])
+        emit(rec)
+        if not (np.isfinite(g).all() and g.mean() > 0
+                and abs(g.mean() - c.mean()) <= 0.01 * abs(c.mean())):
+            fail(f"the card's guided render is not the CPU's by the means rule: {rec}")
+
+
+def phase_guided(dev_name, box):
+    """The guided slice's main paths at full width (GuidedPathIntegrator
+    through render_guided): the bench box from CBOX_PRL (``box``) with the
+    tree and with the grid at 640x640, GUIDED_SPP, depth MAIN_DEPTH, the CSG
+    fog box (CSG_FOG_PRL's scene) at 640x640, GUIDED_FOG_SPP, depth
+    FOG_DEPTH, and the cloud (scenes.cloud: 1920x1080, 96^3) at
+    GUIDED_CLOUD_SPP, depth GUIDED_CLOUD_DEPTH.
+    Each as phase_main_path (the dense kernel held to dense_plain bit for
+    bit on every launch of a 1-spp render; kernel-line entries
+    ``dense_traverse.<tag>.*``), its profile over GUIDED_PROFILE_SPP[tag]
+    samples;
+    then a ``guided`` record of the timed render: each iteration's spp and
+    seconds, the host ms of the readback, absorb, refinement, export and
+    upload, the spatial leaves, quadtree nodes and depths after it, and the
+    peak device memory.  -> kernel-line entries."""
+    import torch
+
+    from pine_tpu_torch import scenes
+    from pine_tpu_torch.integrators.guidedpath import iterative_scheme
+
+    entries = []
+    for tag, what, make, groups, struct, size, spp, depth in (
+            ("guided_cbox", "bench cbox from CBOX_PRL, GuidedPathIntegrator, tree", lambda: box,
+             BOX_GROUPS, "tree", MAIN_SIZE, GUIDED_SPP, MAIN_DEPTH),
+            ("guided_cbox_grid", "bench cbox from CBOX_PRL, GuidedPathIntegrator, grid",
+             lambda: box, BOX_GROUPS, "grid", MAIN_SIZE, GUIDED_SPP, MAIN_DEPTH),
+            ("guided_csg_fog", "the CSG fog box from CSG_FOG_PRL, GuidedPathIntegrator, tree",
+             lambda: scenes.csg_fog(FOG_SIZE), FOG_GROUPS, "tree", FOG_SIZE, GUIDED_FOG_SPP,
+             FOG_DEPTH),
+            ("guided_cloud", "bench_cloud's cloud (scenes.cloud, 96^3), GuidedPathIntegrator, "
+             "tree", scenes.cloud, CLOUD_GROUPS, "tree", scenes.CLOUD_SIZE, GUIDED_CLOUD_SPP,
+             GUIDED_CLOUD_DEPTH)):
+        last = {}
+        e, cs = phase_main_path(dev_name, tag, what, make(), groups, False, ["dense"], size, spp,
+                                depth, label=tag, render_fn=guided_render(struct, last),
+                                profile_spp=GUIDED_PROFILE_SPP[tag])
+        entries += e
+        its = last["iterations"]
+        rec = dict(phase="guided", scene=tag, struct=struct, spp=spp, depth=depth,
+                   seconds=last["seconds"], traced_rays=last["traced_rays"],
+                   peak_memory_gb=last["peak_memory_gb"], iterations=its,
+                   refine_host_ms=sum(it.get(f"{k}_ms", 0.0) for it in its
+                                      for k in ("readback", "absorb", "refine", "export",
+                                                "upload")))
+        emit(rec)
+        if [it["spp"] for it in its] != [x["spp"] for x in iterative_scheme(spp)] or (
+                struct == "tree" and not all(it.get("quadtree_nodes") for it in its[:-1])):
+            fail(f"the {tag} render's iterations are not the scheme's: {rec}")
+        del cs
+        torch.cuda.empty_cache()
+    return entries
+
+
+def phase_guided_cli():
+    """``python -m pine_tpu_torch guided.pine`` from build/chip_smoke/: the
+    benchmark box's script, GUIDED_PRL (GuidedPathIntegrator(BlueSampler(16),
+    4), its render) and a save; its PNG against phase 4's in-process guided
+    box (tree) on 97 % of the pixels."""
+    import numpy as np
+
+    from pine_tpu_torch import scenes
+
+    out = os.path.join(OUT_DIR, "cli_guided.png")
+    if os.path.exists(out):
+        os.remove(out)
+    with open(os.path.join(OUT_DIR, "guided.pine"), "w") as f:
+        f.write(scenes.CBOX_PRL + GUIDED_PRL + f"\nscene.camera.film().save('{out}');\n")
+    proc, wall, _ = run_module(["pine_tpu_torch", "guided.pine"], "the guided CLI run")
+    lines = proc.stdout.strip().splitlines()
+    got = read_png(out).astype(np.float32)
+    ref = read_png(os.path.join(OUT_DIR, "chip_smoke_guided_cbox.png")).astype(np.float32)
+    d = np.abs(got - ref)
+    rec = dict(phase="cli", command="python -m pine_tpu_torch guided.pine", wall_s=wall,
+               finished=lines[-1] if lines else "", mean=float(got.mean()),
+               pixels_agree=float(((d <= 1e-3 * np.abs(ref)) | (d <= 1e-4)).all(-1).mean()))
+    emit(rec)
+    if not rec["finished"].startswith("Finished in") or got.shape != ref.shape or (
+            rec["pixels_agree"] < 0.97) or not got.mean() > 0:
+        fail(f"the guided CLI image differs from the in-process render: {rec}")
+
 
 def main():
     try:
@@ -2929,6 +3182,8 @@ def main():
     elapsed("media", t_start)
     kernels += phase_lambdas(name)
     elapsed("lambdas", t_start)
+    kernels += phase_guided(name, box)
+    elapsed("guided", t_start)
     kernels += phase_lab(name, probe_recs)
     phase_cli()
     phase_bench(MAIN_RAYS["cbox"])
@@ -2937,6 +3192,7 @@ def main():
     elapsed("lab, CLIs and bench of slices 1-8", t_start)
     phase_media_cli()
     phase_lambda_cli()
+    phase_guided_cli()
     phase_lab_modules()
     emit(dict(phase="done", seconds=time.perf_counter() - t_start))
     emit({"kernels": kernels})

@@ -550,3 +550,27 @@ def type_group(tid, table):
     box = torch.tensor([-BIG] * 3 + [BIG] * 3, dtype=torch.float32, device=table.device)
     return dict(tid=tid, kind="dense", base=0, rows=table, gbox=box, lattice=None, nodes=None,
                 prim_aabbs=np.zeros((n, 6), np.float32))
+
+
+def guide_state(arrays, device=None):
+    """The guided integrator's guide state on ``device`` from host arrays:
+    a "tree" structure's arenas (integrators/guiding_tree.TREE_KEYS: int
+    ``schild``, ``sdroot``, ``dchild`` as int64, float32 ``dflux``,
+    ``dcoll``, ``scount``; the port's GuidingTree.arrays(), or pine_tpu's
+    GuidingTree's ``_arrays``) with both trees' depths (``sdepth``,
+    ``ddepth``: taken from the arrays when they are not given), or a "grid"
+    structure's ``hist`` (cells, 256) float32."""
+    from pine_tpu_torch.integrators.guiding_tree import TREE_KEYS, arena_depths
+
+    dev = resolve_device(device)
+    if "hist" in arrays:
+        return {"hist": torch.as_tensor(np.asarray(arrays["hist"], np.float32), device=dev)}
+    out = {k: torch.as_tensor(np.asarray(arrays[k]), device=dev) for k in TREE_KEYS}
+    for k in ("schild", "sdroot", "dchild"):
+        out[k] = out[k].long()
+    if "sdepth" in arrays:
+        out["sdepth"], out["ddepth"] = int(arrays["sdepth"]), int(arrays["ddepth"])
+    else:
+        out["sdepth"], out["ddepth"] = arena_depths(arrays["schild"], arrays["sdroot"],
+                                                    arrays["dchild"])
+    return out

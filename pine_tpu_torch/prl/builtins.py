@@ -40,8 +40,7 @@ from pine_tpu_torch.prl.values import (
 Pi = float(np.pi)
 
 # builtin -> the ROADMAP.md modules item that ports its target
-UNPORTED = dict.fromkeys(("GuidedPathIntegrator", "MltIntegrator", "RestirIntegrator",
-                          "MicroRenderGI"), 12)
+UNPORTED = dict.fromkeys(("MltIntegrator", "RestirIntegrator", "MicroRenderGI"), 12)
 
 
 def _data(x):
@@ -686,6 +685,13 @@ def make_registry(interp):
         from pine_tpu_torch.integrators.cachedpath import CachedPathIntegrator
 
         return CachedPathIntegrator(sampler, int(max_len), int(resolution), int(starting_depth))
+
+    @register("GuidedPathIntegrator")
+    def _guided(sampler, max_len, *rest):
+        # later arguments are taken and ignored, as pine_tpu does
+        from pine_tpu_torch.integrators.guidedpath import GuidedPathIntegrator
+
+        return GuidedPathIntegrator(sampler, int(max_len))
 
     @register("render")
     def _render(integrator, scene):

@@ -324,7 +324,7 @@ def test_heightmap_file_matches(tmp_path):
     ("r := SDF(AABB([0, 0, 0], [1, 1, 1]), (p: vec3): f32 { return length(p) - 0.5; });",
      None),
     ("RestirIntegrator(UniformSampler(4), 4);", "item 12"),
-    ("GuidedPathIntegrator(UniformSampler(4), 4);", "item 12"),
+    ("r := GuidedPathIntegrator(UniformSampler(4), 4);", None),
     ("r := RandomWalkIntegrator(UniformSampler(4), 4);", None),
     ("MltIntegrator(UniformSampler(4), 4);", "item 12"),
     ("r := draw([4, 4], (u: vec2): vec3 { return [u.x, u.y, 0.5]; });", None),
@@ -332,9 +332,9 @@ def test_heightmap_file_matches(tmp_path):
     ("r := heightmap([8, 8], (p: vec2): f32 { return p.x; });", None),
 ])
 def test_unported_builtins_name_their_item(src, item):
-    """The builtins still to port refuse naming their item; those this
-    slice's item 15 and item 12's random walk ported (item None) build what
-    pine_tpu's build from the same line."""
+    """The builtins still to port refuse naming their item; those ported
+    since (item 15, item 12's random walk and guided path tracing: item
+    None) build what pine_tpu's build from the same line."""
     from test_torch_lambdas import lines_agree
 
     from pine_tpu_torch.prl.interp import Interpreter

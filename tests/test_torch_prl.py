@@ -130,7 +130,7 @@ def test_errors_and_unported_builtins():
     with pytest.raises(PRLRuntimeError):
         Interpreter(device="cpu").run("println(nope);")
     with pytest.raises(NotImplementedError, match="item 12"):
-        Interpreter(device="cpu").run("GuidedPathIntegrator(UniformSampler(4), 4);")
+        Interpreter(device="cpu").run("MltIntegrator(UniformSampler(4), 4);")
     # the lambdas' builtins and the random walk are ported: the same line in
     # both packages builds the same value (tests/test_torch_lambdas.py)
     from test_torch_lambdas import lines_agree
