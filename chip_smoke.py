@@ -93,7 +93,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    both devices from the CPU's guide (lockstep) and held by the rule, the
    guide's entries that differ after it printed; the cloud also rendered
    whole on each device at 8 spp, each training its own guide, held to the
-   means.
+   means; the last slice's (``last_slice_parity``, LAST_REDUCED): ReSTIR at
+   32x32 and 4 spp on the reduced box, the fog box and the 16^3 cloud,
+   MicroRenderGI on the classic-style scene at 64x32 with 512 surfels, each
+   by the rule; MLT on the reduced box with 1,024 chains, one mutation step
+   from the CPU's chains on both devices (the mutated samples bit for bit,
+   the proposals' radiance lane by lane by the rule, the acceptances that
+   differ counted) and the whole render (32x32, 4 spp on average, depth 4)
+   on each device held to the means, the chain-steps decided otherwise
+   counted.
 4. The main paths at full width through ``Scene.compile`` and
    ``render_wavefront`` on the card: the benchmark Cornell box (420 cones;
    built from bench.py's script through the port's PRL interpreter, as
@@ -155,11 +163,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the ``garden_setup`` record, with the script's build and an Atmosphere's
    map built alone, apart from compile_s).  The media slice's paths
    (``phase_media``): bench_cloud.py's chromatic cloud (pine_tpu_torch.
-   bench_cloud's build_scene and render: 1920x1080, a 96^3 VDB, depth 4
+   bench_cloud's build_scene and render: 1920x1080, a 96^3 VDB, depth 3
    (CLOUD_DEPTH; bench_cloud's 6),
    CLOUD_SPP of bench_cloud's 256 samples, the cut printed), the CSG fog
    box (CSG_FOG_PRL, 640x640, BlueSampler(16), depth 5) and with an SDF
-   torus (depth 3 since the guided slice, FOG_SDF_DEPTH), and
+   torus (depth 2 since the last slice, FOG_SDF_DEPTH), and
    AOIntegrator(BlueSampler(16)) on the bench box at 640x640: the dense
    kernel held to dense_plain bit for bit on every launch of a 1-spp
    render (entries ``dense_traverse.cloud.*``,
@@ -198,11 +206,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    render).  The guided slice's paths (``phase_guided``):
    GuidedPathIntegrator on the bench box with the tree and with the grid
    (640x640, BlueSampler(16), depth 4), the CSG fog box (640x640,
-   GUIDED_FOG_SPP, depth 5) and the cloud (1920x1080, BlueSampler(4),
+   GUIDED_FOG_SPP, GUIDED_FOG_DEPTH) and the cloud (1920x1080, BlueSampler(4),
    GUIDED_CLOUD_DEPTH), each as a main path (entries
    ``dense_traverse.guided_*``), with a
    ``guided`` record: each iteration's spp and seconds, the host's
    refinement ms, the trees' sizes and depths, the peak device memory.
+   The last slice's paths (``phase_last_slice``): MltIntegrator(1, 4) on
+   the bench box (640x640: 24 bootstrap rounds and 100 steps of 4,096
+   chains, the depth-2 direct pass), RestirIntegrator(BlueSampler(16), 2)
+   on the box and on the CSG fog box (640x640), MicroRenderGI(2048) on the
+   classic-style scene (scenes.CLASSIC_MICRO_PRL, 720x360), each a main
+   path (entries ``dense_traverse.{mlt_cbox,restir_cbox,restir_csg_fog,
+   micro_classic}.*``: the dense kernel bit for bit its plain version on
+   every launch of the recording render), with a ``last_slice`` record:
+   peak device memory and, for MLT, its steps, the seconds of its
+   bootstrap, chains and direct pass, and a step's seconds alone (one step
+   profiled: its launches, the device's busy share).
 5. The CLI: the benchmark box's script plus a render and a save, run as
    ``python -m pine_tpu_torch cbox.pine`` in a subprocess on the card; its
    image must equal phase 4's in-process render of the box (same sampler,
@@ -225,7 +244,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    same output;
    ``python -m pine_tpu_torch guided.pine`` (the box's script with
    GuidedPathIntegrator(BlueSampler(16), 4)): its PNG equal to phase 4's
-   guided box on 97 % of the pixels;
+   guided box on 97 % of the pixels; ``python -m pine_tpu_torch
+   classic_micro.pine`` (CLASSIC_MICRO_PRL as written but for its save's
+   path): its PNG equal to phase 4's MicroRenderGI render on 97 % of the
+   pixels;
    ``python -m pine_tpu_torch.lab.cone_probe``: seven records, ``full`` and ``inva``
    finite, ``inva`` with ``max_dev_vs_full``; ``python -m
    pine_tpu_torch.lab.kernel_lab``: a time for every workload, route and
@@ -289,14 +311,16 @@ GARDEN_GROUPS = [("dense", 0, 3), ("dense", 1, 1), ("dense", 7, 424), ("plain", 
 # CSG fog box (CSG_FOG_PRL as written) with and without the torus, AO on the
 # bench box; scenes of 24 or fewer prims sweep each type's table on the dense
 # kernel (CompiledScene.type_groups)
-# depth 4 (bench_cloud's 6) since the lambda slice's paths came in
-CLOUD_SPP, CLOUD_DEPTH, CLOUD_FULL_SPP = 4, 4, 256
+# depth 4 (bench_cloud's 6) since the lambda slice's paths came in, 3 since
+# the last slice's
+CLOUD_SPP, CLOUD_DEPTH, CLOUD_FULL_SPP = 4, 3, 256
 CLOUD_GROUPS = [("dense", 1, 6), ("dense", 4, 2)]
 FOG_SIZE, FOG_SPP, FOG_DEPTH = 640, 16, 5
 # the fog box with the torus (the torch function's and the PRL lambda's) at
-# depth 3 since the guided slice's paths came in, for the time (csg_fog
-# itself keeps the script's 5: phase 5 holds its CLI image to it)
-FOG_SDF_DEPTH = 3
+# depth 3 since the guided slice's paths came in, 2 since the last slice's,
+# for the time (csg_fog itself keeps the script's 5: phase 5 holds its CLI
+# image to it)
+FOG_SDF_DEPTH = 2
 FOG_GROUPS = [("dense", 1, 6)]
 AO_SPP = 16
 
@@ -1270,6 +1294,7 @@ def phase_render_parity():
     media_parity()
     lambda_parity()
     guided_parity()
+    last_slice_parity()
 
 
 def media_parity():
@@ -1603,9 +1628,10 @@ def tree_work(kind, g, args, any_hit, out_k):
                              rows_read=n_rows, table_bytes_read=4 * table_words)
 
 
-def kernel_line_entry(kind, form, calls, launches, checked=None, label=None):
+def kernel_line_entry(kind, form, calls, launches, checked=None, label=None,
+                      over="one 1-spp render"):
     """Time one kernel form on the recorded main-path launches (every launch
-    of one 1-spp render); ``label`` names the path in the entry's name where
+    of ``over``: one 1-spp render); ``label`` names the path in the entry's name where
     another path's entries time the same kernel.  ms and bound_ms are means
     per launch and the work counts sums over the launches; ``by_group``
     holds each group's launches and its means of ms, bound_ms and
@@ -1676,7 +1702,7 @@ def kernel_line_entry(kind, form, calls, launches, checked=None, label=None):
         library_ms=sum(lib_each) / k if lib_each else None,
         inputs=" + ".join(groups)
         + f" x {calls[0][1][0].shape[0]} rays; means per launch over the {k} launches "
-          "of one 1-spp render, work counts summed over them; the plain version on "
+          f"of {over}, work counts summed over them; the plain version on "
           + (f"the first {len(plain_each)} of them" if len(plain_each) < k else "each"),
         ms_each=ms_each, lanes_differ=differ, lanes_differ_bits=bits,
         **{f"{key}_sum": v for key, v in sums.items()},
@@ -1813,7 +1839,7 @@ def path_render(cs, scene, W, H, sampler, spp, depth, return_stats=False):
 def phase_main_path(dev_name, tag, what, scene, groups_want, heavy_want, kinds,
                     size=MAIN_SIZE, spp=MAIN_SPP, depth=MAIN_DEPTH, kernels=None, checked=None,
                     label=None, also=(), sampler="blue", render_fn=path_render, reps=1,
-                    forms=("closest", "any_hit"), profile_spp=2):
+                    forms=("closest", "any_hit"), profile_spp=2, record=None):
     """One main path at full width: compile on the card (routed under the
     forced-kernel settings ``kernels``), record the kernels' inputs (the
     recording render warms the path up), ``reps`` timed renders (launch
@@ -1827,8 +1853,10 @@ def phase_main_path(dev_name, tag, what, scene, groups_want, heavy_want, kinds,
     arguments); ``reps`` timed renders, after a warm-up where reps > 1 (the
     recording render warms the path up too); ``forms`` the kernel forms the
     path launches (a path without shadow rays launches no any-hit);
-    ``profile_spp`` the samples of the profiled render.  -> (entries,
-    compiled scene)."""
+    ``profile_spp`` the samples of the profiled render (None: no profile);
+    ``record`` (cs, scene) -> (a function whose launches the kernel line
+    times, what it runs), by default a 1-spp render.  -> (entries, compiled
+    scene)."""
     import numpy as np
     import torch
 
@@ -1845,7 +1873,9 @@ def phase_main_path(dev_name, tag, what, scene, groups_want, heavy_want, kinds,
     sampler = SAMPLERS[sampler](spp)
     render = lambda s: render_fn(cs, scene, W, H, sampler, s, depth)  # noqa: E731
 
-    recorded, _ = record_launches(cs, [*kinds, *also], lambda: render(1))
+    recorded_run, over = ((lambda: render(1)), "one 1-spp render") if record is None else (
+        record(cs, scene))
+    recorded, _ = record_launches(cs, [*kinds, *also], recorded_run)
     torch.cuda.synchronize()
 
     if reps > 1:
@@ -1883,11 +1913,12 @@ def phase_main_path(dev_name, tag, what, scene, groups_want, heavy_want, kinds,
     scene.camera.film.set_rgb(torch.from_numpy(img))
     scene.camera.film.save(os.path.join(OUT_DIR, f"chip_smoke_{tag}.png"))
 
-    profile_render(tag, lambda: render(profile_spp), profile_spp)
+    if profile_spp is not None:
+        profile_render(tag, lambda: render(profile_spp), profile_spp)
 
     entries = [kernel_line_entry(kind, form, recorded[(kind, any_hit)],
                                  launches[f"{kind}.{form}"], *((checked, label) if kind in kinds
-                                                               else (None, tag)))
+                                                               else (None, tag)), over=over)
                for kind in (*kinds, *also)
                for form, any_hit in (("closest", False), ("any_hit", True)) if form in forms]
     if (cs.heavy_traversal or cs.inst_traversal) and not kernels:
@@ -2824,12 +2855,15 @@ def phase_lambda_cli():
 
 # the guided slice's paths: the bench box with the tree and with the grid at
 # 640x640, BlueSampler(16) (iterations of 2, 4 and 10 spp), depth 4; the CSG
-# fog box at 640x640, depth 5, BlueSampler(GUIDED_FOG_SPP) (2 and 2: cut
-# from 16 for the time); the cloud at 1920x1080, BlueSampler(4) (2 and 2),
-# depth GUIDED_CLOUD_DEPTH (cut from 4 for the time).  The box with the
+# fog box at 640x640, depth GUIDED_FOG_DEPTH (5, 3 since the last slice's
+# paths came in), BlueSampler(GUIDED_FOG_SPP) (2 and 2: cut from 16 for the
+# time); the cloud at 1920x1080, BlueSampler(4) (2 and 2), depth
+# GUIDED_CLOUD_DEPTH (cut from 4 to 3, and to 2 since the last slice's
+# paths came in, for the time).  The box with the
 # tree is profiled over 4 samples (2 and 2: the first trains the guide),
 # the others over a final iteration alone (GUIDED_PROFILE_SPP), for the time
-GUIDED_SPP, GUIDED_FOG_SPP, GUIDED_CLOUD_SPP, GUIDED_CLOUD_DEPTH = 16, 4, 4, 3
+GUIDED_SPP, GUIDED_FOG_SPP, GUIDED_CLOUD_SPP, GUIDED_CLOUD_DEPTH = 16, 4, 4, 2
+GUIDED_FOG_DEPTH = 3
 GUIDED_PROFILE_SPP = {"guided_cbox": 4, "guided_cbox_grid": 2, "guided_csg_fog": 2,
                       "guided_cloud": 1}
 # phase 3's guided renders, card against CPU: 24x24 lockstep at 4 spp
@@ -2970,7 +3004,7 @@ def phase_guided(dev_name, box):
     through render_guided): the bench box from CBOX_PRL (``box``) with the
     tree and with the grid at 640x640, GUIDED_SPP, depth MAIN_DEPTH, the CSG
     fog box (CSG_FOG_PRL's scene) at 640x640, GUIDED_FOG_SPP, depth
-    FOG_DEPTH, and the cloud (scenes.cloud: 1920x1080, 96^3) at
+    GUIDED_FOG_DEPTH, and the cloud (scenes.cloud: 1920x1080, 96^3) at
     GUIDED_CLOUD_SPP, depth GUIDED_CLOUD_DEPTH.
     Each as phase_main_path (the dense kernel held to dense_plain bit for
     bit on every launch of a 1-spp render; kernel-line entries
@@ -2993,7 +3027,7 @@ def phase_guided(dev_name, box):
              lambda: box, BOX_GROUPS, "grid", MAIN_SIZE, GUIDED_SPP, MAIN_DEPTH),
             ("guided_csg_fog", "the CSG fog box from CSG_FOG_PRL, GuidedPathIntegrator, tree",
              lambda: scenes.csg_fog(FOG_SIZE), FOG_GROUPS, "tree", FOG_SIZE, GUIDED_FOG_SPP,
-             FOG_DEPTH),
+             GUIDED_FOG_DEPTH),
             ("guided_cloud", "bench_cloud's cloud (scenes.cloud, 96^3), GuidedPathIntegrator, "
              "tree", scenes.cloud, CLOUD_GROUPS, "tree", scenes.CLOUD_SIZE, GUIDED_CLOUD_SPP,
              GUIDED_CLOUD_DEPTH)):
@@ -3044,6 +3078,279 @@ def phase_guided_cli():
     if not rec["finished"].startswith("Finished in") or got.shape != ref.shape or (
             rec["pixels_agree"] < 0.97) or not got.mean() > 0:
         fail(f"the guided CLI image differs from the in-process render: {rec}")
+
+
+# the last slice's paths at full width: MLT on the bench box at 1 spp on
+# average (100 mutation steps of 4,096 chains after 24 bootstrap rounds, a
+# user's 16 spp being 16 times the steps), depth 4; ReSTIR on the box and
+# the CSG fog box, BlueSampler(16) (its depth is kept and not used: direct
+# light only); MicroRenderGI on the classic-style scene, 720x360, 2,048
+# surfels, as classic.pine renders it
+MLT_SPP, MLT_DEPTH, MLT_CHAINS = 1, 4, 4096
+RESTIR_SPP, RESTIR_DEPTH = 16, 2
+MICRO_SIZE, MICRO_POINTS = (720, 360), 2048
+CLASSIC_GROUPS = [("dense", 0, 3), ("dense", 1, 1), ("dense", 2, 1)]
+# phase 3's: ReSTIR at 32x32 and 4 spp (16 cut for the time), MicroRenderGI
+# at 64x32 with 512 surfels, MLT on the reduced box with 1,024 chains (its
+# lockstep step; its whole render at 32x32, 4 spp on average, depth 4)
+LAST_REDUCED = dict(size=32, restir_spp=4, micro_size=(64, 32), micro_points=512, chains=1024,
+                    mlt_spp=4, mlt_depth=4)
+
+
+def last_slice_parity():
+    """Phase 3's renders of the last slice (MLT, ReSTIR, MicroRenderGI),
+    card against CPU (LAST_REDUCED): ReSTIR on the reduced box (36 cones),
+    the CSG fog box and the 16^3 cloud (the grid media's terms of the camera
+    segment), and MicroRenderGI on the classic-style scene, each by
+    render_parity's rule with the traced rays to 0.5 %.  MLT on the reduced
+    box in lockstep: one mutation step from the CPU's starting chains on both
+    devices, the mutated samples bit for bit, the proposals' radiance lane
+    by lane by the rule (a chain a pixel), the acceptances counted; then the
+    whole render on each device, held to the means (1 %), with the
+    chain-steps whose acceptance the card decided otherwise counted (a
+    chain whose radiance differs in the last bit can decide u < a the other
+    way, and from then on the two chains differ)."""
+    import numpy as np
+    import torch
+
+    from pine_tpu_torch import scenes
+    from pine_tpu_torch.core import rng
+    from pine_tpu_torch.core.samplers import BlueSampler
+    from pine_tpu_torch.integrators import mlt as PM
+    from pine_tpu_torch.integrators.micro_render import render_micro
+    from pine_tpu_torch.integrators.restir import render_restir
+
+    r = LAST_REDUCED
+    size, devs = r["size"], ("cuda", "cpu")
+    box = lambda: scenes.cbox((size, size), (-0.3, 0.1, 0.3), (0.5, 0.1, 1.0))  # noqa: E731
+
+    def held(what, out, **extra):
+        (g, rg), (c, rc) = out["cuda"], out["cpu"]
+        parity_record(what, g, c, rays_cuda=rg, rays_cpu=rc, **extra)
+        if abs(rg - rc) > 0.005 * rc:
+            fail(f"{what}: the card's traced rays are not the CPU's ({rg}, {rc})")
+
+    for what, make in (("reduced cbox", box), ("CSG fog box", lambda: scenes.csg_fog(size)),
+                       ("reduced cloud, 16^3", lambda: scenes.cloud((size, size), 16))):
+        sc, out = make(), {}
+        for d in devs:
+            img, st = render_restir(sc.compile(d), sc.camera, size, size,
+                                    BlueSampler(r["restir_spp"]), r["restir_spp"],
+                                    return_stats=True)
+            out[d] = (img.cpu().numpy(), st["traced_rays"])
+        held(f"ReSTIR: {what}", out, size=f"{size}x{size}x{r['restir_spp']}spp")
+    (W, H), pts = r["micro_size"], r["micro_points"]
+    sc, out = scenes.classic_micro((W, H)), {}
+    for d in devs:
+        img, st = render_micro(sc.compile(d), sc, sc.camera, W, H, pts, return_stats=True)
+        out[d] = (img.cpu().numpy(), st["traced_rays"])
+    held("MicroRenderGI: classic-style scene", out, size=f"{W}x{H}, {pts} surfels")
+
+    sc, C, depth = box(), r["chains"], r["mlt_depth"]
+    cs = {d: sc.compile(d) for d in devs}
+    D = PM.sample_dims(cs["cpu"], depth)
+    ids = torch.arange(C)
+    X = rng.uniform(ids[:, None], torch.arange(D)[None, :], 0xC0FFEE, 57)  # render_mlt's start
+    Lp, _, _ = PM.mlt_radiance(cs["cpu"], sc.camera.params(torch.device("cpu")), X, depth)
+    step = {}
+    for d in devs:
+        dev = torch.device(d)
+        cp = sc.camera.params(dev)
+        Xn, _ = PM.mutate(X.to(dev), ids.to(dev), 0)
+        Ln, _, rays = PM.mlt_radiance(cs[d], cp, Xn, depth)
+        acc = PM.mlt_step(cs[d], cp, X.to(dev), Lp.to(dev), ids.to(dev), 0, size, size, depth)[4]
+        step[d] = (Xn.cpu().numpy(), Ln.cpu().numpy(), acc.cpu().numpy(), int(rays))
+    (xg, lg, ag, rg), (xc, lc, ac, rc) = step["cuda"], step["cpu"]
+    parity_record("MLT lockstep: one mutation step from the CPU's chains, reduced cbox", lg, lc,
+                  size=f"{C} chains, depth {depth}", samples_bits_equal=bool(np.array_equal(xg, xc)),
+                  accept_differ=int((ag != ac).sum()), rays_cuda=rg, rays_cpu=rc)
+    if not np.array_equal(xg, xc) or abs(rg - rc) > 0.005 * rc:
+        fail("MLT lockstep: the card's mutation or traced rays are not the CPU's")
+    free = {}
+    for d in devs:
+        img, st = PM.render_mlt(cs[d], sc.camera, size, size, r["mlt_spp"], depth, C,
+                                return_stats=True)
+        free[d] = (img.cpu().numpy(), st)
+    (g, gst), (c, cst) = free["cuda"], free["cpu"]
+    a_g, a_c = gst["accepted"].cpu().numpy(), cst["accepted"].cpu().numpy()
+    d = np.abs(g - c)
+    rec = dict(phase="mlt_free_running", scene="reduced cbox",
+               size=f"{size}x{size}, {r['mlt_spp']} spp on average, {C} chains, depth {depth}",
+               steps=gst["steps"], boot_rounds=gst["boot_rounds"],
+               pixels_agree=float(((d <= 1e-3 * np.abs(c)) | (d <= 1e-4)).all(-1).mean()),
+               mean_cuda=float(g.mean()), mean_cpu=float(c.mean()),
+               chain_steps_accept_differ=int((a_g != a_c).sum()), chain_steps=int(a_c.size),
+               chains_diverged=int((a_g != a_c).any(0).sum()),
+               rays_cuda=gst["traced_rays"], rays_cpu=cst["traced_rays"])
+    emit(rec)
+    if not (np.isfinite(g).all() and g.mean() > 0
+            and abs(g.mean() - c.mean()) <= 0.01 * abs(c.mean())):
+        fail(f"the card's MLT render is not the CPU's by the means rule: {rec}")
+
+
+def last_slice_render(kind, last, points=MICRO_POINTS):
+    """A main path's ``render_fn`` (path_render's arguments) by render_mlt
+    ("mlt": ``spp`` on average), render_restir ("restir") or render_micro
+    ("micro": ``points`` surfels); the timed render (return_stats) leaves its
+    stats and its peak device memory in ``last``."""
+    def render(cs, scene, W, H, sampler, spp, depth, return_stats=False):
+        import torch
+
+        from pine_tpu_torch.integrators.micro_render import render_micro
+        from pine_tpu_torch.integrators.mlt import render_mlt
+        from pine_tpu_torch.integrators.restir import render_restir
+
+        if return_stats:
+            torch.cuda.reset_peak_memory_stats()
+        if kind == "mlt":
+            out = render_mlt(cs, scene.camera, W, H, spp, depth, MLT_CHAINS,
+                             return_stats=return_stats)
+        elif kind == "restir":
+            out = render_restir(cs, scene.camera, W, H, sampler, spp, return_stats=return_stats)
+        else:
+            out = render_micro(cs, scene, scene.camera, W, H, points, return_stats=return_stats)
+        if return_stats:
+            torch.cuda.synchronize()
+            last.update(out[1], peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        return out
+    return render
+
+
+def mlt_chains(cs, scene):
+    """(A function that steps render_mlt's chains on the full-width box,
+    MLT_CHAINS of them from their start, one step a call, and the chains'
+    state: X, L and the steps taken)."""
+    import torch
+
+    from pine_tpu_torch.core import rng
+    from pine_tpu_torch.integrators import mlt as PM
+
+    dev = cs.device
+    cp = scene.camera.params(dev)
+    ids = torch.arange(MLT_CHAINS, device=dev)
+    D = PM.sample_dims(cs, MLT_DEPTH)
+    X = rng.uniform(ids[:, None], torch.arange(D, device=dev)[None, :], 0xC0FFEE, 57)
+    state = {"X": X, "L": PM.mlt_radiance(cs, cp, X, MLT_DEPTH)[0], "steps": 0}
+    W, H = scene.camera.film.width, scene.camera.film.height
+
+    def step():
+        state["X"], state["L"] = PM.mlt_step(cs, cp, state["X"], state["L"], ids,
+                                             state["steps"], W, H, MLT_DEPTH)[:2]
+        state["steps"] += 1
+
+    return step, state
+
+
+def mlt_record(cs, scene):
+    """phase_main_path's ``record`` for MLT: the chains' start and their first
+    MLT_RECORD_STEPS steps (the full render's 125 chain evaluations would
+    take the kernel line's count of every launch past two minutes)."""
+    def run():
+        step, _ = mlt_chains(cs, scene)
+        for _ in range(MLT_RECORD_STEPS):
+            step()
+    return run, f"the MLT chains' start and first {MLT_RECORD_STEPS} steps"
+
+
+def mlt_step_profile(cs, scene):
+    """Profile one mutation step of MLT_CHAINS chains on the full-width box
+    (profile_render: its launches, the device's busy share) and time
+    MLT_STEP_REPS steps by the host's clock to a device synchronize."""
+    import torch
+
+    step, _ = mlt_chains(cs, scene)
+    profile_render("mlt_cbox, one mutation step", step, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MLT_STEP_REPS):
+        step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / MLT_STEP_REPS
+
+
+MLT_STEP_REPS = MLT_RECORD_STEPS = 10
+
+
+def phase_last_slice(dev_name, box):
+    """The last slice's main paths at full width: MltIntegrator(MLT_SPP,
+    MLT_DEPTH) on the bench box from CBOX_PRL (``box``), 640x640;
+    RestirIntegrator(BlueSampler(RESTIR_SPP), RESTIR_DEPTH) on the box and on
+    the CSG fog box (CSG_FOG_PRL's scene), 640x640; MicroRenderGI
+    (MICRO_POINTS) on the classic-style scene (scenes.CLASSIC_MICRO_PRL),
+    720x360.  Each as phase_main_path (the dense kernel held to dense_plain
+    bit for bit on every launch of its recording run: MLT's chains' start
+    and first MLT_RECORD_STEPS steps, ReSTIR's 1-spp render, MicroRenderGI's
+    render; kernel-line entries ``dense_traverse.<tag>.*``), profiled over
+    one render (ReSTIR's of 2 spp; MLT over one step, with MLT_STEP_REPS
+    steps timed); then a
+    ``last_slice`` record: the peak device memory, and for MLT its steps,
+    bootstrap rounds, seconds a step and the bootstrap's, chains' and
+    direct pass's seconds.  -> kernel-line entries."""
+    import torch
+
+    from pine_tpu_torch import scenes
+
+    entries = []
+    for tag, what, make, groups, size, spp, depth, kind in (
+            ("mlt_cbox", f"bench cbox from CBOX_PRL, MltIntegrator({MLT_SPP}, {MLT_DEPTH})",
+             lambda: box, BOX_GROUPS, MAIN_SIZE, MLT_SPP, MLT_DEPTH, "mlt"),
+            ("restir_cbox", f"bench cbox from CBOX_PRL, RestirIntegrator(BlueSampler("
+             f"{RESTIR_SPP}), {RESTIR_DEPTH})", lambda: box, BOX_GROUPS, MAIN_SIZE, RESTIR_SPP,
+             RESTIR_DEPTH, "restir"),
+            ("restir_csg_fog", "the CSG fog box from CSG_FOG_PRL, RestirIntegrator(BlueSampler("
+             f"{RESTIR_SPP}), {RESTIR_DEPTH})", lambda: scenes.csg_fog(FOG_SIZE), FOG_GROUPS,
+             FOG_SIZE, RESTIR_SPP, RESTIR_DEPTH, "restir"),
+            ("micro_classic", f"the classic-style scene from CLASSIC_MICRO_PRL, MicroRenderGI("
+             f"{MICRO_POINTS})", lambda: scenes.classic_micro(MICRO_SIZE), CLASSIC_GROUPS,
+             MICRO_SIZE, 1, 1, "micro")):
+        last = {}
+        scene = make()
+        e, cs = phase_main_path(dev_name, tag, what, scene, groups, False, ["dense"], size, spp,
+                                depth, label=tag, render_fn=last_slice_render(kind, last),
+                                profile_spp={"mlt": None, "restir": 2, "micro": 1}[kind],
+                                record=mlt_record if kind == "mlt" else None)
+        entries += e
+        rec = dict(phase="last_slice", scene=tag, peak_memory_gb=last["peak_memory_gb"],
+                   traced_rays=last["traced_rays"])
+        if kind == "mlt":
+            rec.update(steps=last["steps"], boot_rounds=last["boot_rounds"],
+                       seconds=last["seconds"],
+                       chains_s_per_step=last["seconds"]["chains"] / last["steps"],
+                       s_per_step_alone=mlt_step_profile(cs, scene))
+            if last["steps"] != MAIN_SIZE * MAIN_SIZE * MLT_SPP // MLT_CHAINS:
+                fail(f"the MLT render took {last['steps']} steps")
+        emit(rec)
+        del cs
+        torch.cuda.empty_cache()
+    return entries
+
+
+def phase_last_slice_cli():
+    """``python -m pine_tpu_torch classic_micro.pine`` from build/chip_smoke/:
+    CLASSIC_MICRO_PRL as written but for its save's path; its PNG against
+    phase 4's in-process render on 97 % of the pixels."""
+    import numpy as np
+
+    from pine_tpu_torch import scenes
+
+    out = os.path.join(OUT_DIR, "cli_classic_micro.png")
+    if os.path.exists(out):
+        os.remove(out)
+    src = scenes.CLASSIC_MICRO_PRL.replace('"classic_micro.png"', repr(out))
+    with open(os.path.join(OUT_DIR, "classic_micro.pine"), "w") as f:
+        f.write(src)
+    proc, wall, _ = run_module(["pine_tpu_torch", "classic_micro.pine"], "the MicroRenderGI CLI run")
+    lines = proc.stdout.strip().splitlines()
+    got = read_png(out).astype(np.float32)
+    ref = read_png(os.path.join(OUT_DIR, "chip_smoke_micro_classic.png")).astype(np.float32)
+    d = np.abs(got - ref)
+    rec = dict(phase="cli", command="python -m pine_tpu_torch classic_micro.pine", wall_s=wall,
+               finished=lines[-1] if lines else "", mean=float(got.mean()),
+               pixels_agree=float(((d <= 1e-3 * np.abs(ref)) | (d <= 1e-4)).all(-1).mean()))
+    emit(rec)
+    if not rec["finished"].startswith("Finished in") or got.shape != ref.shape or (
+            rec["pixels_agree"] < 0.97) or not got.mean() > 0:
+        fail(f"the MicroRenderGI CLI image differs from the in-process render: {rec}")
 
 
 def main():
@@ -3184,6 +3491,8 @@ def main():
     elapsed("lambdas", t_start)
     kernels += phase_guided(name, box)
     elapsed("guided", t_start)
+    kernels += phase_last_slice(name, box)
+    elapsed("MLT, ReSTIR and MicroRenderGI", t_start)
     kernels += phase_lab(name, probe_recs)
     phase_cli()
     phase_bench(MAIN_RAYS["cbox"])
@@ -3193,6 +3502,7 @@ def main():
     phase_media_cli()
     phase_lambda_cli()
     phase_guided_cli()
+    phase_last_slice_cli()
     phase_lab_modules()
     emit(dict(phase="done", seconds=time.perf_counter() - t_start))
     emit({"kernels": kernels})

@@ -489,22 +489,52 @@ def _medium_nee(cscene, p_m, rd, lanes, masks, xs, ys, sampler, sample_index, di
 
 
 def segment_medium_terms(cscene, ro, rd, seg_tmax, active, xs, ys, sampler, sample_index, dim,
-                         scatter_mask=None):
-    """The homogeneous media's terms of one path segment -> (tr (N,3), sc
-    (N,3)): tr the segment's transmittance on the ``active`` lanes (1
-    elsewhere), sc the equiangular single scatter (``_medium_scatter``,
-    dims dim+10..+21) on ``scatter_mask`` (default ``active``) without the
-    caller's throughput.  The cached integrator's segments take these; its
-    grid media make medium vertices of their own (``grid_vertices``)."""
+                         scatter_mask=None, include_grid=False):
+    """The media's terms of one path segment -> (tr (N,3), sc (N,3)): tr the
+    segment's transmittance on the ``active`` lanes (1 elsewhere), sc the
+    in-segment scatter on ``scatter_mask`` (default ``active``) without the
+    caller's throughput.  The homogeneous media give their closed-form
+    transmittance and the equiangular single scatter (``_medium_scatter``,
+    dims dim+10..+21).  With ``include_grid``, the grid media are ratio
+    tracked into tr and add a delta-tracked single scatter (NEE at dims
+    dim+22..+24, weight 1 against the phase function by MIS, and the
+    one-bounce phase continuation, dims dim+25..+31) and their emission
+    along the walk, keyed by (pixel, sample, 9200 + dim), plus the medium's
+    index; a lane scatters in at most one of them.  Multiple scattering in
+    the medium is truncated, as pine_tpu's.  The cached integrator's
+    segments take the homogeneous terms alone (its grid media make medium
+    vertices of their own, ``grid_vertices``); ReSTIR's camera segment
+    takes both."""
     n = ro.shape[0]
     ones = torch.ones(n, 3, device=ro.device)
-    if not cscene.media:
+    gm = cscene.grid_media if include_grid else []
+    if not cscene.media and not gm:
         return ones, torch.zeros_like(ones)
-    tr = torch.where(active[:, None], cscene.transmittance(ro, rd, seg_tmax, grid=False), 1.0)
+    smask = active if scatter_mask is None else scatter_mask
+    tr = torch.where(active[:, None], cscene.transmittance(ro, rd, seg_tmax, grid=bool(gm)), 1.0)
     sc = torch.zeros_like(ones)
-    if cscene.lights:
-        sc = _medium_scatter(cscene, ro, rd, seg_tmax, ones, active if scatter_mask is None
-                             else scatter_mask, xs, ys, sampler, sample_index, dim)
+    if cscene.media and cscene.lights:
+        sc = _medium_scatter(cscene, ro, rd, seg_tmax, ones, smask, xs, ys, sampler,
+                             sample_index, dim)
+    if not gm:
+        return tr, sc
+    key = rng.hash_combine(xs, ys, sample_index, 9200 + dim)
+    taken = torch.zeros(n, dtype=torch.bool, device=ro.device)
+    for gi, med in enumerate(gm):
+        gate = smask & ~taken
+        # lanes outside the gate do not walk: their results would be masked
+        sc_m, ts_m, w_m, _abs, le_m = MT.grid_sample_scatter(
+            med, ro, rd, torch.where(gate, seg_tmax, -1.0), (key + gi) & 0xFFFFFFFF)
+        sc_m = sc_m & gate
+        if med.emissive:  # extinction rides tr: the absorbed lanes go on
+            sc = sc + torch.where(gate[:, None], le_m, 0.0)
+        p_m = ro + ts_m[:, None] * rd
+        if cscene.lights:
+            sc = sc + w_m * _medium_nee(cscene, p_m, rd, sc_m, [(sc_m, med.pf)], xs, ys, sampler,
+                                        sample_index, dim + 22)
+        sc = sc + torch.where(sc_m[:, None], w_m * _phase_continuation_gather(
+            cscene, p_m, rd, med.pf, sc_m, xs, ys, sampler, sample_index, dim + 10), 0.0)
+        taken = taken | sc_m
     return tr, sc
 
 

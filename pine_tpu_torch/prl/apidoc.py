@@ -3,7 +3,7 @@ registry.  Counterpart of pine_tpu/prl/apidoc.py: the analogue of the
 reference's hand-maintained API.pine (API.pine:1-131), kept truthful by
 construction: every entry is introspected from the callables
 `make_registry` actually registers, so the doc can never drift from the
-language.  A builtin that is not ported yet says so (its ROADMAP.md item).
+language.
 
 Run:  python -m pine_tpu_torch.prl.apidoc [> API.md]
 """
@@ -125,10 +125,6 @@ def _sig(fn):
 
 
 def _one_liner(name, fn):
-    from pine_tpu_torch.prl.builtins import UNPORTED
-
-    if name in UNPORTED:
-        return f"not ported yet (ROADMAP.md, modules item {UNPORTED[name]})"
     doc = inspect.getdoc(fn)
     if not doc:
         return ""

@@ -3,8 +3,8 @@ src/pine/core/program_context.cpp:23-125 and the per-module *_context
 registrations; names per SURVEY.md Appendix A).
 
 Each name maps to one Python callable that dispatches on argument types and
-arity.  Every name pine_tpu registers is registered here, and all but the
-integrators of ``UNPORTED`` run: the Scene and its ``add``/``set``/``load``
+arity.  Every name pine_tpu registers is registered here, and all of them
+run: the Scene and its ``add``/``set``/``load``
 (GLB files) and ``get_aabb``, the analytic shapes, lines, ``SDF`` (its
 distance a script lambda), ``Mesh(file)``, ``heightmap(file)`` and
 ``heightmap(size, fn)``, the materials, the texture and procedural nodes
@@ -12,10 +12,10 @@ distance a script lambda), ``Mesh(file)``, ``heightmap(file)`` and
 ``load_image`` and ``draw``, the lights and environment lights,
 ThinLenCamera, Film and its tone mappers, the samplers, the math, vector,
 matrix and transform builtins (over traced lanes too), CSG by the operators
-+, * and - on shapes, the phase functions and media, the path, cached,
-random-walk, AO and volume integrators, ``denoise``, and ``render``,
-``save`` and ``println``.  The others raise NotImplementedError naming
-their ROADMAP.md modules item when called.  ``render``, ``draw``,
++, * and - on shapes, the phase functions and media, every integrator
+(path, cached, guided, random-walk, AO, volume, MLT, ReSTIR and
+MicroRenderGI), ``denoise``, and ``render``, ``save`` and ``println``.
+``render``, ``draw``,
 ``heightmap(size, fn)`` and ``denoise`` run on the device the interpreter
 was given (the card unless it was given the CPU).
 """
@@ -39,9 +39,6 @@ from pine_tpu_torch.prl.values import (
 
 Pi = float(np.pi)
 
-# builtin -> the ROADMAP.md modules item that ports its target
-UNPORTED = dict.fromkeys(("MltIntegrator", "RestirIntegrator", "MicroRenderGI"), 12)
-
 
 def _data(x):
     return x.data if isinstance(x, (PrlVec, PrlMat)) else x
@@ -53,13 +50,6 @@ def _isvec(x):
 
 def _f32(x):
     return np.asarray(_data(to_float_vec(x)), np.float32)
-
-
-def _unported(name, item):
-    def fn(*args):
-        _refuse(f"`{name}`", item)
-
-    return fn
 
 
 class Array2dValue:
@@ -122,7 +112,7 @@ def make_registry(interp):
     from pine_tpu_torch.scene import shapes as S
     from pine_tpu_torch.scene.scene import Scene
 
-    reg = {name: _unported(name, item) for name, item in UNPORTED.items()}
+    reg = {}
 
     def _device():
         from pine_tpu_torch.core.place import resolve_device
@@ -693,6 +683,27 @@ def make_registry(interp):
 
         return GuidedPathIntegrator(sampler, int(max_len))
 
+    @register("MltIntegrator")
+    def _mlt(avg_spp, max_len):
+        # MltIntegrator(spp: int, max_path_length) (program_context.cpp:103-106):
+        # no sampler argument
+        from pine_tpu_torch.integrators.mlt import MltIntegrator
+
+        return MltIntegrator(int(avg_spp), int(max_len))
+
+    @register("RestirIntegrator")
+    def _restir(sampler, max_len):
+        from pine_tpu_torch.integrators.restir import RestirIntegrator
+
+        return RestirIntegrator(sampler, int(max_len))
+
+    @register("MicroRenderGI")
+    def _micro(point_count=2048, *rest):
+        # later arguments are taken and ignored, as pine_tpu does
+        from pine_tpu_torch.integrators.micro_render import MicroRenderIntegrator
+
+        return MicroRenderIntegrator(int(point_count))
+
     @register("render")
     def _render(integrator, scene):
         return integrator.render(scene, device=interp.device)
@@ -773,7 +784,3 @@ def make_registry(interp):
                 f(PrlVec(np.asarray([x, y], np.int32), True))
 
     return reg
-
-
-def _refuse(what, item):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md, modules item {item})")

@@ -245,6 +245,13 @@ def as_node(x):
     return Constant(x)
 
 
+def constant_value(node):
+    """The value of a constant node, or the array a value node was made of."""
+    if isinstance(node, Constant):
+        return node.value
+    return np.asarray(node, np.float32)
+
+
 def eval_scalar_node(node, ctx, n_lanes):
     """A float node's value for each of ``n_lanes`` lanes -> (N,)."""
     v = as_node(node).eval(ctx).to(torch.float32)

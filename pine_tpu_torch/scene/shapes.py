@@ -68,6 +68,11 @@ class Shape:
     def get_aabb(self):
         raise NotImplementedError
 
+    def area(self) -> float:
+        """Surface area, pine_tpu's formula in its dtypes (the surfel draw of
+        MicroRenderGI picks shapes by it); 0 for shapes it gives none."""
+        return 0.0
+
     # CSG operator sugar (geometry.cpp:935-937): +, *, - build CSG shapes
     def __add__(self, other):
         from pine_tpu_torch.scene.csg import CSGUnion
@@ -99,6 +104,9 @@ class Sphere(Shape):
 
     def get_aabb(self):
         return self.c - self.r, self.c + self.r
+
+    def area(self):
+        return float(4 * np.pi * self.r**2)
 
 
 class Rect(Shape):
@@ -132,6 +140,9 @@ class Rect(Shape):
         ])
         return vs.min(0), vs.max(0)
 
+    def area(self):
+        return self.lx * self.ly
+
 
 class Disk(Shape):
     """params: [position(3), n(3), u(3), v(3), r]."""
@@ -150,6 +161,9 @@ class Disk(Shape):
     def get_aabb(self):
         return self.position - self.r, self.position + self.r
 
+    def area(self):
+        return float(np.pi * self.r**2)
+
 
 class Plane(Shape):
     """params: [position(3), n(3), u(3), v(3)]."""
@@ -167,6 +181,9 @@ class Plane(Shape):
     def get_aabb(self):
         return self.position - 100.0, self.position + 100.0
 
+    def area(self):
+        return float(np.finfo(np.float32).max)
+
 
 class BoxAABB(Shape):
     """params: [lower(3), upper(3)]."""
@@ -182,6 +199,10 @@ class BoxAABB(Shape):
 
     def get_aabb(self):
         return self.lower, self.upper
+
+    def area(self):
+        d = self.upper - self.lower
+        return float(2 * (d[0] * d[1] + d[0] * d[2] + d[1] * d[2]))
 
 
 class BoxOBB(Shape):
@@ -211,6 +232,9 @@ class BoxOBB(Shape):
         tc = corners @ self.m[:3, :3].T + self.m[:3, 3]
         return tc.min(0), tc.max(0)
 
+    def area(self):
+        return self.base.area()  # pine_tpu's: the untransformed box's
+
 
 class Triangle(Shape):
     """params: [v0(3), v1(3), v2(3), n(3)]."""
@@ -231,6 +255,9 @@ class Triangle(Shape):
     def get_aabb(self):
         vs = np.stack([self.v0, self.v1, self.v2])
         return vs.min(0), vs.max(0)
+
+    def area(self):
+        return float(np.linalg.norm(np.cross(self.v1 - self.v0, self.v2 - self.v0)) / 2)
 
 
 class Cone(Shape):
@@ -257,6 +284,9 @@ class Cone(Shape):
         up = np.maximum(self.base_p + self.r, self.apex + self.r)
         return lo, up
 
+    def area(self):
+        return float(np.pi * self.r * np.sqrt(self.r**2 + self.h**2))
+
 
 class Cylinder(Shape):
     """params: [p0(3), p1(3), n(3), r]."""
@@ -273,6 +303,9 @@ class Cylinder(Shape):
 
     def get_aabb(self):
         return np.minimum(self.p0, self.p1) - self.r, np.maximum(self.p0, self.p1) + self.r
+
+    def area(self):
+        return float(2 * np.pi * self.r * np.linalg.norm(self.p1 - self.p0))
 
 
 class Line(Shape):
@@ -297,6 +330,9 @@ class Line(Shape):
     def get_aabb(self):
         return (np.minimum(self.p0, self.p1) - self.thickness,
                 np.maximum(self.p0, self.p1) + self.thickness)
+
+    def area(self):
+        return float(2 * np.pi * self.thickness * self.len)
 
 
 class SDFShape(Shape):
@@ -378,6 +414,9 @@ class Mesh(Shape):
 
     def area(self):
         return mesh_area(self.triangles())
+
+    def triangle_areas(self):
+        return triangle_areas(self.triangles())
 
 
 class InstancedShape:

@@ -25,7 +25,8 @@ bit.
 (``cone_forest_prl``): 40 x 40 = 1,600 cones of half the size over the same
 extent, one lattice group of more than 512 prims, so it takes the lattice
 traversal.  ``prl_scene`` runs such a script through the port's PRL
-interpreter and returns its ``scene``.
+interpreter and returns its ``scene``.  ``cbox_prl`` gives CBOX_PRL with a
+render line of a caller's integrator and a save.
 
 ``GARDEN_PRL`` is an outdoor scene that runs the rest of the scene model: a
 640x640 film under an ``Atmosphere`` with ``SobolSampler(16)``, depth 5;
@@ -60,6 +61,14 @@ working directory.  ``csg_fog_prl`` gives it cut as a caller asks,
 ``csg_fog`` builds its scene, and ``csg_fog_sdf`` adds a torus
 (``SDFShape`` with ``torus_sdf``, a torch distance function) through the
 Python API.
+
+``CLASSIC_MICRO_PRL`` is the classic-style scene of the repository's
+tests/test_integrators.py as a script at the reference's classic.pine size,
+720x360, rendered by ``MicroRenderGI(1024 * 2)`` as classic.pine is: a disk
+floor, an Uber sphere, a Subsurface sphere whose surface albedo is black, an
+orange Uber sphere and one emissive rect.  It saves ``classic_micro.png`` in
+the working directory; ``classic_micro_prl`` cuts it, ``classic_micro``
+builds its scene.
 
 ``house`` is the repository's ``scenes/house.pine``: ``assets/house.glb``
 (ten mesh primitives, 4,020 triangles in one triangle group, textured and
@@ -141,6 +150,15 @@ def cone_forest_prl(forest_x=FOREST_X, forest_z=FOREST_Z, size=640):
 
 
 CONE_FOREST_PRL = cone_forest_prl()
+
+
+def cbox_prl(integrator, save=None, size=640):
+    """CBOX_PRL on a film ``size`` pixels square, rendered by ``integrator`` (a
+    PRL integrator expression, e.g. "MltIntegrator(1, 4)") and saved to
+    ``save`` (None: not saved)."""
+    src = CBOX_PRL.replace("image_size := [640, 640];", f"image_size := [{size}, {size}];")
+    src += f"{integrator}.render(scene);\n"
+    return src if save is None else src + f"scene.camera.film().save({save!r});\n"
 
 
 def prl_scene(src, name="<script>", device=None):
@@ -562,11 +580,16 @@ scene.camera.film().save("csg_fog.png");
 
 def csg_fog_prl(size=640, spp=16, depth=5, integrator="PathIntegrator", save="csg_fog.png"):
     """CSG_FOG_PRL on a film ``size`` pixels square, rendered by
-    ``integrator`` (a PRL name taking (sampler, depth), or None for no
-    render) with BlueSampler(``spp``) at ``depth``, saved to ``save`` (None:
-    not saved)."""
-    render = ("" if integrator is None
-              else f"{integrator}(BlueSampler({spp}), {depth}).render(scene);")
+    ``integrator`` (a PRL name taking (sampler, depth), then with
+    BlueSampler(``spp``) at ``depth``; or a whole integrator expression,
+    e.g. "RestirIntegrator(BlueSampler(16), 2)"; or None for no render),
+    saved to ``save`` (None: not saved)."""
+    if integrator is None:
+        render = ""
+    elif "(" in integrator:
+        render = f"{integrator}.render(scene);"
+    else:
+        render = f"{integrator}(BlueSampler({spp}), {depth}).render(scene);"
     save_line = "" if save is None else f"scene.camera.film().save({save!r});"
     src = CSG_FOG_PRL
     for old, new in (("image_size := [640, 640];", f"image_size := [{size}, {size}];"),
@@ -677,3 +700,39 @@ def csg_fog_sdf_prl(size=640, spp=16, depth=5, integrator="PathIntegrator",
     """CSG_FOG_SDF_PRL cut as csg_fog_prl cuts CSG_FOG_PRL."""
     src = csg_fog_prl(size, spp, depth, integrator, save)
     return src.replace(_FOG_CAMERA, _FOG_CAMERA + TORUS_SDF_PRL)
+
+
+CLASSIC_MICRO_PRL = """
+scene := Scene();
+image_size := [720, 360];
+
+scene.add(Disk([0, 0, 0], [0, 1, 0], 50), Diffuse([0.8, 0.8, 0.8]));
+scene.add(Sphere([-2.2, 1, 0], 1), Uber([1.0, 1.0, 1.0], 0.0, 1.0));
+scene.add(Sphere([0, 1, 0], 1), Subsurface([0, 0, 0], 0, [1, 0.8, 0.6]));
+scene.add(Sphere([2.2, 1, 0], 1), Uber([0.98, 0.55, 0.02], 0.0, 0.0));
+scene.add(Rect([-1, 3, -1], [1, 0, 0], [0, 0, 1]), Emissive([160, 160, 160]));
+scene.set(ThinLenCamera(Film(image_size), [0, 4, -8], [0, 1, 0], 0.3));
+
+MicroRenderGI(1024 * 2).render(scene);
+scene.camera.film().save("classic_micro.png");
+"""
+
+
+def classic_micro_prl(size=(720, 360), points="1024 * 2", save="classic_micro.png"):
+    """CLASSIC_MICRO_PRL on a film of ``size`` (width, height), rendered by
+    MicroRenderGI(``points``) (None: no render), saved to ``save`` (None: not
+    saved)."""
+    src = CLASSIC_MICRO_PRL
+    for old, new in (("image_size := [720, 360];", f"image_size := [{size[0]}, {size[1]}];"),
+                     ("MicroRenderGI(1024 * 2).render(scene);",
+                      "" if points is None else f"MicroRenderGI({points}).render(scene);"),
+                     ('scene.camera.film().save("classic_micro.png");',
+                      "" if save is None else f"scene.camera.film().save({save!r});")):
+        src = src.replace(old, new)
+    return src
+
+
+def classic_micro(size=(720, 360)):
+    """The classic-style scene on a film of ``size``, built (not rendered)
+    through the port's interpreter."""
+    return prl_scene(classic_micro_prl(size, None, None), "<classic micro>")

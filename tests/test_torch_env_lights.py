@@ -27,8 +27,9 @@
    (closest hit and any-hit; the same rows in the same SAH order).
 5. ``heightmap(file)`` through both PRL interpreters: the mesh arrays of a
    PNG the test writes.
-6. The builtins still to port refuse with their ROADMAP.md item; the ones
-   ported since (script lambdas, the random walk) build pine_tpu's values.
+6. The builtins earlier slices refused (script lambdas, the random walk,
+   the guided, MLT and ReSTIR integrators, MicroRenderGI) build pine_tpu's
+   values from the same line.
 """
 from __future__ import annotations
 
@@ -323,24 +324,21 @@ def test_heightmap_file_matches(tmp_path):
 @pytest.mark.parametrize("src, item", [
     ("r := SDF(AABB([0, 0, 0], [1, 1, 1]), (p: vec3): f32 { return length(p) - 0.5; });",
      None),
-    ("RestirIntegrator(UniformSampler(4), 4);", "item 12"),
+    ("r := RestirIntegrator(UniformSampler(4), 4);", None),
     ("r := GuidedPathIntegrator(UniformSampler(4), 4);", None),
     ("r := RandomWalkIntegrator(UniformSampler(4), 4);", None),
-    ("MltIntegrator(UniformSampler(4), 4);", "item 12"),
+    ("r := MltIntegrator(4, 4);", None),
+    ("r := MicroRenderGI(512);", None),
     ("r := draw([4, 4], (u: vec2): vec3 { return [u.x, u.y, 0.5]; });", None),
     ("m := Diffuse(Function((c: NodeEvalCtx): vec3 { return c.p; })); r := m.albedo;", None),
     ("r := heightmap([8, 8], (p: vec2): f32 { return p.x; });", None),
 ])
 def test_unported_builtins_name_their_item(src, item):
-    """The builtins still to port refuse naming their item; those ported
-    since (item 15, item 12's random walk and guided path tracing: item
-    None) build what pine_tpu's build from the same line."""
+    """The builtins that earlier slices refused (items 12 and 15) build what
+    pine_tpu's build from the same line: no builtin is refused any more
+    (``item`` None on every row; the CLI's refusal of item 13 is
+    tests/test_torch_prl.py's)."""
     from test_torch_lambdas import lines_agree
 
-    from pine_tpu_torch.prl.interp import Interpreter
-
-    if item is None:
-        lines_agree(src)
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        Interpreter(device="cpu").run(src)
+    assert item is None
+    lines_agree(src)
