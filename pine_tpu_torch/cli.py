@@ -1,5 +1,6 @@
-"""CLI entry: ``python -m pine_tpu_torch <file.pine> [--platform cpu|gpu]``
-(parity: src/cli/pine.cpp, and pine_tpu/cli.py).
+"""CLI entry: ``python -m pine_tpu_torch <file.pine> [--platform cpu|gpu]
+[--progressive N] [--progressive-dir D] [--interactive]`` (parity:
+src/cli/pine.cpp, and pine_tpu/cli.py, whose flags and messages these are).
 
 The script renders on the card unless ``--platform cpu`` asks for the CPU;
 without a card and without that flag the CLI exits with status 1 and
@@ -13,16 +14,24 @@ from __future__ import annotations
 import os
 import sys
 
-USAGE = """usage: python -m pine_tpu_torch <file.pine> [--platform P]
+USAGE = """usage: python -m pine_tpu_torch <file.pine> [--platform P] [--progressive N]
+            [--progressive-dir D] [--interactive]
 
---platform P   where the script renders: gpu (the default, the CUDA card) or
-               cpu (the plain PyTorch versions of the kernels)
-
-pine_tpu's --progressive, --progressive-dir and --interactive are not ported
-yet (ROADMAP.md, modules item 13)."""
+--platform P         where the script renders: gpu (the default, the CUDA
+                     card) or cpu (the plain PyTorch versions of the kernels)
+--progressive N      snapshot the film every N samples per pixel (the analog
+                     of the reference's accumulating viewer,
+                     path_opengl.cpp:11-127); each snapshot is read back from
+                     the card and written as its batch finishes
+--progressive-dir D  snapshot directory (default: progressive/)
+--interactive        after the script's first render, open a terminal
+                     fly-camera loop (WASD move, E/C up/down, IJKL look,
+                     [ ] spp, p screenshot, q quit) rendering the compiled
+                     scene at each new camera on the card; frames go to
+                     interactive/latest.png beside a self-refreshing
+                     index.html (path_opengl.cpp:104-117)"""
 
 PLATFORMS = {"gpu": None, "cpu": "cpu"}
-NOT_PORTED = ("--progressive", "--progressive-dir", "--interactive")
 
 
 def main(argv=None):
@@ -39,9 +48,21 @@ def main(argv=None):
                 return 1
             options.device = PLATFORMS[argv[i + 1]]
             i += 2
-        elif a in NOT_PORTED:
-            print(f"error: {a} is not ported yet (ROADMAP.md, modules item 13)")
-            return 1
+        elif a == "--interactive":
+            options.interactive = True
+            i += 1
+        elif a == "--progressive":
+            if i + 1 >= len(argv) or not argv[i + 1].isdigit() or int(argv[i + 1]) < 1:
+                print("error: --progressive requires a positive integer")
+                return 1
+            options.progressive_every = int(argv[i + 1])
+            i += 2
+        elif a == "--progressive-dir":
+            if i + 1 >= len(argv):
+                print("error: --progressive-dir requires a path")
+                return 1
+            options.progressive_dir = argv[i + 1]
+            i += 2
         else:
             args.append(a)
             i += 1

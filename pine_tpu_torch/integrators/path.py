@@ -85,16 +85,80 @@ class PathIntegrator:
         self.max_path_length = int(max_path_length)
 
     def render(self, scene, device=None):
-        """Render ``scene`` into its camera's film on ``device`` (default: the card)."""
+        """Render ``scene`` into its camera's film on ``device`` (default: the card).
+
+        With ``options.progressive_every`` set below the sampler's spp, the
+        samples run in batches of that many, and the running mean is written
+        to ``options.progressive_dir`` after each batch (``render_progressive``).
+        With ``options.interactive`` set, the fly-cam loop (interactive.py)
+        starts from the finished frame."""
+        from pine_tpu_torch.core import options
+
         cam = scene.camera
         if cam is None:
             raise RuntimeError("scene has no camera")
         cscene = scene.compile(device)
         film = cam.film
-        img = render_wavefront(cscene, cam, film.width, film.height, self.sampler,
-                               self.sampler.spp, self.max_path_length)
-        film.set_rgb(img)
+        spp = self.sampler.spp
+        every = options.progressive_every
+        if not every or every >= spp:
+            film.set_rgb(render_wavefront(cscene, cam, film.width, film.height, self.sampler,
+                                          spp, self.max_path_length))
+        else:
+            render_progressive(cscene, cam, self.sampler, self.max_path_length, every,
+                               options.progressive_dir)
+        if options.interactive:
+            from pine_tpu_torch.interactive import run_loop
+
+            run_loop(self, scene, cscene)
         return film
+
+
+def render_progressive(cscene, cam, sampler, max_depth, every, out_dir):
+    """Render in batches of ``every`` samples (the last one smaller), the
+    running mean set on the film after each batch and saved as
+    ``snap_<spp>spp.png`` and ``latest.png`` in ``out_dir`` beside a viewer
+    page (``index.html``, which reloads latest.png).  All of it runs on the
+    scene's device; a snapshot's save is the one readback.  pine_tpu's
+    progressive branch (path_opengl.cpp:11-127's accumulating viewer): the
+    same batches, sample offsets and running mean."""
+    import os
+
+    from pine_tpu_torch.io.term_preview import preview_enabled, print_frame
+
+    film = cam.film
+    W, H, spp = film.width, film.height, sampler.spp
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "index.html"), "w") as f:
+        f.write(VIEWER_HTML)
+    acc = None
+    done = 0
+    while done < spp:
+        b = min(every, spp - done)
+        img = render_wavefront(cscene, cam, W, H, sampler, b, max_depth, sample_offset=done)
+        acc = img if acc is None else (acc * done + img * b) / (done + b)
+        done += b
+        film.set_rgb(acc)
+        film.save(os.path.join(out_dir, f"snap_{done:05d}spp.png"))
+        film.save(os.path.join(out_dir, "latest.png"))
+        if preview_enabled(True):
+            print(f"[progressive] {done}/{spp} spp")
+            print_frame(film.finalized())
+    return film
+
+
+VIEWER_HTML = """<!doctype html>
+<title>pine-tpu progressive render</title>
+<body style="margin:0;background:#111;display:grid;place-items:center;height:100vh">
+<img id=v style="image-rendering:pixelated;max-width:96vw;max-height:96vh">
+<script>
+const img = document.getElementById('v');
+function tick(){ img.src = 'latest.png?' + Date.now(); }
+img.onerror = () => setTimeout(tick, 500);
+img.onload = () => setTimeout(tick, 500);
+tick();
+</script>
+"""
 
 
 def tile_order(W, H, tile=TILE):
@@ -114,29 +178,40 @@ def render_wavefront(cscene, cam, W, H, sampler, spp, max_depth, nee=True, chunk
     tile-major pixel order; core/progress gets the share done after each.  With return_stats=True also returns
     {"traced_rays": n}: extension rays of lanes alive at each depth plus the
     NEE shadow rays actually cast."""
+    perm = tile_order(W, H)
+    flat, total = sample_sums(cscene, cam, W, H, sampler, range(sample_offset, sample_offset + spp),
+                              max_depth, perm, nee, chunk)
+    img = (flat / spp)[torch.as_tensor(np.argsort(perm), device=cscene.device)].reshape(H, W, 3)
+    if return_stats:
+        return img, {"traced_rays": int(total)}
+    return img
+
+
+def sample_sums(cscene, cam, W, H, sampler, samples, max_depth, pixels, nee=True, chunk=None):
+    """The radiance of samples ``samples`` (a range of sample indices) summed
+    per pixel, for the flat pixel indices ``pixels`` (numpy, in lane order),
+    in chunks of ``chunk`` lanes -> ((len(pixels), 3) sums in that order,
+    traced rays as a 0-d tensor), on the scene's device.  render_wavefront's
+    loop, which the sharded renders (parallel/distributed.py) run on a share
+    of the samples or of the pixels."""
     dev = cscene.device
     cp = cam.params(dev) if cam is not None else cscene.camera
-    n = W * H
+    n = len(pixels)
     chunk = min(n, DEFAULT_CHUNK) if chunk is None else int(chunk)
-    perm = tile_order(W, H)
-    ys_all, xs_all = np.divmod(perm, W)
+    ys_all, xs_all = np.divmod(pixels, W)
     flat = torch.empty(n, 3, device=dev)
     total = torch.zeros((), dtype=torch.int64, device=dev)
     for c0 in range(0, n, chunk):
         xs = torch.as_tensor(xs_all[c0:c0 + chunk], device=dev)
         ys = torch.as_tensor(ys_all[c0:c0 + chunk], device=dev)
         acc = torch.zeros(xs.shape[0], 3, device=dev)
-        for i in range(spp):
-            L, r = path_trace_sample(cscene, cp, xs, ys, W, H, sampler,
-                                     sample_offset + i, max_depth, nee)
+        for i in samples:
+            L, r = path_trace_sample(cscene, cp, xs, ys, W, H, sampler, i, max_depth, nee)
             acc = acc + L
             total = total + r
-        flat[c0:c0 + chunk] = acc / spp
+        flat[c0:c0 + chunk] = acc
         progress.set_progress(min(c0 + chunk, n) / n)
-    img = flat[torch.as_tensor(np.argsort(perm), device=dev)].reshape(H, W, 3)
-    if return_stats:
-        return img, {"traced_rays": int(total)}
-    return img
+    return flat, total
 
 
 def sample_one_light(cscene, p_s, u_sel, u_light):

@@ -53,7 +53,9 @@ a lazy instanced group (and no heavy group) may take the origin-major key,
 whose fine origin cells bin bounce rays by the instance they start on; it is
 off unless ``CompiledScene.origin_sort`` is set, because on the H100 it cost
 more device time than it saved (PERF.md, PR 3).  The sort is a pure
-permutation: per-lane results do not change.
+permutation: per-lane results do not change.  ``CompiledScene.sort_dirbits``
+is pine_tpu's PINE_SORT_DIRBITS: the octant key's direction bins, 3 (the
+octants, the default) or, above 3, octahedral bins.
 
 Signed-distance shapes and CSG trees take no prim row: the compiled scene
 keeps each in a list of its own, marches every SDF in plain PyTorch
@@ -105,18 +107,38 @@ def _morton(ro, world_lo, world_span, cells):
     return _spread10(q[:, 0]) | (_spread10(q[:, 1]) << 1) | (_spread10(q[:, 2]) << 2)
 
 
-def _ray_sort_perm(ro, rd, tmin, tmax, world_lo, world_span, mode="octant"):
-    """Wavefront coherence sort, pine_tpu's: key (dead, direction octant,
+def _ray_sort_perm(ro, rd, tmin, tmax, world_lo, world_span, mode="octant", dirbits=3):
+    """Wavefront coherence sort, pine_tpu's: key (dead, direction bin,
     32^3 origin morton) in the octant mode, (dead, 128^3 origin morton,
     direction octant) in the origin mode; stable argsort.  ``world_lo`` is a
-    (3,) tensor on the rays' device.  -> (perm, inv_perm)."""
-    dbin = (rd[:, 0] < 0).to(torch.int32) + 2 * (rd[:, 1] < 0).to(torch.int32) \
-        + 4 * (rd[:, 2] < 0).to(torch.int32)
+    (3,) tensor on the rays' device.  ``dirbits`` (the octant mode's;
+    pine_tpu's PINE_SORT_DIRBITS): 3 or less bins directions by octant,
+    more by the octahedral map, k = min(dirbits // 2, 7) bits an axis (15
+    morton bits, 2k direction bits and the dead bit stay below the int32
+    sign bit).  -> (perm, inv_perm)."""
     dead = (tmax <= tmin).to(torch.int32)
+    if mode == "origin" or dirbits <= 3:
+        dbin = (rd[:, 0] < 0).to(torch.int32) + 2 * (rd[:, 1] < 0).to(torch.int32) \
+            + 4 * (rd[:, 2] < 0).to(torch.int32)
+        dirbits = 3
+    else:
+        # octahedral bins: finer than the octants, so a warp's direction cone
+        # (and the footprint its culls see) shrinks
+        k = min(dirbits // 2, 7)
+        s = rd[:, 0].abs() + rd[:, 1].abs() + rd[:, 2].abs()
+        px, py = rd[:, 0] / s, rd[:, 1] / s
+        neg = rd[:, 2] < 0
+        fx = torch.where(neg, (1 - py.abs()) * torch.sign(px), px)
+        fy = torch.where(neg, (1 - px.abs()) * torch.sign(py), py)
+        hi = (1 << k) - 1
+        qx = torch.clamp(((fx + 1) * 0.5 * (hi + 1)).to(torch.int32), 0, hi)
+        qy = torch.clamp(((fy + 1) * 0.5 * (hi + 1)).to(torch.int32), 0, hi)
+        dbin = qx | (qy << k)
+        dirbits = 2 * k
     if mode == "origin":
         key = dbin | (_morton(ro, world_lo, world_span, 128) << 3) | (dead << 24)
     else:
-        key = _morton(ro, world_lo, world_span, 32) | (dbin << 15) | (dead << 18)
+        key = _morton(ro, world_lo, world_span, 32) | (dbin << 15) | (dead << (15 + dirbits))
     perm = torch.argsort(key, stable=True)
     inv = torch.empty_like(perm)
     inv[perm] = torch.arange(perm.shape[0], device=perm.device)
@@ -271,6 +293,7 @@ class CompiledScene:
         self._kernels = tuple(kernels)  # (small_kernel, mesh_kernel, inst_kernel), as routed
         self.inst_traversal = unified is not None and bool(unified.get("inst_groups"))
         self.origin_sort = False  # the origin-major sort for instanced scenes (module docstring)
+        self.sort_dirbits = 3  # the octant key's direction bins (_ray_sort_perm's dirbits)
         self.world_lo = torch.zeros(3, device=device) if world_lo is None else world_lo
         self.world_span = float(world_span)
 
@@ -331,7 +354,7 @@ class CompiledScene:
         if mode is None:
             return None
         return _ray_sort_perm(ro, rd, torch.zeros_like(ro[:, 0]), torch.where(dead, -1.0, 1.0),
-                              self.world_lo, self.world_span, mode)
+                              self.world_lo, self.world_span, mode, self.sort_dirbits)
 
     def intersect(self, ro, rd, tmin, tmax, sort_perm=None):
         """Closest hit -> (t, gidx, hit, mesh_tri); t = BIG on a miss and

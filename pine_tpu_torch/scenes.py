@@ -214,6 +214,31 @@ def cbox(size=(640, 640), cones_x=CONES_X, cones_z=CONES_Z):
     return scene
 
 
+def small_cbox(res=64):
+    """A small Cornell box through the Scene API: the benchmark box without
+    its cones, glossy and subsurface materials, at a ``res`` x ``res`` film.
+    The port's copy of the repository's ``__graft_entry__._build_cbox``
+    (the multi-chip dry run's scene, ``parallel.distributed.dryrun_multichip``)."""
+    scene = Scene()
+    scene.add("floor", M.Diffuse([0.9, 0.9, 0.9]))
+    scene.add("red", M.Diffuse([0.9, 0.1, 0.05]))
+    scene.add("green", M.Diffuse([0.2, 0.9, 0.05]))
+    scene.add("metal", M.Metal([1.0, 1.0, 1.0], 0.0))
+    scene.add(S.Rect([0, 0, 1], [2, 0, 0], [0, 0, 2]), "floor")
+    scene.add(S.Rect([0, 2, 1], [2, 0, 0], [0, 0, 2]), "floor")
+    scene.add(S.Rect([-1, 1, 1], [0, 0, 2], [0, 2, 0]), "red")
+    scene.add(S.Rect([1, 1, 1], [0, 0, 2], [0, 2, 0]), "green")
+    scene.add(S.Rect([0, 1, 2], [2, 0, 0], [0, 2, 0]), "floor")
+    m1 = translate([0.0, 0.0, 0.6]) @ rotate_y(0.4) @ scale([0.6, 0.6, 0.6])
+    m2 = translate([-0.6, 0.0, 1.0]) @ rotate_y(-0.4) @ scale([0.6, 1.3, 0.6])
+    scene.add(S.BoxOBB(S.BoxAABB([0, 0, 0], [1, 1, 1]), m1), "floor")
+    scene.add(S.BoxOBB(S.BoxAABB([0, 0, 0], [1, 1, 1]), m2), "metal")
+    scene.add(S.Rect([0.0, 1.9, 0.5], [0.1, 0, 0], [0, 0, 0.1]),
+              M.Emissive(600 * np.asarray([1.0, 0.64, 0.185])))
+    scene.set(ThinLenCamera(Film([res, res], "uncharted2"), [0, 1, -4], [0, 1, 0], 0.25))
+    return scene
+
+
 TERRAIN_GRID = 224  # bench_mesh.py's GRID: 99,458 triangles
 
 

@@ -336,8 +336,8 @@ def test_heightmap_file_matches(tmp_path):
 def test_unported_builtins_name_their_item(src, item):
     """The builtins that earlier slices refused (items 12 and 15) build what
     pine_tpu's build from the same line: no builtin is refused any more
-    (``item`` None on every row; the CLI's refusal of item 13 is
-    tests/test_torch_prl.py's)."""
+    (``item`` None on every row; the CLI's flags of item 13 run since,
+    tests/test_torch_prl.py)."""
     from test_torch_lambdas import lines_agree
 
     assert item is None

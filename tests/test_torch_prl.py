@@ -7,16 +7,16 @@
   vectors, where the two depart on purpose, is held to each side's result.
 - Every builtin is ported: those of script lambdas, the random walk and the
   three integrators of the last slice (MLT, ReSTIR, MicroRenderGI) build
-  what pine_tpu's build; what is not ported yet, the CLI's progressive and
-  interactive flags, is refused naming its ROADMAP.md modules item (13);
-  the garden slice's scene model (Subsurface,
+  what pine_tpu's build; the CLI's ``--progressive N``, ``--progressive-dir``
+  and ``--interactive`` run on the CPU, and a bad ``--progressive`` is
+  refused with pine_tpu's message; the garden slice's scene model (Subsurface,
   Line, SpotLight, Sky, the Sobol and Halton samplers) builds and compiles.
 - ``CBOX_PRL`` through the port's interpreter gives exactly the scene arrays
   of ``scenes.cbox``, and pine_tpu's interpreter the same tables, materials,
   lights, camera and group contents.
 - ``python -m pine_tpu_torch tiny.pine --platform cpu`` writes the PNG of
-  the library render; without ``--platform cpu`` and without a card, and
-  with an unported flag, it exits non-zero, and ``scenes.prl_scene`` of a
+  the library render; without ``--platform cpu`` and without a card it
+  exits non-zero, and ``scenes.prl_scene`` of a
   script that renders raises; ``python -m pine_tpu_torch.bench`` without a
   card exits with status 1.
 """
@@ -124,23 +124,46 @@ def test_vector_inequality_is_the_negation():
     assert want == ["false", "true", "false", "true"]
 
 
-def test_errors_and_unported_builtins(tmp_path, capsys):
+def test_errors_and_unported_builtins(tmp_path, capsys, monkeypatch):
     from pine_tpu_torch.prl.parser import PRLSyntaxError, parse
 
     with pytest.raises(PRLSyntaxError, match="Expect a primary expression"):
         parse("x := ;")
     with pytest.raises(PRLRuntimeError):
         Interpreter(device="cpu").run("println(nope);")
-    # what is not ported yet is refused naming its item: the CLI's flags of
-    # item 13, before the script runs
+    # the CLI's flags of item 13 run: --progressive writes its snapshots,
+    # --interactive renders one frame and quits on the scripted q, and a
+    # bad --progressive is refused with pine_tpu's message before the script
     from pine_tpu_torch import cli
+    from pine_tpu_torch.core import options
 
-    (tmp_path / "s.pine").write_text('println("ran");\n')
-    for flag in ("--progressive", "--progressive-dir", "--interactive"):
-        assert cli.main([str(tmp_path / "s.pine"), flag, "--platform", "cpu"]) == 1
+    for name in ("device", "progressive_every", "progressive_dir", "interactive"):
+        monkeypatch.setattr(options, name, getattr(options, name))
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("PINE_INTERACTIVE_KEYS", "q")
+    monkeypatch.setenv("PINE_TERM_PREVIEW", "0")
+    (tmp_path / "s.pine").write_text(
+        'println("ran"); scene := Scene();'
+        "scene.add(Rect([0, 2, 0], [1, 0, 0], [0, 0, 1]), Emissive([10, 10, 10]));"
+        "scene.add(Sphere([0, 0, 0], 0.5), Diffuse([0.7, 0.6, 0.5]));"
+        "scene.set(ThinLenCamera(Film([8, 8]), [0, 0.6, -2.5], [0, 0, 0], 0.5));"
+        "PathIntegrator(UniformSampler(4), 2).render(scene);\n")
+    snaps = tmp_path / "snaps"
+    assert cli.main(["s.pine", "--progressive", "2", "--progressive-dir", str(snaps),
+                     "--platform", "cpu"]) == 0
+    assert sorted(os.listdir(snaps)) == ["index.html", "latest.png", "snap_00002spp.png",
+                                         "snap_00004spp.png"]
+    options.progressive_every = None
+    assert cli.main(["s.pine", "--interactive", "--platform", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("ran") == 2 and out.count("[interactive] pos=(+0.00,+0.60,-2.50)") == 1
+    assert sorted(os.listdir("interactive")) == ["index.html", "latest.png"]
+    for bad in (["--progressive", "0"], ["--progressive", "x"], ["--progressive"],
+                ["--progressive-dir"]):
+        assert cli.main(["s.pine", "--platform", "cpu", *bad]) == 1
         out = capsys.readouterr().out
-        assert f"{flag} is not ported yet (ROADMAP.md, modules item 13)" in out
-        assert "ran" not in out
+        assert ("--progressive-dir requires a path" if bad == ["--progressive-dir"]
+                else "--progressive requires a positive integer") in out and "ran" not in out
     # the lambdas' builtins, the random walk and the integrators are ported:
     # the same line in both packages builds the same value
     # (tests/test_torch_lambdas.py)
@@ -278,14 +301,14 @@ def test_cli_renders_on_the_cpu(tmp_path):
 
 def test_cli_refuses_without_a_card(tmp_path):
     (tmp_path / "s.pine").write_text('println("ran");\n')
-    for args in (("--progressive", "4"), ("--interactive",), ("--platform", "tpu")):
-        proc = cli("s.pine", *args, cwd=tmp_path)
-        assert proc.returncode != 0 and "ran" not in proc.stdout
+    proc = cli("s.pine", "--platform", "tpu", cwd=tmp_path)
+    assert proc.returncode != 0 and "ran" not in proc.stdout
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default platform is valid here")
-    proc = cli("s.pine", cwd=tmp_path)
-    assert proc.returncode != 0 and "ran" not in proc.stdout
-    assert "no CUDA device is available" in proc.stdout
+    for args in ((), ("--progressive", "4"), ("--interactive",)):
+        proc = cli("s.pine", *args, cwd=tmp_path)
+        assert proc.returncode != 0 and "ran" not in proc.stdout
+        assert "no CUDA device is available" in proc.stdout
     # scenes.prl_scene renders, if its script does, on the card too
     with pytest.raises(RuntimeError, match="device='cpu'"):
         scenes.prl_scene(TINY.split("scene.camera")[0])
