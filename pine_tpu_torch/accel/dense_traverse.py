@@ -69,6 +69,7 @@ from functools import partial
 
 import torch
 
+from pine_tpu_torch.core import profiler
 from pine_tpu_torch.scene import shapes as S
 
 BIG = 1e30
@@ -89,6 +90,7 @@ class RouteRefused(ValueError):
 LAUNCHES = {f"{k}.{form}": 0 for k in ("dense", "scdense", "grid", "sctree", "bvh", "inst",
                                        "lattice", "mxup", "grid_mxu", "inst_mxu", "plain")
             for form in ("closest", "any_hit")}
+profiler.launch_counter(LAUNCHES)
 PLAIN_CHUNK = 64  # prims a "plain" query tests at once
 
 
@@ -547,9 +549,14 @@ def group_query(g, ro, rd, tmin, tmax, best_t, best_e, any_hit=False, variant=No
     its route ``g["variant"]`` (``route``), or by ``variant`` for an A/B run,
     as pine_tpu's ``pallas_group_query`` forces one: the group must hold that
     route's tables (``prepare``); "lattice" on a group that is no lattice
-    takes the size default, as there."""
+    takes the size default, as there.  The span ``group.<route>``."""
     if variant is None:
         variant = g["variant"]
+    with profiler.group_span(variant):
+        return _route_query(g, variant, ro, rd, tmin, tmax, best_t, best_e, any_hit)
+
+
+def _route_query(g, variant, ro, rd, tmin, tmax, best_t, best_e, any_hit):
     if variant == "plain":
         return plain_query(g, ro, rd, tmin, tmax, best_t, best_e, any_hit)
     if variant == "lattice" and not g.get("lattice"):

@@ -62,6 +62,7 @@ from pine_tpu_torch.accel.dense_traverse import (
 )
 from pine_tpu_torch.accel.grid_traverse import CELL, SUPER, grid_layout, grid_plain, upload_layout
 from pine_tpu_torch.accel.sctree import TREE_LEAF, sc_tree_layout, tree_depth
+from pine_tpu_torch.core import profiler
 
 STACK_DEPTH = 64  # entries of the kernel's per-warp stack (csrc/inst_traverse.cu)
 ENTRY_CHUNK = 1 << 24  # (lanes, instances) slab tests per block of the plain version
@@ -328,6 +329,8 @@ def route_inst(groups, inst_kernel=None):
 def inst_query(g, ro, rd, tmin, tmax, best_t, best_e, any_hit=False):
     """One instanced group's traversal over a flat wavefront (see module
     docstring), in the form ``g["variant"]``: the kernel on CUDA tensors,
-    the plain version on CPU ones."""
+    the plain version on CPU ones.  The span ``group.<route>``."""
     fn = inst_cuda if ro.is_cuda else inst_plain
-    return fn(g, ro, rd, tmin, tmax, best_t, best_e, any_hit, mxu=g.get("variant") == "inst_mxu")
+    with profiler.group_span(g.get("variant", "inst")):
+        return fn(g, ro, rd, tmin, tmax, best_t, best_e, any_hit,
+                  mxu=g.get("variant") == "inst_mxu")

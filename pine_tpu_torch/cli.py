@@ -1,5 +1,5 @@
 """CLI entry: ``python -m pine_tpu_torch <file.pine> [--platform cpu|gpu]
-[--progressive N] [--progressive-dir D] [--interactive]`` (parity:
+[--progressive N] [--progressive-dir D] [--interactive] [--trace PATH]`` (parity:
 src/cli/pine.cpp, and pine_tpu/cli.py, whose flags and messages these are).
 
 The script renders on the card unless ``--platform cpu`` asks for the CPU;
@@ -7,7 +7,10 @@ without a card and without that flag the CLI exits with status 1 and
 ``resolve_device``'s message before it runs anything, so it never quietly
 runs on the CPU.  Render progress is polled at 10 Hz from a watcher thread
 and reprinted as a ``\\r`` line, as the reference's g_progress loop does
-(pine.cpp:36-40).  The last line is ``Finished in <seconds>s``.
+(pine.cpp:36-40).  The last line is ``Finished in <seconds>s``.  With
+``--trace PATH`` every frame is traced (core/profiler.py): the record goes
+to PATH as Chrome trace-event JSON and the span tree (per span, host and
+host self time, device time) is printed before that line.
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ import os
 import sys
 
 USAGE = """usage: python -m pine_tpu_torch <file.pine> [--platform P] [--progressive N]
-            [--progressive-dir D] [--interactive]
+            [--progressive-dir D] [--interactive] [--trace PATH]
 
 --platform P         where the script renders: gpu (the default, the CUDA
                      card) or cpu (the plain PyTorch versions of the kernels)
@@ -29,7 +32,11 @@ USAGE = """usage: python -m pine_tpu_torch <file.pine> [--platform P] [--progres
                      [ ] spp, p screenshot, q quit) rendering the compiled
                      scene at each new camera on the card; frames go to
                      interactive/latest.png beside a self-refreshing
-                     index.html (path_opengl.cpp:104-117)"""
+                     index.html (path_opengl.cpp:104-117)
+--trace PATH         trace every frame: spans of each stage (host time and,
+                     on the card, device time), host-device syncs, kernel
+                     launches and lanes; written to PATH as Chrome
+                     trace-event JSON at exit, the span tree printed"""
 
 PLATFORMS = {"gpu": None, "cpu": "cpu"}
 
@@ -39,6 +46,7 @@ def main(argv=None):
     from pine_tpu_torch.core import options
 
     args = []
+    trace = None
     i = 0
     while i < len(argv):
         a = argv[i]
@@ -56,6 +64,12 @@ def main(argv=None):
                 print("error: --progressive requires a positive integer")
                 return 1
             options.progressive_every = int(argv[i + 1])
+            i += 2
+        elif a == "--trace":
+            if i + 1 >= len(argv):
+                print("error: --trace requires a path")
+                return 1
+            trace = argv[i + 1]
             i += 2
         elif a == "--progressive-dir":
             if i + 1 >= len(argv):
@@ -77,13 +91,15 @@ def main(argv=None):
     except RuntimeError as e:
         print(f"[Error] {e}")
         return 1
-    from pine_tpu_torch.core.profiler import Profiler
+    from pine_tpu_torch.core import profiler
     from pine_tpu_torch.core.progress import ProgressReporter
     from pine_tpu_torch.prl.interp import interpret_file
 
+    if trace is not None:
+        profiler.enable()
     timer = Timer()
     try:
-        with Profiler("Total"), ProgressReporter():
+        with ProgressReporter():
             interpret_file(args[0])
     except Exception as e:  # mirror pine.cpp's catch-log behavior
         if os.environ.get("PINE_DEBUG"):
@@ -92,8 +108,14 @@ def main(argv=None):
             traceback.print_exc()
         print(f"[Error] {e}")
         return 1
-    Profiler.finalize()
-    print(f"Finished in {timer.elapsed_ms() / 1e3:.2f}s")
+    elapsed = timer.elapsed_ms() / 1e3
+    if trace is not None:
+        profiler.disable()
+        for line in profiler.tree():
+            print(line)
+        profiler.export(trace)
+        print(f"trace written to {trace}")
+    print(f"Finished in {elapsed:.2f}s")
     return 0
 
 

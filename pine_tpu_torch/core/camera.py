@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pine_tpu_torch.core import profiler
 from pine_tpu_torch.core.sampling import sample_disk_polar
 from pine_tpu_torch.core.vecmath import look_at, safe_normalize
 
@@ -25,9 +26,9 @@ class ThinLenCamera:
 
     def params(self, device):
         return dict(
-            position=torch.as_tensor(self.position, device=device),
-            rot=torch.as_tensor(self.c2w[:3, :3].copy(), device=device),
-            fov2d=torch.as_tensor(self.fov2d, device=device),
+            position=profiler.to_device(self.position, device, "camera.params"),
+            rot=profiler.to_device(self.c2w[:3, :3].copy(), device, "camera.params"),
+            fov2d=profiler.to_device(self.fov2d, device, "camera.params"),
             len_radius=self.len_radius,
             focus_distance=self.focus_distance,
         )

@@ -3,6 +3,8 @@ from __future__ import annotations
 
 import torch
 
+from pine_tpu_torch.core import profiler
+
 
 def uncharted2_filmic(v):
     """Uncharted2 filmic curve, batched over (..., 3)."""
@@ -11,7 +13,7 @@ def uncharted2_filmic(v):
     def mapping(x):
         return (x * (A * x + C * B) + D * E) / (x * (A * x + B) + D * F) - E / F
 
-    white = mapping(torch.tensor(11.2, dtype=torch.float32, device=v.device))
+    white = mapping(profiler.to_device(11.2, v.device, "tonemap.white", torch.float32))
     return mapping(v * 2.0) / white
 
 

@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from pine_tpu_torch.core import color as color_mod
+from pine_tpu_torch.core import profiler
 from pine_tpu_torch.io.image_io import save_image
 
 
@@ -38,13 +39,19 @@ class Film:
     def pixels(self):
         """(H,W,4) float32 numpy with alpha 1."""
         out = np.ones((self.height, self.width, 4), np.float32)
-        out[..., :3] = self.rgb.detach().cpu().numpy()
+        with profiler.span("film.readback"):
+            with profiler.sync("readback"):
+                rgb = self.rgb.detach().cpu()
+            out[..., :3] = rgb.numpy()
         return out
 
     def finalized(self, scale=1.0):
         """Tone-mapped (H,W,3) numpy in [0,1]."""
-        mapped = color_mod.TONE_MAPPERS[self.tone_mapper](self.rgb * scale)
-        return mapped.detach().cpu().numpy()
+        with profiler.span("film.readback"):
+            mapped = color_mod.TONE_MAPPERS[self.tone_mapper](self.rgb * scale)
+            with profiler.sync("readback"):
+                mapped = mapped.detach().cpu()
+            return mapped.numpy()
 
     def save(self, path, scale=1.0):
         save_image(path, self.finalized(scale), invert_y=True, encode_srgb=True)

@@ -28,6 +28,7 @@ import os
 import numpy as np
 import torch
 
+from pine_tpu_torch.core import profiler
 from pine_tpu_torch.core import rng
 
 _ASSET_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "assets")
@@ -117,7 +118,8 @@ class HaltonSampler(_Sampler):
         b, off = _PRIMES[d], self._offsets[d]
         dev = px.device
         if dev not in self._perm:
-            self._perm[dev] = torch.as_tensor(self._perm_host.astype(np.int64), device=dev)
+            self._perm[dev] = profiler.to_device(self._perm_host.astype(np.int64), dev,
+                                                 "sampler.tables")
         perm = self._perm[dev]
         inv_base = np.float32(1.0 / b)
         reversed_d = torch.zeros_like(idx)
@@ -223,7 +225,8 @@ class BlueSampler(_Sampler):
     def _on(self, device):
         if device not in self._tables:
             self._tables[device] = tuple(
-                self._host[k].to(device) for k in ("sobol", "ranking", "scrambling")
+                profiler.to_device(self._host[k], device, "sampler.tables")
+                for k in ("sobol", "ranking", "scrambling")
             )
         return self._tables[device]
 

@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from pine_tpu_torch.core import fmath as fm
+from pine_tpu_torch.core import profiler
 from pine_tpu_torch.core.sampling import sample_disk_polar
 from pine_tpu_torch.core.vecmath import Pi, cross, dot, dotk, length_squared, safe_normalize
 
@@ -60,7 +61,7 @@ def face_normal(v):
 
 def reflect_z(w):
     """Mirror reflection about the local z axis."""
-    return w * torch.tensor([-1.0, -1.0, 1.0], dtype=w.dtype, device=w.device)
+    return w * profiler.to_device([-1.0, -1.0, 1.0], w.device, "reflect_z", w.dtype)
 
 
 def reflect(wi, n):

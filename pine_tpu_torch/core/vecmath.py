@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from pine_tpu_torch.core import fmath as fm
+from pine_tpu_torch.core import profiler
 
 Pi = float(np.pi)
 FLOAT_MAX = float(np.finfo(np.float32).max)
@@ -53,7 +54,9 @@ _NEXT, _PREV = (1, 2, 0), (2, 0, 1)  # the cyclic shifts of (x, y, z)
 
 
 def cross(a, b):
-    return a[..., _NEXT] * b[..., _PREV] - a[..., _PREV] * b[..., _NEXT]
+    dev, to = a.device, profiler.to_device  # each index copied to the card, as a tuple index is
+    return (a[..., to(_NEXT, dev, "cross")] * b[..., to(_PREV, dev, "cross")]
+            - a[..., to(_PREV, dev, "cross")] * b[..., to(_NEXT, dev, "cross")])
 
 
 def face_forward(v, n):
@@ -63,7 +66,8 @@ def face_forward(v, n):
 
 def _axis(n, i):
     e = torch.zeros(3, dtype=n.dtype, device=n.device)
-    e[i] = 1.0
+    with profiler.sync("axis"):  # the scalar write copies it to the card
+        e[i] = 1.0
     return e.expand(n.shape)
 
 

@@ -15,6 +15,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from pine_tpu_torch.core import profiler
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "pine_tpu_torch"
 
@@ -54,33 +56,35 @@ def build(names, timeout=900) -> dict:
     built with ``-D`` ``defines`` (the lab's variants).
 
     Returns {name or pair: build log (ptxas register and spill report)}."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for key in names:
-        name, defs = (key, ()) if isinstance(key, str) else key
-        out = library_path(name, defs)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defs), "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
-        procs[key] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        ), tmp, out)
-    logs = {}
-    for key, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate(timeout=timeout)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for csrc/{key}:\n{log}")
-        os.replace(tmp, out)
-        out.with_suffix(".log").write_text(log)
-        logs[key] = log
-    return logs
+    with profiler.span("kernels.build", sources=len(names)):
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        for key in names:
+            name, defs = (key, ()) if isinstance(key, str) else key
+            out = library_path(name, defs)
+            if out.exists():
+                continue
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defs), "-o", str(tmp),
+                   str(CSRC / f"{name}.cu")]
+            procs[key] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            ), tmp, out)
+        logs = {}
+        for key, (proc, tmp, out) in procs.items():
+            log, _ = proc.communicate(timeout=timeout)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for csrc/{key}:\n{log}")
+            os.replace(tmp, out)
+            out.with_suffix(".log").write_text(log)
+            logs[key] = log
+        return logs
 
 
 def load(name: str, defines=()) -> ctypes.CDLL:
     key = (name, tuple(defines))
     if key not in _LOADED:
-        build([key])
-        _LOADED[key] = ctypes.CDLL(str(library_path(*key)))
+        with profiler.span("kernels.load", source=name):
+            build([key])
+            _LOADED[key] = ctypes.CDLL(str(library_path(*key)))
     return _LOADED[key]

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from pine_tpu_torch.core import camera as camera_mod
+from pine_tpu_torch.core import profiler
 from pine_tpu_torch.core.ray import offset_ray_origin
 from pine_tpu_torch.core.sampling import uniform_hemisphere
 from pine_tpu_torch.core.vecmath import face_forward, to_world
@@ -35,45 +36,63 @@ class AOIntegrator:
         cam = scene.camera
         if cam is None:
             raise RuntimeError("scene has no camera")
-        cscene = scene.compile(device)
-        lo, up = scene.get_aabb()
-        radius = self.radius or float(np.linalg.norm(up - lo) / 2)
-        film = cam.film
-        film.set_rgb(render_ao(cscene, cam, film.width, film.height, self.sampler,
-                               self.sampler.spp, radius))
+        with profiler.frame(device, integrator="ao"):
+            cscene = scene.compile(device)
+            lo, up = scene.get_aabb()
+            radius = self.radius or float(np.linalg.norm(up - lo) / 2)
+            film = cam.film
+            film.set_rgb(render_ao(cscene, cam, film.width, film.height, self.sampler,
+                                   self.sampler.spp, radius))
         return film
 
 
 def render_ao(cscene, cam, W, H, sampler, spp, radius, return_stats=False):
     """-> the (H,W,3) ambient occlusion on the scene's device; lanes in row
     order, one per pixel.  With return_stats=True also {"traced_rays": n}:
-    the camera rays and the occlusion rays cast (eight from each hit)."""
+    the camera rays and the occlusion rays cast (eight from each hit).
+    Spans: ``sample`` (attr ``i``) holding ``camera``, ``intersect``,
+    ``surface``, ``occlusion`` (attr ``k``) and ``film``; counters
+    ``rays.camera`` and ``lanes.hit`` (core/profiler.py)."""
     dev = cscene.device
     cp = cam.params(dev) if cam is not None else cscene.camera
     n = W * H
     idx = torch.arange(n, dtype=torch.int64, device=dev)
     ys, xs = (idx // W).to(torch.int32), (idx % W).to(torch.int32)
-    wh = torch.tensor([W, H], dtype=torch.float32, device=dev)
+    wh = profiler.to_device([W, H], dev, "ao.wh", torch.float32)
     zero = torch.zeros(n, device=dev)
     total = torch.zeros(n, 3, device=dev)
     rays = torch.zeros((), dtype=torch.int64, device=dev)
     for i in range(spp):
-        p_film = (torch.stack([xs, ys], -1).to(torch.float32) + sampler.u2(xs, ys, i, 0)) / wh
-        ro, rd = camera_mod.gen_rays(cp, p_film, sampler.u2(xs, ys, i, 2))
-        ro, rd = ro.contiguous(), rd.contiguous()
-        t, gidx, hitm, mesh_tri = cscene.intersect(ro, rd, zero, torch.full_like(zero, FLOAT_MAX))
-        t_hit = torch.where(hitm, t, 1.0)  # miss lanes: t = BIG would overflow
-        p_s, ns, _ = cscene.surface_info(gidx, ro + t_hit[:, None] * rd, mesh_tri)
-        ns = face_forward(ns, -rd)
-        so = offset_ray_origin(p_s, ns)
-        tmax = torch.where(hitm, radius, -1.0)  # a missed lane casts no occlusion ray
-        occ = torch.zeros(n, device=dev)
-        for k in range(DIRECTIONS):
-            d = to_world(ns, uniform_hemisphere(sampler.u2(xs, ys, i, 4 + 2 * k)))
-            blocked = cscene.any_hit(so, d.contiguous(), zero, tmax)
-            occ = occ + torch.where(blocked, 0.0, 1.0)
-        ao = torch.where(hitm, occ / DIRECTIONS, 1.0)
-        total = total + ao[:, None].expand(n, 3)
-        rays = rays + n + DIRECTIONS * hitm.sum()
+        with profiler.span("sample", i=i):
+            with profiler.span("camera"):
+                p_film = ((torch.stack([xs, ys], -1).to(torch.float32) + sampler.u2(xs, ys, i, 0))
+                          / wh)
+                ro, rd = camera_mod.gen_rays(cp, p_film, sampler.u2(xs, ys, i, 2))
+                ro, rd = ro.contiguous(), rd.contiguous()
+                profiler.count("rays.camera", n)
+            t, gidx, hitm, mesh_tri = cscene.intersect(ro, rd, zero,
+                                                       torch.full_like(zero, FLOAT_MAX))
+            with profiler.span("surface"):
+                t_hit = torch.where(hitm, t, 1.0)  # miss lanes: t = BIG would overflow
+                p_s, ns, _ = cscene.surface_info(gidx, ro + t_hit[:, None] * rd, mesh_tri)
+                ns = face_forward(ns, -rd)
+                so = offset_ray_origin(p_s, ns)
+                tmax = torch.where(hitm, radius, -1.0)  # a missed lane casts no occlusion ray
+                occ = torch.zeros(n, device=dev)
+            for k in range(DIRECTIONS):
+                with profiler.span("occlusion", k=k):
+                    d = to_world(ns, uniform_hemisphere(sampler.u2(xs, ys, i, 4 + 2 * k)))
+                    blocked = cscene.any_hit(so, d.contiguous(), zero, tmax)
+                    occ = occ + torch.where(blocked, 0.0, 1.0)
+            with profiler.span("film"):
+                ao = torch.where(hitm, occ / DIRECTIONS, 1.0)
+                total = total + ao[:, None].expand(n, 3)
+                hits = hitm.sum()
+                rays = rays + n + DIRECTIONS * hits
+                profiler.count("lanes.hit", hits)
     img = (total / spp).reshape(H, W, 3)
-    return (img, {"traced_rays": int(rays)}) if return_stats else img
+    if not return_stats:
+        return img
+    with profiler.sync("stats"):
+        rays = int(rays)
+    return img, {"traced_rays": rays}

@@ -54,6 +54,7 @@ import torch
 
 from pine_tpu_torch.core import camera as camera_mod
 from pine_tpu_torch.core import fmath as fm
+from pine_tpu_torch.core import profiler
 from pine_tpu_torch.core import progress
 from pine_tpu_torch.core import rng
 from pine_tpu_torch.core.ray import offset_ray_origin
@@ -97,16 +98,17 @@ class PathIntegrator:
         cam = scene.camera
         if cam is None:
             raise RuntimeError("scene has no camera")
-        cscene = scene.compile(device)
         film = cam.film
         spp = self.sampler.spp
         every = options.progressive_every
-        if not every or every >= spp:
-            film.set_rgb(render_wavefront(cscene, cam, film.width, film.height, self.sampler,
-                                          spp, self.max_path_length))
-        else:
-            render_progressive(cscene, cam, self.sampler, self.max_path_length, every,
-                               options.progressive_dir)
+        with profiler.frame(device, integrator="path"):
+            cscene = scene.compile(device)
+            if not every or every >= spp:
+                film.set_rgb(render_wavefront(cscene, cam, film.width, film.height, self.sampler,
+                                              spp, self.max_path_length))
+            else:
+                render_progressive(cscene, cam, self.sampler, self.max_path_length, every,
+                                   options.progressive_dir)
         if options.interactive:
             from pine_tpu_torch.interactive import run_loop
 
@@ -177,13 +179,20 @@ def render_wavefront(cscene, cam, W, H, sampler, spp, max_depth, nee=True, chunk
     The film runs in chunks of ``chunk`` lanes (default: the whole film) in
     tile-major pixel order; core/progress gets the share done after each.  With return_stats=True also returns
     {"traced_rays": n}: extension rays of lanes alive at each depth plus the
-    NEE shadow rays actually cast."""
-    perm = tile_order(W, H)
+    NEE shadow rays actually cast.  Spans: ``tile_order`` around each of
+    the two host argsorts, ``sample_sums``' between them."""
+    with profiler.span("tile_order"):
+        perm = tile_order(W, H)
     flat, total = sample_sums(cscene, cam, W, H, sampler, range(sample_offset, sample_offset + spp),
                               max_depth, perm, nee, chunk)
-    img = (flat / spp)[torch.as_tensor(np.argsort(perm), device=cscene.device)].reshape(H, W, 3)
+    with profiler.span("tile_order"):
+        inv = np.argsort(perm)
+    inv = profiler.to_device(inv, cscene.device, "tile_order.inverse")
+    img = (flat / spp)[inv].reshape(H, W, 3)
     if return_stats:
-        return img, {"traced_rays": int(total)}
+        with profiler.sync("stats"):
+            total = int(total)
+        return img, {"traced_rays": total}
     return img
 
 
@@ -193,7 +202,8 @@ def sample_sums(cscene, cam, W, H, sampler, samples, max_depth, pixels, nee=True
     in chunks of ``chunk`` lanes -> ((len(pixels), 3) sums in that order,
     traced rays as a 0-d tensor), on the scene's device.  render_wavefront's
     loop, which the sharded renders (parallel/distributed.py) run on a share
-    of the samples or of the pixels."""
+    of the samples or of the pixels.  Spans: ``chunk`` (attrs ``c0``,
+    ``lanes``) holding ``sample`` (attr ``i``), each ``path_trace_sample``'s."""
     dev = cscene.device
     cp = cam.params(dev) if cam is not None else cscene.camera
     n = len(pixels)
@@ -202,14 +212,16 @@ def sample_sums(cscene, cam, W, H, sampler, samples, max_depth, pixels, nee=True
     flat = torch.empty(n, 3, device=dev)
     total = torch.zeros((), dtype=torch.int64, device=dev)
     for c0 in range(0, n, chunk):
-        xs = torch.as_tensor(xs_all[c0:c0 + chunk], device=dev)
-        ys = torch.as_tensor(ys_all[c0:c0 + chunk], device=dev)
-        acc = torch.zeros(xs.shape[0], 3, device=dev)
-        for i in samples:
-            L, r = path_trace_sample(cscene, cp, xs, ys, W, H, sampler, i, max_depth, nee)
-            acc = acc + L
-            total = total + r
-        flat[c0:c0 + chunk] = acc
+        with profiler.span("chunk", c0=c0, lanes=min(chunk, n - c0)):
+            xs = profiler.to_device(xs_all[c0:c0 + chunk], dev, "chunk.pixels")
+            ys = profiler.to_device(ys_all[c0:c0 + chunk], dev, "chunk.pixels")
+            acc = torch.zeros(xs.shape[0], 3, device=dev)
+            for i in samples:
+                with profiler.span("sample", i=i):
+                    L, r = path_trace_sample(cscene, cp, xs, ys, W, H, sampler, i, max_depth, nee)
+                    acc = acc + L
+                    total = total + r
+            flat[c0:c0 + chunk] = acc
         progress.set_progress(min(c0 + chunk, n) / n)
     return flat, total
 
@@ -322,12 +334,14 @@ class PathWalk:
 
     def __init__(self, cp, xs, ys, W, H, sampler, sample_index):
         n, dev = xs.shape[0], xs.device
-        jitter = sampler.u2(xs, ys, sample_index, 0)
-        u_lens = sampler.u2(xs, ys, sample_index, 2)
-        wh = torch.tensor([W, H], dtype=torch.float32, device=dev)
-        p_film = (torch.stack([xs, ys], -1).to(torch.float32) + jitter) / wh
-        ro, rd = camera_mod.gen_rays(cp, p_film, u_lens)
-        self.ro, self.rd = ro.contiguous(), rd.contiguous()
+        with profiler.span("camera"):
+            jitter = sampler.u2(xs, ys, sample_index, 0)
+            u_lens = sampler.u2(xs, ys, sample_index, 2)
+            wh = profiler.to_device([W, H], dev, "walk.wh", torch.float32)
+            p_film = (torch.stack([xs, ys], -1).to(torch.float32) + jitter) / wh
+            ro, rd = camera_mod.gen_rays(cp, p_film, u_lens)
+            self.ro, self.rd = ro.contiguous(), rd.contiguous()
+            profiler.count("rays.camera", n)
         self.alive = torch.ones(n, dtype=torch.bool, device=dev)
         self.prev_pdf = torch.zeros(n, device=dev)
         self.prev_delta = torch.ones(n, dtype=torch.bool, device=dev)  # the camera vertex
@@ -337,6 +351,7 @@ class PathWalk:
         self.med = None  # the depth's medium vertices (``grid_vertices``), or None
         self.perm = None  # depth 0 is not sorted: tile-major primaries are coherent
         self.n_rays = torch.zeros((), dtype=torch.int64, device=dev)
+        self.depth = -1  # of the last ``trace``: the name of its lane counters
 
     def escaped(self, cscene, hitm, gone):
         """(The environment light's radiance on the lanes alive at the depth
@@ -352,8 +367,11 @@ class PathWalk:
 
     def trace(self, cscene):
         """Intersect the depth's rays -> (t, gidx, hit (of the lanes alive),
-        mesh_tri)."""
-        self.n_rays = self.n_rays + self.alive.sum()
+        mesh_tri).  Counts the live lanes (``lanes.live.d<depth>``)."""
+        self.depth += 1
+        live = self.alive.sum()
+        self.n_rays = self.n_rays + live
+        profiler.count("lanes.live.d", live, self.depth)
         # dead lanes get tmax = -1 and miss every group box up front
         t, gidx, hitm, mesh_tri = cscene.intersect(
             self.ro, self.rd, self.tmin, torch.where(self.alive, FLOAT_MAX, -1.0),
@@ -394,41 +412,49 @@ class PathWalk:
         ``dim`` -> (NEE contribution without beta, throughput f cos / pdf,
         the sample's validity, the walk's beta multiplier or None), and the
         walk moved to the continuation rays.  The caller multiplies beta by
-        the walk's multiplier before it weighs the NEE contribution."""
-        mat_idx = cscene.g_mat[gidx.clamp(0, cscene.n_global - 1).long()]
-        u_mat = sampler.u2(xs, ys, sample_index, dim + 3)
-        state = material_eval.eval_bxdf_state(cscene, mat_idx, ctx, wi_world, u_mat[:, 0],
-                                              u_mat[:, 1], MIN_ROUGHNESS, self.diffused)
-        sss_mult = None
-        if walk_dim is not None and cscene.has_subsurface:
-            p_s, ns, wi_world, sss_mult = bssrdf_walk(cscene, state, p_s, ns, wi_world, xs, ys,
-                                                      sampler, sample_index, walk_dim)
-        wi = to_local(ns, wi_world)
-        u_wm = sampler.u2(xs, ys, sample_index, dim + 5)
-        u_fr = sampler.u1(xs, ys, sample_index, dim + 7)
-        u_cos = sampler.u2(xs, ys, sample_index, dim + 8)
-        bs = bxdf_mod.sample(state, wi, u_wm, u_fr, u_cos)
-        wo_world = to_world(ns, bs["wo"])
-        cosine = dot(wo_world, ns).abs()
-        thr = bs["f"] * (cosine / torch.clamp_min(bs["pdf"], 1e-20))[:, None]
-        surf_next = surf & bs["valid"]
-        ro_next = offset_ray_origin(p_s, face_forward(ns, wo_world))
-        rd_next, alive_next, med = wo_world, surf_next, self.med
-        if med is not None:  # medium vertices go on along their phase-sampled rays
-            sc = med["scatter"]
-            ro_next = torch.where(sc[:, None], med["ro"], ro_next)
-            rd_next = torch.where(sc[:, None], med["rd"], wo_world)
-            alive_next = surf_next | sc
+        the walk's multiplier before it weighs the NEE contribution.  Spans
+        ``material``, ``bsdf`` (the subsurface walk in it), ``sort`` and
+        ``nee``; counter ``lanes.shadow.d<depth>``, the shadow rays cast."""
+        with profiler.span("material"):
+            mat_idx = cscene.g_mat[gidx.clamp(0, cscene.n_global - 1).long()]
+            u_mat = sampler.u2(xs, ys, sample_index, dim + 3)
+            state = material_eval.eval_bxdf_state(cscene, mat_idx, ctx, wi_world, u_mat[:, 0],
+                                                  u_mat[:, 1], MIN_ROUGHNESS, self.diffused)
+        with profiler.span("bsdf"):
+            sss_mult = None
+            if walk_dim is not None and cscene.has_subsurface:
+                p_s, ns, wi_world, sss_mult = bssrdf_walk(cscene, state, p_s, ns, wi_world, xs,
+                                                          ys, sampler, sample_index, walk_dim)
+            wi = to_local(ns, wi_world)
+            u_wm = sampler.u2(xs, ys, sample_index, dim + 5)
+            u_fr = sampler.u1(xs, ys, sample_index, dim + 7)
+            u_cos = sampler.u2(xs, ys, sample_index, dim + 8)
+            bs = bxdf_mod.sample(state, wi, u_wm, u_fr, u_cos)
+            wo_world = to_world(ns, bs["wo"])
+            cosine = dot(wo_world, ns).abs()
+            thr = bs["f"] * (cosine / torch.clamp_min(bs["pdf"], 1e-20))[:, None]
+            surf_next = surf & bs["valid"]
+            ro_next = offset_ray_origin(p_s, face_forward(ns, wo_world))
+            rd_next, alive_next, med = wo_world, surf_next, self.med
+            if med is not None:  # medium vertices go on along their phase-sampled rays
+                sc = med["scatter"]
+                ro_next = torch.where(sc[:, None], med["ro"], ro_next)
+                rd_next = torch.where(sc[:, None], med["rd"], wo_world)
+                alive_next = surf_next | sc
         # the bounce's coherence sort serves its shadow rays and the next intersect
-        self.perm = cscene.sort_perm(ro_next, rd_next, ~alive_next)
+        with profiler.span("sort"):
+            self.perm = cscene.sort_perm(ro_next, rd_next, ~alive_next)
         contrib = torch.zeros_like(p_s)
         if len(cscene.lights) > 0 and nee:
-            u_sel = sampler.u1(xs, ys, sample_index, dim + 0)
-            u_light = sampler.u2(xs, ys, sample_index, dim + 1)
-            ls = sample_one_light(cscene, p_s, u_sel, u_light)
-            contrib, do_nee = nee_contribution(cscene, p_s, ns, state, wi, ls, surf,
-                                               sort_perm=self.perm)
-            self.n_rays = self.n_rays + do_nee.sum()
+            with profiler.span("nee"):
+                u_sel = sampler.u1(xs, ys, sample_index, dim + 0)
+                u_light = sampler.u2(xs, ys, sample_index, dim + 1)
+                ls = sample_one_light(cscene, p_s, u_sel, u_light)
+                contrib, do_nee = nee_contribution(cscene, p_s, ns, state, wi, ls, surf,
+                                                   sort_perm=self.perm)
+                cast = do_nee.sum()
+                self.n_rays = self.n_rays + cast
+                profiler.count("lanes.shadow.d", cast, self.depth)
         self.surf, self.alive = surf_next, alive_next
         self.prev_pdf = bs["pdf"]
         self.prev_delta = bs["is_delta_sample"]
@@ -443,7 +469,9 @@ class PathWalk:
 
 
 def path_trace_sample(cscene, cp, xs, ys, W, H, sampler, sample_index, max_depth, nee=True):
-    """One sample per pixel through the depth loop -> (L (N,3), traced rays)."""
+    """One sample per pixel through the depth loop -> (L (N,3), traced rays).
+    Spans: ``camera``, then ``depth`` (attr ``d``) holding ``intersect``,
+    ``media``, ``arrive`` and ``PathWalk.scatter``'s."""
     n, dev = xs.shape[0], xs.device
     walk = PathWalk(cp, xs, ys, W, H, sampler, sample_index)
     L_direct = torch.zeros(n, 3, device=dev)  # depth-0 emissive (unclamped)
@@ -451,41 +479,46 @@ def path_trace_sample(cscene, cp, xs, ys, W, H, sampler, sample_index, max_depth
     beta = torch.ones(n, 3, device=dev)
     n_lights = len(cscene.lights)
     for depth in range(max_depth):
-        t, gidx, hitm, mesh_tri = walk.trace(cscene)
-        med = None
-        if cscene.media:
-            seg = torch.where(hitm, t, 1e8)
-            if depth + 1 < max_depth and n_lights > 0:
-                L_indirect = L_indirect + _medium_scatter(
-                    cscene, walk.ro, walk.rd, seg, beta, walk.alive & ~walk.diffused, xs, ys,
-                    sampler, sample_index, 4 + max_depth * 48 + depth * 12 - 10)
-            # homogeneous only: the grid media's tracking below carries theirs
-            beta = beta * cscene.transmittance(walk.ro, walk.rd, seg, grid=False)
-        if cscene.grid_media and depth + 1 < max_depth:
-            dim = 4 + depth * 16
-            beta, L_med, med = grid_vertices(cscene, walk, t, hitm, beta, xs, ys, sampler,
-                                             sample_index, 7000 + depth, dim + 10, dim + 12)
-            L_indirect = L_indirect + L_med
-        gidx, p_s, ns, ctx, wi_world, emis, le, mis, env = walk.arrive(cscene, t, gidx, hitm,
-                                                                       mesh_tri, med)
-        for contrib in (None if env is None else beta * env[0] * env[1],
-                        None if mis is None else torch.where(emis[:, None],
-                                                             beta * le * mis[:, None], 0.0)):
-            if contrib is None:
-                continue
-            if depth == 0:
-                L_direct = L_direct + contrib
-            else:
-                L_indirect = L_indirect + contrib
-        if depth + 1 >= max_depth:
-            break
-        contrib, thr, _, sss_mult = walk.scatter(
-            cscene, xs, ys, sampler, sample_index, 4 + depth * 16, gidx, p_s, ns, ctx, wi_world,
-            walk.surf, nee, walk_dim=4 + max_depth * 16 + depth * 32)
-        if sss_mult is not None:
-            beta = beta * sss_mult
-        L_indirect = L_indirect + beta * contrib
-        beta = torch.where(walk.surf[:, None], beta * thr, beta)
+        with profiler.span("depth", d=depth):
+            t, gidx, hitm, mesh_tri = walk.trace(cscene)
+            med = None
+            if cscene.media:
+                with profiler.span("media"):
+                    seg = torch.where(hitm, t, 1e8)
+                    if depth + 1 < max_depth and n_lights > 0:
+                        L_indirect = L_indirect + _medium_scatter(
+                            cscene, walk.ro, walk.rd, seg, beta, walk.alive & ~walk.diffused,
+                            xs, ys, sampler, sample_index, 4 + max_depth * 48 + depth * 12 - 10)
+                    # homogeneous only: the grid media's tracking below carries theirs
+                    beta = beta * cscene.transmittance(walk.ro, walk.rd, seg, grid=False)
+            if cscene.grid_media and depth + 1 < max_depth:
+                with profiler.span("media"):
+                    dim = 4 + depth * 16
+                    beta, L_med, med = grid_vertices(cscene, walk, t, hitm, beta, xs, ys, sampler,
+                                                     sample_index, 7000 + depth, dim + 10,
+                                                     dim + 12)
+                    L_indirect = L_indirect + L_med
+            with profiler.span("arrive"):
+                gidx, p_s, ns, ctx, wi_world, emis, le, mis, env = walk.arrive(
+                    cscene, t, gidx, hitm, mesh_tri, med)
+                for contrib in (None if env is None else beta * env[0] * env[1],
+                                None if mis is None else torch.where(
+                                    emis[:, None], beta * le * mis[:, None], 0.0)):
+                    if contrib is None:
+                        continue
+                    if depth == 0:
+                        L_direct = L_direct + contrib
+                    else:
+                        L_indirect = L_indirect + contrib
+            if depth + 1 >= max_depth:
+                break
+            contrib, thr, _, sss_mult = walk.scatter(
+                cscene, xs, ys, sampler, sample_index, 4 + depth * 16, gidx, p_s, ns, ctx,
+                wi_world, walk.surf, nee, walk_dim=4 + max_depth * 16 + depth * 32)
+            if sss_mult is not None:
+                beta = beta * sss_mult
+            L_indirect = L_indirect + beta * contrib
+            beta = torch.where(walk.surf[:, None], beta * thr, beta)
     return L_direct + torch.clamp_max(L_indirect, CLAMP), walk.n_rays
 
 

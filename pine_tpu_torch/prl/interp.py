@@ -27,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pine_tpu_torch.core import profiler
 from pine_tpu_torch.prl import ast as A
 from pine_tpu_torch.prl import loop_jit, ops
 from pine_tpu_torch.prl.parser import PRLSyntaxError, parse  # noqa: F401 (re-exported)
@@ -590,8 +591,11 @@ def _stdout_write(s):
 # ---- module-level API ------------------------------------------------------
 
 def interpret(source, filename="<script>", interpreter=None):
+    """Run a script; the span ``scene.build`` (a script's renders are frames
+    inside it)."""
     itp = interpreter or Interpreter()
-    itp.run(source, filename)
+    with profiler.span("scene.build", script=filename):
+        itp.run(source, filename)
     return itp
 
 

@@ -73,6 +73,7 @@ import numpy as np
 import torch
 
 from pine_tpu_torch.accel import dense_traverse as DT
+from pine_tpu_torch.core import profiler
 from pine_tpu_torch.core.vecmath import dot
 from pine_tpu_torch.scene import csg_intersect as CI
 from pine_tpu_torch.scene import intersect as I
@@ -177,6 +178,9 @@ class Scene:
         if len(args) == 2 and isinstance(args[0], str):
             return self.add_material(args[0], args[1])
         if len(args) == 2:
+            if isinstance(args[0], S.Mesh):
+                with profiler.span("scene.build", triangles=args[0].num_triangles()):
+                    return self.add_geometry(args[0], args[1])
             return self.add_geometry(args[0], args[1])
         (x,) = args
         if isinstance(x, L.Light):
@@ -252,7 +256,11 @@ class Scene:
         key = (str(resolve_device(device)),) + kernels
         cs = self._compiled.get(key)
         if cs is None or cs._kernels != kernels:  # re-routed through a setter since
-            cs = compiled_scene_from_arrays(scene_arrays(self), device, *kernels)
+            with profiler.span("scene.compile"):
+                with profiler.span("scene_arrays"):
+                    arrays = scene_arrays(self)
+                with profiler.span("compiled_scene_from_arrays"):
+                    cs = compiled_scene_from_arrays(arrays, device, *kernels)
             self._compiled[key] = cs
         return cs
 
@@ -361,7 +369,14 @@ class CompiledScene:
         mesh_tri the hit entity (0 on a miss), which surface_info reads for
         mesh lanes.  ``sort_perm`` (from sort_perm) reorders the traversal
         of the prim groups.  The SDFs and CSG trees are tested after the
-        groups, each within the closest hit so far."""
+        groups, each within the closest hit so far.  The span ``intersect``
+        (attr ``lanes``) and the counter ``rays.closest``."""
+        n = ro.shape[0]
+        profiler.count("rays.closest", n)
+        with profiler.span("intersect", lanes=n):
+            return self._intersect(ro, rd, tmin, tmax, sort_perm)
+
+    def _intersect(self, ro, rd, tmin, tmax, sort_perm):
         if self.unified is not None:
             from pine_tpu_torch.accel.packet import ent_to_gidx, packet_intersect
 
@@ -403,7 +418,14 @@ class CompiledScene:
         return torch.where(best_t < tmax, best_t, BIG), best_g
 
     def any_hit(self, ro, rd, tmin, tmax, sort_perm=None):
-        """Shadow-ray occlusion -> (N,) bool."""
+        """Shadow-ray occlusion -> (N,) bool.  The span ``any_hit`` (attr
+        ``lanes``) and the counter ``rays.any_hit``."""
+        n = ro.shape[0]
+        profiler.count("rays.any_hit", n)
+        with profiler.span("any_hit", lanes=n):
+            return self._any_hit(ro, rd, tmin, tmax, sort_perm)
+
+    def _any_hit(self, ro, rd, tmin, tmax, sort_perm):
         if self.unified is not None:
             from pine_tpu_torch.accel.packet import packet_any_hit
 
