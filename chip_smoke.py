@@ -182,7 +182,13 @@ timed alone (CLI_WORKERS of them at a time: phase 3 measures nothing), then
    build no accel, so each prim type's table is a group of its own), and a
    ``media_setup`` record of the plain routes (the SDF march, the CSG
    interval walk, the grid media's delta and ratio tracking, the
-   homogeneous scatter): their calls and device ms in a 1-spp render.  The
+   homogeneous scatter): their calls and device ms in a 1-spp render.  On
+   the AO path the timed render launches the direction kernel
+   (csrc/ao_dirs.cu) 8 times a sample, in its blue form only; both forms
+   (BlueSampler's draw in the kernel, HaltonSampler's u2 before it) are held
+   bit for bit to the PyTorch chain on every launch of 1-spp renders of the
+   box at 640x640 and at 1920x1080, the benchmark's AO lane count (entries
+   ``ao_dirs.{ao,ao_1080p}.{blue,u}``).  The
    ``lab`` record: kernel 9's main path, the probe's chains on the box's
    cone group and 65,536 coherent rays as ``python -m
    pine_tpu_torch.lab.cone_probe`` runs them, launch counts zeroed just
@@ -326,6 +332,7 @@ INST_SIZE, INST_SPP, INST_DEPTH = 512, 4, 3  # bench_instanced.py's configuratio
 GRID_MISMATCH_SHARE = 1e-4  # lanes where a culling kernel may differ from its plain version
 MAIN_RAYS = {}  # traced rays of each main path's render, by tag
 MAIN_IMAGES = {}  # the image of each main path's timed render, by tag
+MAIN_LAUNCHES = {}  # the launch counts of each main path's timed render, by tag
 # the 2 M terrain's depth: 2, not MAIN_DEPTH, since the garden's paths came
 # in (at depth 1 a path casts no shadow ray: the any-hit form would not run);
 # its plain BVH walk takes 20-24 s a launch, and the kernel line holds every
@@ -356,6 +363,11 @@ FOG_SIZE, FOG_SPP, FOG_DEPTH = 640, 16, 5
 FOG_SDF_DEPTH = 2
 FOG_GROUPS = [("dense", 1, 6)]
 AO_SPP = 16
+# csrc/ao_dirs.cu's bytes a lane: the normal read and the direction written,
+# 12 each, and the u form's two uniforms read, 8 (the blue form's table
+# gathers hit L2); and the benchmark's AO cells' lanes, 2,073,600
+AO_DIRS_BYTES = {"blue": 24, "u": 32}
+AO_HD = (1920, 1080)
 
 # kind -> (module under pine_tpu_torch.accel, kernel wrapper in it, plain
 # version as module.function, the group's table for it, kernel source, the
@@ -1900,6 +1912,7 @@ def phase_main_path(dev_name, tag, what, scene, groups_want, heavy_want, kinds,
 
     from pine_tpu_torch.accel import dense_traverse as DT
     from pine_tpu_torch.core.samplers import SAMPLERS
+    from pine_tpu_torch.integrators import ao as AO
 
     W, H = (size, size) if isinstance(size, int) else size
     t_path = t0 = time.perf_counter()
@@ -1923,12 +1936,13 @@ def phase_main_path(dev_name, tag, what, scene, groups_want, heavy_want, kinds,
     for k in range(reps):
         if k == 0:
             DT.reset_launches()
+            AO.LAUNCHES.update(dict.fromkeys(AO.LAUNCHES, 0))
         t0 = time.perf_counter()
         img, stats = render_fn(cs, scene, W, H, sampler, spp, depth, return_stats=True)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         if k == 0:
-            launches = dict(DT.LAUNCHES)
+            launches = {**DT.LAUNCHES, **AO.LAUNCHES}
     want = {f"{kind}.{form}" for kind, _, _ in groups_want for form in forms}
     for form in sorted(want):
         if launches[form] <= 0:
@@ -1938,6 +1952,7 @@ def phase_main_path(dev_name, tag, what, scene, groups_want, heavy_want, kinds,
     rays = int(stats["traced_rays"])
     MAIN_RAYS[tag] = rays
     MAIN_IMAGES[tag] = img
+    MAIN_LAUNCHES[tag] = launches
     rec = dict(phase="main_path", scene=what, size=f"{W}x{H}", spp=spp, depth=depth,
                sampler=type(sampler).__name__, device=dev_name, kernels=kernels, groups=groups,
                compile_s=compile_s,
@@ -2076,16 +2091,14 @@ def phase_media(dev_name):
     build_scene and render: 1920x1080, 96^3, depth CLOUD_DEPTH, CLOUD_SPP of its 256
     samples), the CSG fog box and the fog box with the torus (CSG_FOG_PRL,
     640x640, BlueSampler(16), depth 5 and FOG_SDF_DEPTH), AO on the bench box
-    (640x640, BlueSampler(16)).  Each as phase_main_path: the dense kernel held to
-    dense_plain bit for bit on every launch of a 1-spp render (kernel-line
-    entries ``dense_traverse.<tag>.*``); the media_setup record times the
-    plain routes.  -> kernel-line entries."""
-    import numpy as np
+    (640x640, BlueSampler(16); ``phase_ao``).  Each as phase_main_path: the dense
+    kernel held to dense_plain bit for bit on every launch of a 1-spp render
+    (kernel-line entries ``dense_traverse.<tag>.*``); the media_setup record
+    times the plain routes.  -> kernel-line entries."""
     import torch
 
     from pine_tpu_torch import bench_cloud, scenes
     from pine_tpu_torch.core.samplers import BlueSampler
-    from pine_tpu_torch.integrators.ao import render_ao
 
     emit(dict(phase="cloud_spp_cut", spp=CLOUD_SPP, full_spp=CLOUD_FULL_SPP,
               why="chip_smoke.py's time limit; python -m pine_tpu_torch.bench_cloud renders all"))
@@ -2122,6 +2135,98 @@ def phase_media(dev_name):
                 tag.endswith("sdf") and not routes.get("sdf_march")):
             fail(f"the {tag} render skipped a plain route: {sorted(routes)}")
         del cs
+    return entries + phase_ao(dev_name)
+
+
+def ao_dirs_entries(cs, scene, W, H, radius, label, timed=None):
+    """The AO direction kernel (csrc/ao_dirs.cu) on the recorded launches of a
+    1-spp ``render_ao`` of ``scene`` at W x H: with BlueSampler(AO_SPP) (the
+    ``blue`` form, the draw in the kernel) and with HaltonSampler(AO_SPP)
+    (the ``u`` form, after the sampler's ``u2``).  ao.LAUNCHES is zeroed just
+    before each recording render and read just after: DIRECTIONS launches of
+    that form and none of the other.  Every launch is held bit for bit to the
+    PyTorch chain ``occlusion_dirs_plain`` on its own inputs, and timed beside
+    the chain: plain_ms is the whole chain for the blue form and the chain
+    after the draw, ``to_world(ns, uniform_hemisphere(u))``, for the u form.
+    bound_ms: AO_DIRS_BYTES a lane at HBM_BYTES_PER_S.  ``timed``
+    ({"ao_dirs.<form>": launches}): the launches of a form in the path's
+    timed render; a form not in it gives the recording render's.  ->
+    kernel-line entries ``ao_dirs.<label>.<form>``."""
+    import torch
+
+    from pine_tpu_torch.core.samplers import BlueSampler, HaltonSampler
+    from pine_tpu_torch.core.sampling import uniform_hemisphere
+    from pine_tpu_torch.core.vecmath import to_world
+    from pine_tpu_torch.integrators import ao as AO
+
+    entries = []
+    for form, sampler in (("blue", BlueSampler(AO_SPP)), ("u", HaltonSampler(AO_SPP))):
+        calls, real = [], AO.occlusion_dirs
+
+        def record(ns, s, xs, ys, width, i, k):
+            calls.append((ns.clone(), xs, ys, i, k))
+            return real(ns, s, xs, ys, width, i, k)
+
+        AO.occlusion_dirs = record
+        try:
+            AO.LAUNCHES.update(dict.fromkeys(AO.LAUNCHES, 0))
+            AO.render_ao(cs, scene.camera, W, H, sampler, 1, radius)
+            torch.cuda.synchronize()
+            counted = dict(AO.LAUNCHES)
+        finally:
+            AO.occlusion_dirs = real
+        if counted != {**dict.fromkeys(AO.LAUNCHES, 0), f"ao_dirs.{form}": AO.DIRECTIONS}:
+            fail(f"a 1-spp AO render with {type(sampler).__name__} launched {counted}")
+        ms_each, plain_each, differ = [], [], 0
+        for ns, xs, ys, i, k in calls:
+            dim = 4 + 2 * k
+            if form == "blue":
+                tables = sampler.tables(ns.device)
+                kernel = lambda: AO.ao_dirs_blue(ns, tables, W, i, dim)  # noqa: E731
+                plain = lambda: AO.occlusion_dirs_plain(ns, sampler, xs, ys, i, k)  # noqa: E731
+            else:
+                u = sampler.u2(xs, ys, i, dim)
+                kernel = lambda: AO.ao_dirs_u(ns, u)  # noqa: E731
+                plain = lambda: to_world(ns, uniform_hemisphere(u))  # noqa: E731
+            ms_each.append(cuda_ms(kernel, 10))
+            plain_each.append(cuda_ms(plain, 3))
+            got = kernel().view(torch.int32)
+            want = AO.occlusion_dirs_plain(ns, sampler, xs, ys, i, k).view(torch.int32)
+            differ += int((got != want).any(-1).sum())
+        if differ:
+            fail(f"ao_dirs.{form}: {differ} lanes differ from the chain bit for bit on the "
+                 f"{label} render's inputs")
+        n = calls[0][0].shape[0]
+        key = f"ao_dirs.{form}"
+        entries.append(dict(
+            name=f"ao_dirs.{label}.{form}", route="cuda", source="pine_tpu_torch/csrc/ao_dirs.cu",
+            replaces="none: pine_tpu/integrators/ao.py:56-57, left to XLA",
+            launches=(timed or {}).get(key, counted[key]),
+            launches_of="the timed render" if key in (timed or {}) else "one 1-spp render",
+            max_abs_err=0.0, ms=sum(ms_each) / len(ms_each),
+            plain_ms=sum(plain_each) / len(plain_each),
+            bound_ms=n * AO_DIRS_BYTES[form] / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            library_ms=None,
+            inputs=f"{n} lanes ({W}x{H}); means per launch over the {len(calls)} launches of one "
+                   f"1-spp render with {type(sampler).__name__}; the chain on each",
+            ms_each=ms_each, lanes_differ=differ, lanes_differ_bits=differ))
+    return entries
+
+
+def phase_ao(dev_name):
+    """AOIntegrator(BlueSampler(AO_SPP)) on the bench box at 640x640 as a main
+    path (the dense kernel held to dense_plain bit for bit on every launch of a
+    1-spp render, entries ``dense_traverse.ao.*``; the timed render must launch
+    the direction kernel's blue form DIRECTIONS x AO_SPP times and its u form
+    never), then the direction kernel's entries (``ao_dirs_entries``) on that
+    path's inputs, ``ao_dirs.ao.*``, and on the box at AO_HD, the benchmark's
+    AO cells' lane count, ``ao_dirs.ao_1080p.*``.  -> kernel-line entries."""
+    import numpy as np
+    import torch
+
+    from pine_tpu_torch import scenes
+    from pine_tpu_torch.integrators.ao import DIRECTIONS, render_ao
+
     box = scenes.cbox((MAIN_SIZE, MAIN_SIZE))
     lo, up = box.get_aabb()
     radius = float(np.linalg.norm(up - lo) / 2)
@@ -2129,10 +2234,18 @@ def phase_media(dev_name):
     def ao_render(cs, scene, W, H, sampler, spp, depth, return_stats=False):
         return render_ao(cs, scene.camera, W, H, sampler, spp, radius, return_stats)
 
-    entries += phase_main_path(
+    entries, cs = phase_main_path(
         dev_name, "ao", "AOIntegrator(BlueSampler(16)) on the bench cbox, 420 cones", box,
         [("dense", 1, 6), ("dense", 5, 2), ("dense", 7, 424)], False, ["dense"], MAIN_SIZE,
-        AO_SPP, 1, label="ao", render_fn=ao_render, reps=1)[0]
+        AO_SPP, 1, label="ao", render_fn=ao_render, reps=1)
+    launches = {form: MAIN_LAUNCHES["ao"][f"ao_dirs.{form}"] for form in ("blue", "u")}
+    if launches != {"blue": DIRECTIONS * AO_SPP, "u": 0}:
+        fail(f"the ao main path's timed render launched the direction kernel {launches}")
+    entries += ao_dirs_entries(cs, box, MAIN_SIZE, MAIN_SIZE, radius, "ao",
+                               {"ao_dirs.blue": launches["blue"]})
+    del cs
+    box_hd = scenes.cbox(AO_HD)
+    entries += ao_dirs_entries(box_hd.compile(), box_hd, *AO_HD, radius, "ao_1080p")
     torch.cuda.empty_cache()
     return entries
 

@@ -28,11 +28,11 @@ traversal group's ``group.<route>`` span (``group_span``) takes a range but
 no event pair.  Each span also keeps the host time the tracer spent on it
 outside its own interval (``own_ns``: the event records, the range, the
 bookkeeping), which lies inside its parent's.
-The frame's kernel launches by route come from the launch counter that
-``launch_counter`` was given (``accel/dense_traverse.py``'s ``LAUNCHES``;
-``launches.<route>.<form>``).  CUDA event pairs and device counters are
-resolved only when the record is read (``frames``, ``first_frame``,
-``export``, ``tree``), never inside a frame.
+The frame's kernel launches by route come from the launch counters that
+``launch_counter`` was given (``accel/dense_traverse.py``'s ``LAUNCHES``,
+``integrators/ao.py``'s; ``launches.<route>.<form>``).  CUDA event pairs
+and device counters are resolved only when the record is read
+(``frames``, ``first_frame``, ``export``, ``tree``), never inside a frame.
 
 The record keeps the spans of the last ``KEEP`` frames, the first frame
 recorded in the process, and the set-up spans (those outside any frame).
@@ -69,7 +69,7 @@ _frames = collections.deque(maxlen=KEEP)
 _first = None
 _setup = collections.deque(maxlen=SETUP_KEEP)
 _pool = []  # resolved CUDA events, recorded again by later spans
-_launches = {}  # the launch counter's storage: {route.form: launches so far}
+_launches = []  # the launch counters' storage: dicts {route.form: launches so far}
 
 
 class _NoSpan:
@@ -208,7 +208,7 @@ class _FrameSpan:
     def __enter__(self):
         global _open_frame
         fr = self.fr
-        fr._launches = dict(_launches)
+        fr._launches = _launch_totals()
         _open_frame = True
         self.sp.__enter__()
         fr.t0 = self.sp.t0
@@ -220,7 +220,7 @@ class _FrameSpan:
         _open_frame = False
         fr = self.fr
         fr.t1 = self.sp.t1
-        for k, v in _launches.items():
+        for k, v in _launch_totals().items():
             if v != fr._launches.get(k, 0):
                 fr.counters["launches." + k] = v - fr._launches.get(k, 0)
         return False
@@ -312,10 +312,13 @@ def count(name, value, suffix=None):
 
 
 def launch_counter(counts):
-    """Read each frame's kernel launches from ``counts`` ({route.form:
+    """Read each frame's kernel launches from ``counts`` too ({route.form:
     launches so far}, kept up to date by the module that launches them)."""
-    global _launches
-    _launches = counts
+    _launches.append(counts)
+
+
+def _launch_totals():
+    return {k: v for c in _launches for k, v in c.items()}
 
 
 def enable():

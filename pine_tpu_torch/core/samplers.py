@@ -209,6 +209,11 @@ class BlueSampler(_Sampler):
     """Blue-noise dithered Sobol from the exact Heitz-Belcour tables."""
 
     name = "blue"
+    # the tables' layout (csrc/ao_dirs.cu draws from it too): 256 dims of
+    # 256 samples, and a tile of 128x128 pixels x 8 dims for the ranking and
+    # the scrambling
+    TILE = 128 * 128 * 8
+    TABLE_SIZES = (("sobol", 256 * 256), ("ranking", TILE), ("scrambling", TILE))
 
     def __init__(self, spp, seed=0):
         self.spp = int(spp)
@@ -216,25 +221,28 @@ class BlueSampler(_Sampler):
         spp2 = min(_roundup2(self.spp), 256)
         path = os.path.join(_ASSET_DIR, f"bluesobol_{spp2}spp.npz")
         with np.load(path) as d:
-            self._host = {
-                k: torch.from_numpy(d[k].astype(np.int32))
-                for k in ("sobol", "ranking", "scrambling")
-            }
+            self._host = {k: torch.from_numpy(d[k].astype(np.int32)) for k, _ in self.TABLE_SIZES}
+        for k, size in self.TABLE_SIZES:
+            if self._host[k].shape != (size,):
+                raise ValueError(f"{path}: {k} has shape {tuple(self._host[k].shape)}, "
+                                 f"want ({size},)")
         self._tables = {}  # device -> (sobol, ranking, scrambling)
 
-    def _on(self, device):
+    def tables(self, device):
+        """(sobol, ranking, scrambling) as int32 on ``device``, uploaded once;
+        their sizes in that order are ``TABLE_SIZES``."""
         if device not in self._tables:
             self._tables[device] = tuple(
                 profiler.to_device(self._host[k], device, "sampler.tables")
-                for k in ("sobol", "ranking", "scrambling")
+                for k, _ in self.TABLE_SIZES
             )
         return self._tables[device]
 
     def u1(self, px, py, sample_index, dim):
-        sobol, rank, scram = self._on(px.device)
+        sobol, rank, scram = self.tables(px.device)
         d = int(dim) & 255
         pix8 = ((px & 127) + (py & 127) * 128) * 8
-        ranked = (int(sample_index) & 255) ^ rank[(d + pix8) % (128 * 128 * 8)]
+        ranked = (int(sample_index) & 255) ^ rank[(d + pix8) % self.TILE]
         value = sobol[d + ranked * 256] ^ scram[(d % 8) + pix8]
         return (0.5 + value.to(torch.float32)) / 256.0
 
